@@ -1,0 +1,216 @@
+"""Cascaded continuous-time Gaussian diffusion sampling (counterpart of
+``diffusioniqt_tpu/diffusion/gaussian.py``; reference ``Imagen``,
+imagen_pytorch3D.py:1741-2443), sampling side only.
+
+  * ``p_mean_variance`` with the noise / x_start / v objectives, dynamic
+    thresholding and the z-score ``min_bound`` clamp (:1976-2030)
+  * ancestral ``p_sample`` / ``p_sample_loop`` (:2032-2160) as a Python
+    loop over the steps
+  * cascade ``sample`` with ``start_at_unet_number`` (:2162-2274): the IQT
+    entry points sample unet 2 over a ``NullUnet`` first stage, starting
+    from the lowres patches
+
+Randomness is injected: every sampler takes ``noise(shape) -> tensor``, so
+a test can feed the JAX loop and this one the same numpy noise (the JAX
+loop draws its own, gaussian.py:282,318). :func:`gaussian_noise` makes one
+from a seeded ``torch.Generator``. Training (``p_losses``) is not ported
+yet.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Sequence, Tuple, Union
+
+import torch
+
+from diffusioniqt_tpu_torch.core.schedules import (
+    GaussianDiffusionContinuousTimes,
+    right_pad_dims_to,
+)
+from diffusioniqt_tpu_torch.utils.misc import cast_tuple, pad_tuple_to_length
+
+NoiseFn = Callable[[Tuple[int, ...]], torch.Tensor]
+
+
+def gaussian_noise(generator: torch.Generator) -> NoiseFn:
+    """Standard-normal fp32 noise on the generator's device."""
+    def draw(shape):
+        return torch.randn(shape, generator=generator,
+                           device=generator.device, dtype=torch.float32)
+    return draw
+
+
+class Imagen:
+    """Cascaded DDPM sampler over one or more U-Nets (``nn.Module``s whose
+    forward is ``unet(x, t, log_snr, lowres_cond_img=...)``)."""
+
+    def __init__(
+        self,
+        unets,
+        *,
+        image_sizes: Sequence[int],
+        min_bound: float = 0.0,
+        channels: int = 3,
+        timesteps: Union[int, Sequence[int]] = 1000,
+        noise_schedules: Union[str, Sequence[str]] = "cosine",
+        pred_objectives: Union[str, Sequence[str]] = "noise",
+        dynamic_thresholding: Union[bool, Sequence[bool]] = True,
+        dynamic_thresholding_percentile: float = 0.95,
+        norm: str = "z-score",
+        batch_sample: bool = False,
+    ):
+        unets = list(unets) if isinstance(unets, (list, tuple)) else [unets]
+        num_unets = len(unets)
+        self.channels = channels
+        self.norm = norm
+        self.min_bound = float(min_bound)
+        self.batch_sample = batch_sample
+
+        noise_schedules = cast_tuple(noise_schedules)
+        noise_schedules = pad_tuple_to_length(noise_schedules, 2, "cosine")
+        noise_schedules = pad_tuple_to_length(noise_schedules, num_unets, "linear")
+        timesteps = cast_tuple(timesteps, num_unets)
+        self.noise_schedulers = [
+            GaussianDiffusionContinuousTimes(noise_schedule=s, timesteps=t)
+            for t, s in zip(timesteps, noise_schedules)
+        ]
+        self.pred_objectives = cast_tuple(pred_objectives, num_unets)
+        self.image_sizes = cast_tuple(tuple(image_sizes))
+        if num_unets != len(self.image_sizes):
+            raise ValueError("one image size per unet")
+
+        # cascade conditioning: first unet unconditioned, the rest
+        # lowres-conditioned (reference :1848-1858). The JAX wrapper
+        # re-instantiates the modules; here they must already match.
+        for ind, unet in enumerate(unets):
+            if ind > 0 and not getattr(unet, "lowres_cond", False):
+                raise ValueError(f"unet {ind + 1} must be lowres-conditioned")
+        self.unets = unets
+        self.dynamic_thresholding = cast_tuple(dynamic_thresholding, num_unets)
+        self.dynamic_thresholding_percentile = dynamic_thresholding_percentile
+
+    # ------------------------------------------------------------------
+    def _threshold_x_start(self, x_start, dynamic_threshold: bool):
+        """Dynamic thresholding with min_bound clamp semantics (reference
+        :2006-2026)."""
+        if dynamic_threshold:
+            b = x_start.shape[0]
+            s = torch.quantile(x_start.reshape(b, -1).abs(),
+                               self.dynamic_thresholding_percentile, dim=-1)
+            s = torch.clamp(s, min=(1.0 if self.norm == "min-max" else self.min_bound))
+            s = right_pad_dims_to(x_start, s)
+            return torch.minimum(torch.maximum(x_start, -s), s) / s
+        if self.norm == "min-max":
+            return torch.clamp(x_start, -1.0, 1.0)
+        return torch.clamp(x_start, min=self.min_bound)
+
+    def p_mean_variance(self, unet, x, t, *, noise_scheduler, t_next=None,
+                        lowres_cond_img=None, model_output=None,
+                        pred_objective: str = "noise",
+                        dynamic_threshold: bool = True):
+        """Posterior mean / variance and the predicted x0 (reference
+        :1976-2030)."""
+        pred = model_output
+        if pred is None:
+            pred = unet(x, t, noise_scheduler.get_condition(t),
+                        lowres_cond_img=lowres_cond_img)
+        if pred_objective == "noise":
+            x_start = noise_scheduler.predict_start_from_noise(x, t, pred)
+        elif pred_objective == "x_start":
+            x_start = pred
+        elif pred_objective == "v":
+            x_start = noise_scheduler.predict_start_from_v(x, t, pred)
+        else:
+            raise ValueError(f"unknown objective {pred_objective}")
+        x_start = self._threshold_x_start(x_start, dynamic_threshold)
+        mean_and_variance = noise_scheduler.q_posterior(
+            x_start=x_start, x_t=x, t=t, t_next=t_next)
+        return mean_and_variance, x_start
+
+    def p_sample(self, unet, x, t, *, noise: NoiseFn, noise_scheduler,
+                 t_next=None, **kwargs):
+        """One ancestral step (reference :2032-2056). The noise is drawn on
+        every step, the last included, as the JAX loop does."""
+        b = x.shape[0]
+        (model_mean, _, model_log_variance), x_start = self.p_mean_variance(
+            unet, x, t, noise_scheduler=noise_scheduler, t_next=t_next, **kwargs)
+        eps = noise(tuple(x.shape))
+        nonzero_mask = (1.0 - (t_next == 0).float()).reshape(b, *((1,) * (x.dim() - 1)))
+        pred = model_mean + nonzero_mask * torch.exp(0.5 * model_log_variance) * eps
+        return pred, x_start
+
+    @torch.no_grad()
+    def p_sample_loop(self, unet, shape: Tuple[int, ...], *, noise: NoiseFn,
+                      noise_scheduler: GaussianDiffusionContinuousTimes,
+                      lowres_cond_img=None, pred_objective: str = "noise",
+                      dynamic_threshold: bool = True):
+        """Full ancestral sampling from pure noise (reference :2058-2160)."""
+        batch = shape[0]
+        img = noise(tuple(shape))
+        t_cur, t_next = noise_scheduler.get_sampling_timesteps(batch, img.device)
+        for i in range(t_cur.shape[0]):
+            img, _ = self.p_sample(
+                unet, img, t_cur[i], noise=noise,
+                noise_scheduler=noise_scheduler, t_next=t_next[i],
+                lowres_cond_img=lowres_cond_img, pred_objective=pred_objective,
+                dynamic_threshold=dynamic_threshold,
+            )
+        if self.norm == "min-max":
+            return torch.clamp(img, -1.0, 1.0)
+        return torch.clamp(img, min=self.min_bound)
+
+    def sample(self, *, batch_size: int, noise: NoiseFn,
+               start_at_unet_number: int = 1, start_image_or_video=None,
+               stop_at_unet_number: Optional[int] = None,
+               return_all_outputs: bool = False):
+        """Cascade sampling (reference ``Imagen.sample``, :2162-2274).
+        ``start_image_or_video`` is the lowres input of the first sampled
+        stage when ``start_at_unet_number > 1``."""
+        num_unets = len(self.unets)
+        img = None
+        if start_at_unet_number > 1:
+            if not 1 < start_at_unet_number <= num_unets:
+                raise ValueError(f"start_at_unet_number {start_at_unet_number} "
+                                 f"out of range for {num_unets} unets")
+            if start_image_or_video is None:
+                raise ValueError("starting image must be supplied if only "
+                                 "doing upscaling")
+            img = start_image_or_video
+
+        outputs = []
+        for unet_number in range(start_at_unet_number, num_unets + 1):
+            index = unet_number - 1
+            unet = self.unets[index]
+            lowres = img if getattr(unet, "lowres_cond", False) else None
+            size = self.image_sizes[index]
+            shape = (batch_size,) + (size,) * 3 + (self.channels,)
+            img = self.p_sample_loop(
+                unet, shape, noise=noise,
+                noise_scheduler=self.noise_schedulers[index],
+                lowres_cond_img=lowres,
+                pred_objective=self.pred_objectives[index],
+                dynamic_threshold=self.dynamic_thresholding[index],
+            )
+            outputs.append(img)
+            if stop_at_unet_number == unet_number:
+                break
+        return outputs if return_all_outputs else outputs[-1]
+
+
+def imagen_from_config(cfg, unets) -> Imagen:
+    """The Imagen sampler as the reference entry scripts build it
+    (reference train.py:118-133 / test.py:110-125), without the perceptual
+    losses (training only)."""
+    if getattr(cfg.train, "non_uniform_sampling", False):
+        raise NotImplementedError("non-uniform sampling times are not ported yet")
+    return Imagen(
+        unets,
+        image_sizes=(cfg.train.patch_size_sub, cfg.train.patch_size_sub),
+        min_bound=cfg.data.min_bound,
+        channels=cfg.train.channels,
+        pred_objectives=cfg.train.pred_obj,
+        timesteps=cfg.train.timesteps,
+        dynamic_thresholding=cfg.train.dynamic_threshold,
+        norm=cfg.data.norm,
+        batch_sample=cfg.train.batch_sample,
+    )

@@ -1,0 +1,172 @@
+"""Full-volume inference on the card: the port's counterpart of the root
+``test.py`` (its host path, ``_infer_volume_host``; reference
+test.py:141-256).
+
+A low-field volume is covered by ``patch_size`` windows at stride
+``Eval.overlap``; windows with at least 5% non-zero voxels are split into
+``f^3`` sub-volumes, sampled by the 20-step ancestral sampler over the SR
+U-Net (cascade stage 2 over a ``NullUnet``), merged back and stitched
+(trim or Gaussian). One batch of ``patch_batch`` windows is in flight at a
+time; the last batch is not padded (eager PyTorch needs no fixed shape).
+
+    python -m diffusioniqt_tpu_torch.infer --config config/eval_config.yaml --fake-data
+
+Runs on ``cuda`` unless ``--device cpu`` is given.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from diffusioniqt_tpu_torch.config import load_config
+from diffusioniqt_tpu_torch.data.datasets import (
+    SupervisedIQTInference,
+    load_affine,
+    load_volume,
+    save_volume,
+)
+from diffusioniqt_tpu_torch.data.stitching import VolumeStitcher
+from diffusioniqt_tpu_torch.diffusion.gaussian import (
+    Imagen,
+    NoiseFn,
+    gaussian_noise,
+    imagen_from_config,
+)
+from diffusioniqt_tpu_torch.models.unet3d import NullUnet, iqt_unet_from_config
+from diffusioniqt_tpu_torch.ops.volume import subvolumes_to_volume, volume_to_subvolumes
+from diffusioniqt_tpu_torch.utils.misc import resolve_device
+
+
+def load_unet_state_dict(path: str) -> dict:
+    """SR U-Net weights from a ``.pt`` file: a port or reference ``Unet``
+    state dict, a model-only ``{"state_dict": ...}`` dict, or a trainer
+    bundle ``{"model": imagen_state_dict}`` whose keys are ``unets.1.*``."""
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    for key in ("model", "state_dict"):
+        if isinstance(obj, dict) and key in obj:
+            obj = obj[key]
+    if any(k.startswith("unets.") for k in obj):
+        obj = {k[len("unets.1."):]: v for k, v in obj.items()
+               if k.startswith("unets.1.")}
+    return obj
+
+
+def build_sampler(cfg, device="cuda", checkpoint: Optional[str] = None,
+                  seed: int = 0) -> Imagen:
+    """The IQT cascade sampler with the SR U-Net on ``device``: weights from
+    ``checkpoint``, else random from ``seed``. Raises if CUDA is asked for
+    and missing."""
+    device = resolve_device(device)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        unet = iqt_unet_from_config(cfg, device=device)
+    if checkpoint:
+        unet.load_state_dict(load_unet_state_dict(checkpoint))
+    unet.eval()
+    return imagen_from_config(cfg, (NullUnet(), unet))
+
+
+def infer_volume(cfg, imagen: Imagen, lowres_raw: np.ndarray, *,
+                 noise: NoiseFn, stitch_mode: str = "trim",
+                 patch_batch: int = 8, verbose: bool = True) -> np.ndarray:
+    """Sliding-window sampling + stitching over one raw LR volume. Returns
+    the prediction in normalised (z-score) space, shaped like
+    ``lowres_raw``."""
+    device = next(imagen.unets[-1].parameters()).device
+    dataset = SupervisedIQTInference(cfg, lr_file=None, volume=lowres_raw)
+    items = [it for it in (dataset[i] for i in range(len(dataset)))
+             if it is not None]
+    stitcher = VolumeStitcher(lowres_raw.shape, cfg.train.patch_size,
+                              cfg.eval.overlap, mode=stitch_mode,
+                              fill_value=cfg.data.min_bound)
+    f = cfg.train.batch_sample_factor
+    split = cfg.train.batch_sample and cfg.train.patch_size != cfg.train.patch_size_sub
+    for start in range(0, len(items), patch_batch):
+        chunk = items[start:start + patch_batch]
+        x = torch.from_numpy(np.stack([c[0] for c in chunk])).to(device)
+        if split:
+            x = volume_to_subvolumes(x, f)
+        out = imagen.sample(batch_size=x.shape[0], noise=noise,
+                            start_image_or_video=x, start_at_unet_number=2)
+        if split:
+            out = subvolumes_to_volume(out, f)
+        out_np = out.float().cpu().numpy()
+        for j, (_, idx) in enumerate(chunk):
+            stitcher.add(out_np[j, ..., 0], idx)
+        if verbose:
+            print(f"patches {start + len(chunk)}/{len(items)}")
+    return stitcher.result()
+
+
+def fake_volumes(cfg, edge: int, seed: int = 0):
+    """A synthetic (lowres, highres) raw-intensity pair, as ``test.py
+    --fake-data`` makes it."""
+    rng = np.random.default_rng(seed)
+    std = cfg.data.std
+    highres = np.abs(rng.standard_normal((edge,) * 3)).astype(np.float32) * std
+    lowres = highres + rng.standard_normal(highres.shape).astype(np.float32) * 0.1 * std
+    return lowres, highres
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config", default="./config/eval_config.yaml")
+    ap.add_argument("--checkpoint", default=None,
+                    help="SR U-Net weights (.pt state dict)")
+    ap.add_argument("--lowres", default=None, help="LR NIfTI/.npy path")
+    ap.add_argument("--highres", default=None, help="HR NIfTI/.npy path")
+    ap.add_argument("--output-dir", default=".")
+    ap.add_argument("--stitch", choices=["trim", "gaussian"], default="trim")
+    ap.add_argument("--patch-batch", type=int, default=8,
+                    help="windows denoised together per sampler call")
+    ap.add_argument("--fake-data", action="store_true")
+    ap.add_argument("--fake-edge", type=int, default=None)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    cfg = load_config(args.config)
+    imagen = build_sampler(cfg, device=args.device, checkpoint=args.checkpoint,
+                           seed=args.seed)
+    if not args.checkpoint:
+        print("WARNING: no checkpoint given — sampling with random weights")
+
+    if args.fake_data:
+        edge = args.fake_edge or cfg.train.patch_size + cfg.eval.overlap
+        lowres, highres = fake_volumes(cfg, edge, args.seed)
+        affine = np.eye(4)
+    else:
+        if not (args.lowres and args.highres):
+            ap.error("--lowres and --highres are required without --fake-data")
+        lowres = load_volume(args.lowres)
+        highres = load_volume(args.highres)
+        affine = load_affine(args.highres)
+        if lowres.shape[-1] == 256:
+            low, high = 8, 248  # reference test.py:151-153
+            lowres = lowres[low:high, low:high, low:high]
+            highres = highres[low:high, low:high, low:high]
+    print(f"lowres: {lowres.shape} highres: {highres.shape}")
+
+    device = next(imagen.unets[-1].parameters()).device
+    generator = torch.Generator(device=device).manual_seed(args.seed)
+    start = time.time()
+    pred = infer_volume(cfg, imagen, lowres, noise=gaussian_noise(generator),
+                        stitch_mode=args.stitch, patch_batch=args.patch_batch)
+    print(f"TIME: {time.time() - start}")
+
+    mean, std = cfg.data.mean, cfg.data.std
+    os.makedirs(args.output_dir, exist_ok=True)
+    for name, vol in (("volume_inf", pred), ("volume_gt", (highres - mean) / std),
+                      ("volume_lr", (lowres - mean) / std)):
+        np.save(os.path.join(args.output_dir, f"{name}.npy"), vol)
+        save_volume(os.path.join(args.output_dir, f"{name}.nii.gz"), vol, affine)
+
+
+if __name__ == "__main__":
+    main()

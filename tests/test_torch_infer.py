@@ -1,0 +1,99 @@
+"""The port's inference entry point (diffusioniqt_tpu_torch/infer.py) on
+the CPU at a tiny size: its stitched volume equals the JAX package's
+``VolumeStitcher`` fed the same per-window outputs, and ``main()`` runs
+end to end with ``--device cpu``."""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+import yaml
+
+from diffusioniqt_tpu.config import load_config as j_load_config
+from diffusioniqt_tpu.data.datasets import SupervisedIQTInference as JInference
+from diffusioniqt_tpu.data.stitching import VolumeStitcher as JStitcher
+from diffusioniqt_tpu_torch import infer
+from diffusioniqt_tpu_torch.config import load_config
+from diffusioniqt_tpu_torch.diffusion.gaussian import gaussian_noise
+from diffusioniqt_tpu_torch.ops.volume import subvolumes_to_volume
+
+torch.set_num_threads(1)
+
+TINY = {"dim": 8, "init_dim": 8, "dim_mults": (1, 2), "num_resnet_blocks": (1, 1),
+        "resnet_groups": 4, "patch_size_sub": 4, "timesteps": 2,
+        "compute_dtype": "float32", "att_enc": (False, False)}
+
+
+def _tiny(cfg):
+    for k, v in TINY.items():
+        setattr(cfg.train, k, v)
+    cfg.eval.overlap = 8
+    return cfg
+
+
+class _Recorder:
+    """Wraps ``Imagen.sample`` and keeps every output it returns."""
+
+    def __init__(self, imagen):
+        self.outputs = []
+        self._sample = imagen.sample
+        imagen.sample = self
+
+    def __call__(self, **kw):
+        out = self._sample(**kw)
+        self.outputs.append(out)
+        return out
+
+
+@pytest.mark.parametrize("mode,patch_batch", [("trim", 3), ("gaussian", 8)])
+def test_infer_volume_matches_jax_stitcher(mode, patch_batch):
+    cfg = _tiny(load_config("config/eval_config.yaml"))
+    imagen = infer.build_sampler(cfg, device="cpu", seed=0)
+    rec = _Recorder(imagen)
+    lowres, _ = infer.fake_volumes(cfg, 20, seed=1)
+    pred = infer.infer_volume(cfg, imagen, lowres, stitch_mode=mode,
+                              patch_batch=patch_batch, verbose=False,
+                              noise=gaussian_noise(torch.Generator().manual_seed(0)))
+    assert pred.shape == lowres.shape and np.isfinite(pred).all()
+
+    jcfg = _tiny(j_load_config("config/eval_config.yaml"))
+    items = [it for it in (JInference(jcfg, None, volume=lowres)[i]
+                           for i in range(8)) if it is not None]
+    windows = np.concatenate([subvolumes_to_volume(o, 3).numpy() for o in rec.outputs])
+    assert len(rec.outputs) == -(-len(items) // patch_batch)
+    assert windows.shape == (len(items), 12, 12, 12, 1)
+    stitcher = JStitcher(lowres.shape, jcfg.train.patch_size, jcfg.eval.overlap,
+                         mode=mode, fill_value=jcfg.data.min_bound)
+    for (_, idx), window in zip(items, windows):
+        stitcher.add(window[..., 0], idx)
+    np.testing.assert_array_equal(pred, stitcher.result())
+
+
+def test_main_runs_on_cpu(tmp_path):
+    raw = yaml.safe_load(open("config/eval_config.yaml"))
+    raw["Train"].update({k: list(v) if isinstance(v, tuple) else v
+                         for k, v in TINY.items()})
+    raw["Eval"]["overlap"] = 8
+    cfg_path = tmp_path / "tiny.yaml"
+    cfg_path.write_text(yaml.safe_dump(raw))
+    out = tmp_path / "out"
+    infer.main(["--config", str(cfg_path), "--fake-data", "--fake-edge", "20",
+                "--device", "cpu", "--output-dir", str(out), "--patch-batch", "4"])
+    for name in ("volume_inf", "volume_gt", "volume_lr"):
+        vol = np.load(out / f"{name}.npy")
+        assert vol.shape == (20, 20, 20) and np.isfinite(vol).all()
+        assert os.path.exists(out / f"{name}.nii.gz")
+
+
+def test_checkpoint_formats_load(tmp_path):
+    cfg = _tiny(load_config("config/eval_config.yaml"))
+    sd = infer.build_sampler(cfg, device="cpu", seed=3).unets[1].state_dict()
+    bundle = tmp_path / "bundle.pt"
+    torch.save({"model": {f"unets.1.{k}": v for k, v in sd.items()}}, bundle)
+    raw = tmp_path / "raw.pt"
+    torch.save(sd, raw)
+    for path in (bundle, raw):
+        loaded = infer.build_sampler(cfg, device="cpu", seed=0, checkpoint=str(path))
+        for k, v in loaded.unets[1].state_dict().items():
+            assert torch.equal(v, sd[k]), k
