@@ -4,28 +4,36 @@
 
 Phases, each of which raises (and exits non-zero) on failure:
 
-  env      torch / CUDA versions, the card's name and power limit
-  build    nvcc builds the three kernels from ``diffusioniqt_tpu_torch/csrc``
-  kernels  each kernel against its plain PyTorch version at every shape the
-           serve phase gives it (bf16, batch 8 windows x 27 sub-volumes),
-           with kernel, plain, library and bound times
-  forward  the full-width ``config/eval_config.yaml`` UNet3D (seeded random
-           weights, bf16) on one 27 x 32^3 group, through the kernels and
-           through the plain versions; launches per forward must be
-           38 fused blocks, 39 halos, 1 conv3d
-  serve    ``diffusioniqt_tpu_torch.infer.infer_volume`` on a seeded fake
-           128^3 volume: 8 windows of 96^3, 20 sampler steps, full width;
-           launch counters are zeroed just before and read just after
+  env           torch / CUDA versions, the card's name and power limit
+  build         nvcc builds the four kernels from ``diffusioniqt_tpu_torch/csrc``,
+                one process per source, all started together
+  kernels       each kernel against its plain PyTorch version at every shape
+                the serve phases give it (bf16, batch 8 windows x 27
+                sub-volumes; attention over 8 windows x 8 heads), with
+                kernel, plain, library and bound times
+  forward       the full-width ``config/eval_config.yaml`` UNet3D (seeded
+                random weights, bf16) on one 27 x 32^3 group, through the
+                kernels and through the plain versions; launches per forward
+                must be 38 fused blocks, 39 halos, 1 conv3d
+  forward-attn  the same for ``diffusioniqt_tpu_torch/configs/eval_attn_softmax.yaml``
+                (softmax attention in the three encoder slots and the
+                middle, plus the mid ResnetBlock): 40 fused blocks, 41
+                halos, 1 conv3d, 4 flash attentions
+  forward-vit   that config with ``att_type: vit``: the same counts
+  serve         ``diffusioniqt_tpu_torch.infer.infer_volume`` on a seeded fake
+                128^3 volume: 8 windows of 96^3, 20 sampler steps, full width;
+                launch counters are zeroed just before and read just after
+  serve-attn    the same with the attention config
 
 ``python3 chip_smoke.py --profile`` also prints a ``torch.profiler``
-breakdown of one forward at the serve batch, 8 x 27 x 32^3 (device time by
-kernel, device busy share).
+breakdown of one forward of each of the two configs at the serve batch,
+8 x 27 x 32^3 (device time by kernel, device busy share).
 
 The line before the last is ``{"kernels": [...]}`` (per kernel: launches in
-the serve run, max abs error against the plain version, times in ms at the
-main path's heaviest shape for that kernel, the bound and what sets it); the
-last line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX or
-of ``diffusioniqt_tpu``. Exits non-zero without CUDA.
+the serve run of its path, max abs error against the plain version, times
+in ms at the main path's heaviest shape for that kernel, the bound and what
+sets it); the last line is ``{"ok": true, "device": {...}}``. Imports
+nothing of JAX or of ``diffusioniqt_tpu``. Exits non-zero without CUDA.
 """
 
 from __future__ import annotations
@@ -52,21 +60,41 @@ BF16_TOL = 2.0 ** -7
 # whole forward, kernels vs plain versions: bf16 rounding differences
 # compound through 39 convs, 19 GroupNorms and the SE gates
 FORWARD_REL_TOL = 5e-2
+# flash attention: the kernel rounds the unnormalised probabilities to bf16
+# before P V and the plain version the normalised ones (2^-9 relative per
+# term, averaging out over the 1728 terms of a row), and each side rounds
+# its output to bf16 once. The outputs may then differ by one bf16 ulp,
+# which at any magnitude m <= max|plain| is at most 2^-7 * max|plain|.
+FLASH_TOL = 2.0 ** -7
 
 SUB = 32                 # sub-volume edge on the main path
 GROUP = 27               # one 96^3 window = 27 sub-volumes
 WINDOWS = 8              # windows per sampler call in the serve phase
 BATCH = GROUP * WINDOWS  # the kernels' batch on the serve path
-HALO_SHAPES = [(32, 2), (32, 64), (32, 128), (16, 64), (16, 128), (16, 192), (8, 128)]
+HALO_SHAPES = [(32, 2), (32, 64), (32, 128), (16, 64), (16, 128), (16, 192), (8, 128),
+               (8, 256)]
 CONV_SHAPES = [(32, 2, 64)]
 FUSED_SHAPES = [(32, 64, 64), (32, 128, 64), (16, 64, 64), (16, 192, 128),
-                (16, 128, 128), (8, 128, 128)]
+                (16, 128, 128), (8, 128, 128), (8, 256, 256)]
+# every attention slot of the attention config: 8 windows x 8 heads, 12^3
+# patch tokens, head dim 64
+FLASH_SHAPES = [(WINDOWS * 8, 1728, 64)]
 REPLACES = {
     "halo": "diffusioniqt_tpu/ops/pallas/halo.py:103",
     "conv3d": "diffusioniqt_tpu/ops/pallas/conv3d.py:83",
     "fused_block": "diffusioniqt_tpu/ops/pallas/fused_block.py:272",
+    "flash_attention": "diffusioniqt_tpu/ops/pallas/flash_attention.py:90",
 }
-HEADLINE = {"halo": (32, 64), "conv3d": (32, 2, 64), "fused_block": (32, 64, 64)}
+HEADLINE = {"halo": (32, 64), "conv3d": (32, 2, 64), "fused_block": (32, 64, 64),
+            "flash_attention": (1728, 64)}
+FLAGSHIP_CONFIG = os.path.join("config", "eval_config.yaml")
+ATTN_CONFIG = os.path.join("diffusioniqt_tpu_torch", "configs", "eval_attn_softmax.yaml")
+# launches per forward of one 27-sub-volume group
+FLAGSHIP_COUNTS = {"halo": 39, "conv3d": 1, "fused_block": 38, "flash_attention": 0}
+ATTN_COUNTS = {"halo": 41, "conv3d": 1, "fused_block": 40, "flash_attention": 4}
+# device-kernel name of each hand-written kernel, for the profile's layers
+LAYERS = {"fused_block": "igemm::conv_kernel<true", "conv3d": "igemm::conv_kernel<false",
+          "halo": "halo_kernel", "flash_attention": "flash_kernel"}
 
 
 def phase(name: str) -> float:
@@ -108,7 +136,27 @@ def compare(name: str, shape, got, want, tol_rel: float) -> dict:
     return {"max_abs_err": err, "tol": tol}
 
 
-def profile_forward(fn) -> None:
+def slots_ms(fn, modules) -> float:
+    """Device time inside ``modules`` during one ``fn()``: CUDA events that
+    forward hooks record around each call (one stream, and the modules do
+    not nest, so each pair of events brackets one module's kernels)."""
+    events = []
+
+    def mark(*_):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+
+    hooks = [h for m in modules for h in (m.register_forward_pre_hook(mark),
+                                          m.register_forward_hook(mark))]
+    fn()
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    return sum(a.elapsed_time(b) for a, b in zip(events[::2], events[1::2]))
+
+
+def profile_forward(label: str, fn) -> None:
     """Device time of one ``fn()`` by kernel name, and the device's busy
     share of the wall time (kernels on one stream do not overlap)."""
     from torch.autograd import DeviceType
@@ -125,15 +173,13 @@ def profile_forward(fn) -> None:
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
-    print(f"profile: {plain_ms:.3f} ms per call unprofiled, {wall_ms:.3f} ms profiled; "
-          f"device busy {busy_ms:.3f} ms = {100 * busy_ms / plain_ms:.1f}% of the "
-          f"unprofiled call")
-    layers = {"fused_block": "igemm::conv_kernel<true", "conv3d": "igemm::conv_kernel<false",
-              "halo": "halo_kernel"}
-    for layer, tag in layers.items():
+    print(f"profile {label}: {plain_ms:.3f} ms per call unprofiled, {wall_ms:.3f} ms "
+          f"profiled; device busy {busy_ms:.3f} ms = {100 * busy_ms / plain_ms:.1f}% of "
+          f"the unprofiled call")
+    for layer, tag in LAYERS.items():
         ms = sum(r[1] for r in rows if tag in r[0])
         print(f"  layer {layer}: {ms:.3f} ms ({100 * ms / busy_ms:.1f}% of busy)")
-    other = sum(r[1] for r in rows if not any(t in r[0] for t in layers.values()))
+    other = sum(r[1] for r in rows if not any(t in r[0] for t in LAYERS.values()))
     print(f"  layer plain torch ops: {other:.3f} ms ({100 * other / busy_ms:.1f}% of busy)")
     for key, ms, count in rows[:25]:
         print(f"  {ms:9.3f} ms {100 * ms / busy_ms:5.1f}% x{count:4d}  {key[:100]}")
@@ -244,88 +290,132 @@ def main() -> int:
                cuda_time_ms(lambda: kernels.fused_conv(xh, a_tab, b_tab, w)),
                cuda_time_ms(lambda: kernels.fused_conv_plain(xh, a_tab, b_tab, w), iters=3),
                None, bound_ms(flops, nbytes(xh, a_tab, b_tab, w.to(torch.bfloat16), got)))
+
+    for bh, n, d in FLASH_SHAPES:
+        q, k, v = (torch.randn((bh, n, d), generator=gen, device=dev).to(torch.bfloat16)
+                   for _ in range(3))
+        scale = d ** -0.5
+        got = kernels.flash_attention(q, k, v, scale)
+        want = kernels.attention_plain(q, k, v, scale)
+        torch.cuda.synchronize()
+        stats = compare("flash_attention", (bh, n, d), got, want, FLASH_TOL)
+        # the library yardstick: one SDPA call over (windows, heads, N, D)
+        q4, k4, v4 = (a.view(WINDOWS, bh // WINDOWS, n, d) for a in (q, k, v))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        record("flash_attention", (bh, n, d), stats,
+               cuda_time_ms(lambda: kernels.flash_attention(q, k, v, scale)),
+               cuda_time_ms(lambda: kernels.attention_plain(q, k, v, scale), iters=3),
+               cuda_time_ms(lambda: sdpa(q4, k4, v4, scale=scale)),
+               bound_ms(4.0 * bh * n * n * d, nbytes(q, k, v, got)))
     print(f"kernels seconds {time.perf_counter() - t0:.1f}", flush=True)
 
-    # ------------------------------------------------------------ forward
-    phase("forward")
-    cfg = load_config(os.path.join(ROOT, "config", "eval_config.yaml"))
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(0)
-        model = iqt_unet_from_config(cfg, device=dev).eval()
-    x, lowres = (torch.randn((BATCH, SUB, SUB, SUB, 1), generator=gen, device=dev)
-                 for _ in range(2))
-    t = torch.full((BATCH,), 0.5, device=dev)
-    log_snr = torch.full((BATCH,), -1.0, device=dev)
-    if "--profile" in sys.argv[1:]:
+    def held_forward(label, cfg, want_counts, profile):
+        """One 27 x 32^3 window through the kernels and through the plain
+        versions: exact launch counts, agreement within FORWARD_REL_TOL."""
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            model = iqt_unet_from_config(cfg, device=dev).eval()
+        x, lowres = (torch.randn((BATCH, SUB, SUB, SUB, 1), generator=gen, device=dev)
+                     for _ in range(2))
+        t = torch.full((BATCH,), 0.5, device=dev)
+        log_snr = torch.full((BATCH,), -1.0, device=dev)
+        if profile and "--profile" in sys.argv[1:]:
+            with torch.no_grad():
+                call = lambda: model(x, t, log_snr, lowres_cond_img=lowres)  # noqa: E731
+                profile_forward(label, call)
+                slots = [d[2] for d in model.downs if not isinstance(d[2], torch.nn.Identity)]
+                slots += [model.mid_attn] if model.mid_attn is not None else []
+                if slots:
+                    print(f"  attention slots (CUDA events): {slots_ms(call, slots):.3f} ms "
+                          f"of one forward, {len(slots)} slots", flush=True)
+        # the held forward: one window's 27 sub-volumes
+        x, lowres, t, log_snr = x[:GROUP], lowres[:GROUP], t[:GROUP], log_snr[:GROUP]
         with torch.no_grad():
-            profile_forward(lambda: model(x, t, log_snr, lowres_cond_img=lowres))
-    # the held forward: one window's 27 sub-volumes
-    x, lowres, t, log_snr = x[:GROUP], lowres[:GROUP], t[:GROUP], log_snr[:GROUP]
-    with torch.no_grad():
-        kernels.reset_launch_counts()
-        out_k = model(x, t, log_snr, lowres_cond_img=lowres)
-        torch.cuda.synchronize()
-        per_forward = kernels.launch_counts()
-        print(f"launches per forward {per_forward}")
-        if per_forward != {"halo": 39, "conv3d": 1, "fused_block": 38}:
-            raise AssertionError(f"launches per forward {per_forward}, "
-                                 "expected halo 39, conv3d 1, fused_block 38")
-        fwd_ms = cuda_time_ms(lambda: model(x, t, log_snr, lowres_cond_img=lowres),
-                              iters=5, warmup=1)
-        model.use_ops(kernels.PLAIN)
-        out_p = model(x, t, log_snr, lowres_cond_img=lowres)
-        plain_fwd_ms = cuda_time_ms(lambda: model(x, t, log_snr, lowres_cond_img=lowres),
-                                    iters=2, warmup=0)
-        model.use_ops(kernels.KERNELS)
-    rel = ((out_k - out_p).abs().max() / out_p.abs().max()).item()
-    print(f"forward out {tuple(out_k.shape)} {out_k.dtype} finite "
-          f"{bool(torch.isfinite(out_k).all())} max_rel_err_vs_plain {rel:.3e} "
-          f"(tol {FORWARD_REL_TOL})")
-    print(f"ms per forward (27x32^3, bf16): kernels {fwd_ms:.3f} plain {plain_fwd_ms:.3f}",
-          flush=True)
-    if not (torch.isfinite(out_k).all() and rel <= FORWARD_REL_TOL):
-        raise AssertionError("forward through the kernels disagrees with the plain path")
-    del model, out_k, out_p
+            kernels.reset_launch_counts()
+            out_k = model(x, t, log_snr, lowres_cond_img=lowres)
+            torch.cuda.synchronize()
+            per_forward = kernels.launch_counts()
+            print(f"launches per forward {per_forward}")
+            if per_forward != want_counts:
+                raise AssertionError(f"launches per forward {per_forward}, "
+                                     f"expected {want_counts}")
+            fwd_ms = cuda_time_ms(lambda: model(x, t, log_snr, lowres_cond_img=lowres),
+                                  iters=5, warmup=1)
+            model.use_ops(kernels.PLAIN)
+            out_p = model(x, t, log_snr, lowres_cond_img=lowres)
+            plain_fwd_ms = cuda_time_ms(lambda: model(x, t, log_snr, lowres_cond_img=lowres),
+                                        iters=2, warmup=0)
+            model.use_ops(kernels.KERNELS)
+        rel = ((out_k - out_p).abs().max() / out_p.abs().max()).item()
+        print(f"forward out {tuple(out_k.shape)} {out_k.dtype} finite "
+              f"{bool(torch.isfinite(out_k).all())} max_rel_err_vs_plain {rel:.3e} "
+              f"(tol {FORWARD_REL_TOL})")
+        print(f"ms per forward (27x32^3, bf16): kernels {fwd_ms:.3f} plain {plain_fwd_ms:.3f}",
+              flush=True)
+        if not (torch.isfinite(out_k).all() and rel <= FORWARD_REL_TOL):
+            raise AssertionError(f"{label}: forward through the kernels disagrees with "
+                                 "the plain path")
 
-    # -------------------------------------------------------------- serve
+    def serve(cfg, per_forward):
+        """infer_volume on the seeded fake 128^3 volume; the launches must be
+        ``per_forward`` times the forwards the sampler ran."""
+        edge, steps, windows_per_batch = 128, cfg.train.timesteps, WINDOWS
+        imagen = build_sampler(cfg, device=dev, seed=0)
+        lowres_vol, _ = fake_volumes(cfg, edge, seed=0)
+        noise = gaussian_noise(torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t_serve = time.perf_counter()
+        pred = infer_volume(cfg, imagen, lowres_vol, noise=noise,
+                            patch_batch=windows_per_batch, verbose=False)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t_serve
+        served = kernels.launch_counts()
+        n_windows = ((edge - cfg.train.patch_size) // cfg.eval.overlap + 1) ** 3
+        n_calls = -(-n_windows // windows_per_batch)
+        print(f"windows {n_windows} steps {steps} width dim={cfg.train.dim} "
+              f"mults={cfg.train.dim_mults} nothing cut")
+        print(f"serve seconds {serve_s:.3f} ms per denoise step "
+              f"{serve_s * 1e3 / (steps * n_calls):.3f} ({n_calls} sampler call(s) of "
+              f"{min(n_windows, windows_per_batch)} windows)")
+        print(f"output {pred.shape} finite {bool(np.isfinite(pred).all())} "
+              f"launches {served}", flush=True)
+        want_counts = {k: n * steps * n_calls for k, n in per_forward.items()}
+        if pred.shape != (edge,) * 3 or not np.isfinite(pred).all():
+            raise AssertionError("serve output is not a finite volume of the input's shape")
+        if served != want_counts:
+            raise AssertionError(f"serve launches {served}, expected {want_counts}")
+        return served
+
+    cfg = load_config(os.path.join(ROOT, FLAGSHIP_CONFIG))
+    cfg_attn = load_config(os.path.join(ROOT, ATTN_CONFIG))
+    cfg_vit = load_config(os.path.join(ROOT, ATTN_CONFIG))
+    cfg_vit.train.att_type = "vit"
+
+    phase("forward")
+    held_forward("flagship", cfg, FLAGSHIP_COUNTS, profile=True)
+    phase("forward-attn")
+    held_forward("attention", cfg_attn, ATTN_COUNTS, profile=True)
+    phase("forward-vit")
+    held_forward("vit", cfg_vit, ATTN_COUNTS, profile=False)
     phase("serve")
-    edge, steps, windows_per_batch = 128, cfg.train.timesteps, WINDOWS
-    imagen = build_sampler(cfg, device=dev, seed=0)
-    lowres_vol, _ = fake_volumes(cfg, edge, seed=0)
-    noise = gaussian_noise(torch.Generator(device=dev).manual_seed(0))
-    torch.cuda.synchronize()
-    kernels.reset_launch_counts()
-    t_serve = time.perf_counter()
-    pred = infer_volume(cfg, imagen, lowres_vol, noise=noise,
-                        patch_batch=windows_per_batch, verbose=False)
-    torch.cuda.synchronize()
-    serve_s = time.perf_counter() - t_serve
-    served = kernels.launch_counts()
-    n_windows = ((edge - cfg.train.patch_size) // cfg.eval.overlap + 1) ** 3
-    n_calls = -(-n_windows // windows_per_batch)
-    print(f"windows {n_windows} steps {steps} width dim={cfg.train.dim} "
-          f"mults={cfg.train.dim_mults} nothing cut")
-    print(f"serve seconds {serve_s:.3f} ms per denoise step "
-          f"{serve_s * 1e3 / (steps * n_calls):.3f} ({n_calls} sampler call(s) of "
-          f"{min(n_windows, windows_per_batch)} windows)")
-    print(f"output {pred.shape} finite {bool(np.isfinite(pred).all())} "
-          f"launches {served}", flush=True)
-    want_counts = {"halo": 39 * steps * n_calls, "conv3d": steps * n_calls,
-                   "fused_block": 38 * steps * n_calls}
-    if pred.shape != (edge,) * 3 or not np.isfinite(pred).all():
-        raise AssertionError("serve output is not a finite volume of the input's shape")
-    if served != want_counts:
-        raise AssertionError(f"serve launches {served}, expected {want_counts}")
+    served = serve(cfg, FLAGSHIP_COUNTS)
+    phase("serve-attn")
+    served_attn = serve(cfg_attn, ATTN_COUNTS)
 
     # ------------------------------------------------------------- report
     line = []
-    for name in ("halo", "conv3d", "fused_block"):
+    for name in ("halo", "conv3d", "fused_block", "flash_attention"):
         rows = results[name]
         head = next(r for r in rows if tuple(r["shape"][1:]) == HEADLINE[name])
         line.append({
             "name": name, "route": "cuda",
             "source": f"diffusioniqt_tpu_torch/csrc/{name}.cu",
-            "replaces": REPLACES[name], "launches": served[name],
+            "replaces": REPLACES[name],
+            # the serve run of the kernel's own path: the flagship for the
+            # conv kernels, the attention config for flash attention
+            "launches": (served_attn if name == "flash_attention" else served)[name],
+            "launches_by_path": {"serve": served[name], "serve-attn": served_attn[name]},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "tolerance": head["tol"],
             "ms": head["ms"], "plain_ms": head["plain_ms"],

@@ -7,9 +7,9 @@ JAX), and mirrors its module layout so each module has a counterpart there.
 
 Layout convention, as in the JAX package: volumes are channels-last
 ``(B, X, Y, Z, C)``, and a split 96^3 patch is 27 sub-volumes in the order
-``b = (gx*f + gy)*f + gz``. The 3^3 convolutions of the main path run
-through hand-written CUDA kernels (``ops/kernels``); their plain PyTorch
-versions serve CPU tensors.
+``b = (gx*f + gy)*f + gz``. The 3^3 convolutions and the softmax attention
+of the U-Net run through hand-written CUDA kernels (``ops/kernels``); their
+plain PyTorch versions serve CPU tensors.
 """
 
 __version__ = "0.1.0"

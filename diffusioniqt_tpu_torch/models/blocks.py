@@ -9,6 +9,7 @@ reads a port ``state_dict`` directly:
   ResnetBlock           time_mlp.1, block1, block2, se.fc.{0,2}, res_conv
   Downsample            1 (the 1x1 conv after the pixel unshuffle)
   PixelShuffleUpsample  net.0 (the 1x1 conv before Mish + pixel shuffle)
+  ChanLayerNorm         g
 
 Dense layers and 1x1 convs run in the activation's dtype (the JAX
 modules' ``dtype=compute_dtype``) with fp32 parameters cast per call; every
@@ -68,6 +69,30 @@ class LearnedSinusoidalPosEmb(nn.Module):
         x = x[:, None].float()
         freqs = x * self.weights[None, :] * 2 * math.pi
         return torch.cat([x, freqs.sin(), freqs.cos()], dim=-1)
+
+
+class ChanLayerNorm(nn.Module):
+    """LayerNorm over the channel axis only: fp32 mean and biased variance,
+    eps 1e-5, learned scale ``g`` ``(C,)``, no bias, result in the input's
+    dtype (reference imagen_pytorch3D.py:361-382). A ``g`` of another
+    shape with C elements (the reference keeps singleton spatial axes)
+    loads too."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.g = nn.Parameter(torch.ones(dim))
+        self.eps = eps
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        key = prefix + "g"
+        if key in state_dict and state_dict[key].numel() == self.g.numel():
+            state_dict[key] = state_dict[key].reshape(self.g.shape)
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        var, mean = torch.var_mean(x32, dim=-1, unbiased=False, keepdim=True)
+        return ((x32 - mean) * torch.rsqrt(var + self.eps) * self.g).to(x.dtype)
 
 
 def subvol_group_norm(x: torch.Tensor, scale: torch.Tensor, groups: int,

@@ -1,21 +1,28 @@
 """The 3D IQT U-Net on the split-boundary path (counterpart of
 ``diffusioniqt_tpu/models/unet3d.py``), channels-last.
 
-Covers the configurations ``config/eval_config.yaml`` runs: plain 3^3 init
-conv, learned-sinusoidal time embedding, per level an init ResnetBlock and
-``num_resnet_blocks`` more, SP-conv downsample, pixel-shuffle upsample with
-skip concat, a final ResnetBlock and a 1x1 output conv in fp32. With
-``boundary`` every 3^3 conv is a halo exchange over the ``factor^3``
-sub-volume grid followed by a VALID conv (kernels in ``ops/kernels``);
-without it the same kernels run with ``factor=1``, which is a SAME conv.
+Covers the configurations ``config/eval_config.yaml`` and
+``diffusioniqt_tpu_torch/configs/eval_attn_softmax.yaml`` run: plain 3^3
+init conv, learned-sinusoidal time embedding, per level an init
+ResnetBlock, an optional attention slot and ``num_resnet_blocks`` more
+ResnetBlocks, SP-conv downsample, the optional ``deep_feature`` middle
+(attention + ResnetBlock), pixel-shuffle upsample with skip concat, a final
+ResnetBlock and a 1x1 output conv in fp32. With ``boundary`` every 3^3 conv
+is a halo exchange over the ``factor^3`` sub-volume grid followed by a VALID
+conv (kernels in ``ops/kernels``); without it the same kernels run with
+``factor=1``, which is a SAME conv. Attention (``models/attention.py``,
+``att_type`` linear / softmax / vit) runs on the merged volume of each
+group of ``batch_sample_factor^3`` sub-volumes; softmax attention goes
+through the flash-attention kernel.
 
-Not ported yet (raise ``NotImplementedError``): attention slots, the
-merged-boundary layout, ``memory_efficient`` pre-downsampling, the
-cross-embed stem and the deconv upsample.
+Not ported yet (raise ``NotImplementedError``): the merged-boundary layout,
+``memory_efficient`` pre-downsampling, the cross-embed stem and the deconv
+upsample. The port is inference only: the attention dropout rates are
+accepted and not applied.
 
 Module and parameter names are the reference ``Unet``'s
 (imagen_pytorch3D.py:1188-1737): ``init_conv``, ``to_time_hiddens.{0,1}``,
-``to_time_cond.0``, ``downs.{i}.{1,3,4}``, ``mid_block``,
+``to_time_cond.0``, ``downs.{i}.{1,2,3,4}``, ``mid_attn``, ``mid_block``,
 ``ups.{i}.{0,1,2}``, ``final_res_block``, ``final_conv``.
 """
 
@@ -26,6 +33,7 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 import torch.nn as nn
 
+from diffusioniqt_tpu_torch.models.attention import AttentionTransformerBlock, ViT3D
 from diffusioniqt_tpu_torch.models.blocks import (
     Dense,
     Downsample,
@@ -36,11 +44,12 @@ from diffusioniqt_tpu_torch.models.blocks import (
 )
 from diffusioniqt_tpu_torch.ops.kernels import KERNELS, Ops
 from diffusioniqt_tpu_torch.ops.kernels.conv3d import PackedWeight
+from diffusioniqt_tpu_torch.ops.volume import subvolumes_to_volume, volume_to_subvolumes
 from diffusioniqt_tpu_torch.utils.misc import cast_tuple, mish, resolve_device
 
 
 class UNet3D(nn.Module):
-    """3D conditional diffusion U-Net (split-boundary, no attention)."""
+    """3D conditional diffusion U-Net (split-boundary)."""
 
     def __init__(
         self,
@@ -63,6 +72,18 @@ class UNet3D(nn.Module):
         deep_feature: bool = False,
         attend_at_middle: bool = False,
         attend_at_enc: Union[bool, Sequence[bool]] = False,
+        att_type: str = "vit",
+        attn_dim_head: int = 64,
+        attend_at_middle_depth: int = 1,
+        attend_at_middle_heads: int = 8,
+        attend_at_enc_depth: Union[int, Sequence[int]] = 1,
+        attend_at_enc_heads: Union[int, Sequence[int]] = 8,
+        att_drop: float = 0.1,
+        att_forward_drop: float = 0.3,
+        att_forward_expansion: int = 2,
+        att_localvit: bool = True,
+        init_patch_size: int = 8,
+        use_flash: bool = True,
         merged_boundary: bool = False,
         memory_efficient: bool = False,
         init_cross_embed: bool = False,
@@ -73,10 +94,8 @@ class UNet3D(nn.Module):
     ):
         super().__init__()
         num_layers = len(dim_mults)
+        del att_drop, att_forward_drop  # inference only: no dropout
         unsupported = {
-            "attention (attend_at_enc)": any(cast_tuple(attend_at_enc, num_layers)),
-            "attention (attend_at_middle with deep_feature)":
-                deep_feature and attend_at_middle,
             "merged_boundary": merged_boundary and boundary and batch_sample,
             "memory_efficient": memory_efficient,
             "the cross-embed stem": init_cross_embed,
@@ -123,21 +142,50 @@ class UNet3D(nn.Module):
             return ResnetBlock(d_in, d_out, time_cond_dim=time_cond_dim,
                                groups=g, use_se=use_se, factor=factor)
 
+        def attention(d, depth, heads, img, patch):
+            if att_type == "vit":
+                return ViT3D(d, patch_size=patch, num_heads=heads,
+                             dim_head=attn_dim_head, img_size=img, depth=depth,
+                             forward_expansion=att_forward_expansion,
+                             local=att_localvit)
+            return AttentionTransformerBlock(
+                d, att_type=att_type, depth=depth, heads=heads,
+                dim_head=attn_dim_head, ff_mult=att_forward_expansion,
+                patch_size=patch, patch=True, use_flash=use_flash)
+
+        # the merged volume's edge and the attention patch size per level
+        cur_size, patch_size = img_size, init_patch_size
+        self.attend_enc = cast_tuple(attend_at_enc, num_layers)
+        if any(self.attend_enc):
+            # read only when a slot is on: with attention off a config may
+            # carry per-level lists of another length, which go unused
+            enc_depth = cast_tuple(attend_at_enc_depth, num_layers)
+            enc_heads = cast_tuple(attend_at_enc_heads, num_layers)
+
         # downs.{i} = [pre-downsample, init block, attention, blocks, post]
         self.downs = nn.ModuleList()
         for ind, (dim_in, dim_out) in enumerate(in_out):
             is_last = ind == num_layers - 1
             post = (PointwiseConv(dim_in, dim_out) if is_last
                     else Downsample(dim_in, dim_out))
+            attn = (attention(dim_in, enc_depth[ind], enc_heads[ind], cur_size,
+                              patch_size)
+                    if self.attend_enc[ind] else nn.Identity())
             self.downs.append(nn.ModuleList([
                 nn.Identity(),
                 resnet(dim_in, dim_in, groups[ind]),
-                nn.Identity(),
+                attn,
                 nn.ModuleList([resnet(dim_in, dim_in, groups[ind])
                                for _ in range(num_blocks[ind])]),
                 post,
             ]))
+            if not is_last:
+                cur_size //= 2
+                patch_size = max(patch_size // 2, 1)
 
+        self.mid_attn = (attention(mid_dim, attend_at_middle_depth,
+                                   attend_at_middle_heads, cur_size, patch_size)
+                         if deep_feature and attend_at_middle else None)
         # the JAX mid ResnetBlock has no squeeze-excite
         self.mid_block = (resnet(mid_dim, mid_dim, groups[-1], use_se=False)
                           if deep_feature else None)
@@ -170,11 +218,26 @@ class UNet3D(nn.Module):
 
     # ------------------------------------------------------------------
     def use_ops(self, ops: Ops) -> "UNet3D":
-        """Route every 3^3 conv through ``ops`` (``KERNELS`` or ``PLAIN``)."""
+        """Route every 3^3 conv and softmax attention through ``ops``
+        (``KERNELS`` or ``PLAIN``)."""
         for m in self.modules():
             if hasattr(m, "ops"):
                 m.ops = ops
         return self
+
+    def _attend_merged(self, x: torch.Tensor, attn: nn.Module,
+                       residual: bool = True) -> torch.Tensor:
+        """Merge each group of f^3 sub-volumes into one volume, attend, split
+        back (reference imagen_pytorch3D.py:1610-1622). The encoder slots
+        add the outer residual; the mid slot does not (the reference's mid
+        path never adds its ``res`` back, :1636-1642)."""
+        res = x
+        if self.batch_sample:
+            x = subvolumes_to_volume(x, self.batch_sample_factor)
+        x = attn(x)
+        if self.batch_sample:
+            x = volume_to_subvolumes(x, self.batch_sample_factor)
+        return (x + res if residual else x).contiguous()
 
     def forward(
         self,
@@ -201,14 +264,18 @@ class UNet3D(nn.Module):
         t = self.to_time_cond(t)
 
         hiddens = []
-        for ind, (_, init_block, _, blocks, post) in enumerate(self.downs):
+        for ind, (_, init_block, attn, blocks, post) in enumerate(self.downs):
             x = init_block(x, t)
+            if self.attend_enc[ind]:
+                x = self._attend_merged(x, attn)
             for block in blocks:
                 x = block(x, t)
             if ind < len(self.downs) - 1:
                 hiddens.append(x)
             x = post(x)
 
+        if self.mid_attn is not None:
+            x = self._attend_merged(x, self.mid_attn, residual=False)
         if self.mid_block is not None:
             x = self.mid_block(x, t)
 
@@ -255,8 +322,18 @@ def iqt_unet_from_config(cfg, device="cuda") -> UNet3D:
         init_conv_kernel_size=3,
         lowres_cond=True,
         init_cross_embed=False,
+        att_type=train.att_type,
+        attn_dim_head=train.att_head_dim,
         attend_at_middle=train.att_mid,
+        attend_at_middle_depth=train.att_mid_depth,
+        attend_at_middle_heads=train.att_mid_heads,
         attend_at_enc=train.att_enc,
+        attend_at_enc_depth=train.att_enc_depth,
+        attend_at_enc_heads=train.att_enc_heads,
+        att_drop=train.att_drop,
+        att_forward_drop=train.att_forward_drop,
+        att_forward_expansion=train.att_forward_expansion,
+        att_localvit=train.att_localvit,
         init_dim=train.init_dim,
         resnet_groups=train.resnet_groups,
         memory_efficient=train.efficient,

@@ -1,0 +1,94 @@
+"""Kernel 4: flash attention forward (``csrc/flash_attention.cu``).
+
+Replaces ``diffusioniqt_tpu/ops/pallas/flash_attention.py::flash_attention``:
+``softmax(q k^T * scale) v`` over q ``(B, Nq, D)`` and k, v ``(B, Nk, D)``
+with B = batch * heads, computed tile by tile with an online softmax so the
+``(Nq, Nk)`` scores never reach device memory.
+
+Bound on the H100: operations (``4 * B * Nq * Nk * D`` FLOP against reading
+q, k, v and writing the output once; about 860 FLOP per byte at the main
+path's (64, 1728, 64)). The kernel is FlashAttention-2 shaped: one CTA of
+four warps per (b, 64-row query tile), Q in registers, 64-row K/V tiles
+through a 2-stage ``cp.async`` ring, ``mma.sync`` m16n8k16 bf16 for both
+products, the running max, sum and accumulator in fp32 registers.
+
+The kernel rounds the unnormalised probabilities to bf16 before the P V
+product (as the Pallas kernel does); :func:`attention_plain` rounds the
+normalised ones, so the two differ by bf16 rounding at different points.
+The backward is the plain version through autograd, as the Pallas kernel's
+``custom_vjp`` recomputes with the jnp reference.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from diffusioniqt_tpu_torch.ops.attention import attention_plain
+from diffusioniqt_tpu_torch.ops.kernels import runtime
+
+HEAD_DIMS = (32, 64, 128)
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_float, ctypes.c_void_p]
+
+
+def check_flash_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Shapes, dtype, device, contiguity and alignment the kernel takes."""
+    name = "flash_attention"
+    for t in (q, k, v):
+        runtime.require(t.dtype == torch.bfloat16, name,
+                        f"inputs must be bfloat16, got {t.dtype}")
+        runtime.require(t.dim() == 3, name,
+                        f"expected (B, N, D) inputs, got {tuple(t.shape)}")
+        runtime.require(t.device == q.device, name, "inputs on different devices")
+        runtime.require(t.is_contiguous(), name, "inputs must be contiguous")
+        runtime.require(t.data_ptr() % 16 == 0, name, "input not 16-byte aligned")
+    b, nq, d = q.shape
+    runtime.require(d in HEAD_DIMS, name, f"head dim {d} is not one of {HEAD_DIMS}")
+    runtime.require(k.shape == v.shape and k.shape[0] == b and k.shape[2] == d,
+                    name, f"k {tuple(k.shape)} / v {tuple(v.shape)} do not match "
+                    f"q {tuple(q.shape)}")
+    runtime.require(nq > 0 and k.shape[1] > 0 and b > 0, name, "empty input")
+
+
+def _launch(q, k, v, scale: float) -> torch.Tensor:
+    name = "flash_attention"
+    b, nq, d = q.shape
+    out = torch.empty_like(q)
+    fn = runtime.c_function(name, "flash_attention_launch", _ARGTYPES)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, nq,
+             k.shape[1], d, float(scale), runtime.stream_handle(q.device))
+    runtime.check_launch(name, err)
+    flash_attention.launches += 1
+    return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.scale = scale
+        ctx.save_for_backward(q, k, v)
+        return _launch(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grads = runtime.plain_vjp(attention_plain, list(ctx.saved_tensors),
+                                  ctx.needs_input_grad[:3], grad, ctx.scale)
+        return (*grads, None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float) -> torch.Tensor:
+    """Attention: the CUDA kernel for a CUDA tensor (bf16, D in
+    :data:`HEAD_DIMS`), :func:`attention_plain` for a CPU tensor."""
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention kernel: unsupported device {q.device}")
+    check_flash_args(q, k, v)
+    return _FlashAttention.apply(q, k, v, scale)
+
+
+flash_attention.launches = 0

@@ -10,7 +10,8 @@ reference's unfold/permute order differs; see
 ``diffusioniqt_tpu/utils/torch_convert.py::reference_subvolume_permutation``.)
 
 ``halo_exchange`` here is the plain PyTorch version of the halo kernel
-(``ops/kernels/halo.py``).
+(``ops/kernels/halo.py``); ``upsample_trilinear`` is the attention
+modules' reconstruction upsample.
 """
 
 from __future__ import annotations
@@ -112,3 +113,30 @@ def pixel_unshuffle_3d(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
     x = x.permute(0, 1, 3, 5, 7, 2, 4, 6)  # (b, x, y, z, c, rx, ry, rz)
     return x.reshape(b, X // r, Y // r, Z // r, c * r ** 3)
 
+
+# ---------------------------------------------------------------------------
+# trilinear upsampling
+# ---------------------------------------------------------------------------
+
+def upsample_trilinear(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
+    """(B, X, Y, Z, C) -> (B, sX, sY, sZ, C), trilinear with
+    ``align_corners=True`` (torch's ``nn.Upsample`` of the reference's
+    ViT3D / Patchify reconstruction), one axis at a time as the JAX
+    ``upsample_trilinear`` does, with the interpolation weights cast to
+    ``x.dtype``."""
+    out = x
+    for axis in (1, 2, 3):
+        n = out.shape[axis]
+        m = n * scale
+        if n == 1:
+            coords = torch.zeros(m, dtype=torch.float32, device=x.device)
+        else:
+            coords = torch.arange(m, dtype=torch.float32, device=x.device) * (n - 1) / (m - 1)
+        lo = torch.floor(coords).long()
+        hi = torch.clamp(lo + 1, max=n - 1)
+        w = (coords - lo.float()).to(x.dtype)
+        shape = [1] * out.dim()
+        shape[axis] = m
+        w = w.reshape(shape)
+        out = out.index_select(axis, lo) * (1 - w) + out.index_select(axis, hi) * w
+    return out

@@ -75,6 +75,53 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         kernels.fused_conv(xb, tab, tab, w)
 
 
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("n", [100, 1728])
+def test_flash_attention_matches_plain(dev, n, d):
+    """n = 100: one partial 64-row tile of queries and keys; n = 1728: the
+    main path's 27 full tiles."""
+    g = torch.Generator(device=dev).manual_seed(n + d)
+    q, k, v = (torch.randn((16, n, d), generator=g, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    kernels.reset_launch_counts()
+    got = kernels.flash_attention(q, k, v, d ** -0.5)
+    assert kernels.launch_counts()["flash_attention"] == 1
+    _close(got, kernels.attention_plain(q, k, v, d ** -0.5))
+
+
+def test_flash_attention_refuses_what_the_kernel_does_not_take(dev):
+    q = torch.randn((4, 64, 48), device=dev).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim 48"):
+        kernels.flash_attention(q, q, q, 0.1)
+    with pytest.raises(ValueError, match="bfloat16"):
+        kernels.flash_attention(q.float()[..., :32], q.float()[..., :32],
+                                q.float()[..., :32], 0.1)
+
+
+def test_small_attention_unet_runs_through_the_kernels(dev):
+    torch.manual_seed(0)
+    model = UNet3D(dim=16, init_dim=16, dim_mults=(1, 2), num_resnet_blocks=(1, 1),
+                   resnet_groups=4, img_size=48, att_type="softmax", attn_dim_head=32,
+                   attend_at_enc=(True, True), attend_at_enc_heads=2, deep_feature=True,
+                   attend_at_middle=True, attend_at_middle_heads=2,
+                   dtype=torch.bfloat16).to(dev).eval()
+    x = torch.randn((54, 16, 16, 16, 1), device=dev)
+    lowres = torch.randn_like(x)
+    t = torch.full((54,), 0.5, device=dev)
+    log_snr = torch.full((54,), -1.0, device=dev)
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        got = model(x, t, log_snr, lowres_cond_img=lowres)
+        counts = kernels.launch_counts()
+        want = model.use_ops(kernels.PLAIN)(x, t, log_snr, lowres_cond_img=lowres)
+    # 2 levels x (init + 1 block) down and up, the mid block, the final block
+    n_res = 2 * 2 + 1 + 2 * 2 + 1
+    assert counts == {"halo": 2 * n_res + 1, "conv3d": 1, "fused_block": 2 * n_res,
+                      "flash_attention": 3}
+    assert torch.isfinite(got).all()
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 5e-2
+
+
 def test_small_unet_runs_through_the_kernels(dev):
     torch.manual_seed(0)
     model = UNet3D(dim=16, init_dim=16, dim_mults=(1, 2), num_resnet_blocks=(2, 2),
@@ -90,7 +137,8 @@ def test_small_unet_runs_through_the_kernels(dev):
         want = model.use_ops(kernels.PLAIN)(x, t, log_snr, lowres_cond_img=lowres)
     # 2 levels x (init + 2 blocks) down and up, plus the final block
     n_res = 2 * 3 + 2 * 3 + 1
-    assert counts == {"halo": 2 * n_res + 1, "conv3d": 1, "fused_block": 2 * n_res}
+    assert counts == {"halo": 2 * n_res + 1, "conv3d": 1, "fused_block": 2 * n_res,
+                      "flash_attention": 0}
     assert torch.isfinite(got).all()
     # bf16 rounding differences compound through the network
     assert ((got - want).abs().max() / want.abs().max()).item() <= 5e-2

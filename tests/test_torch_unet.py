@@ -188,8 +188,6 @@ def test_jax_params_round_trip_at_eval_config_width():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(attend_at_enc=(True, False)),
-    dict(deep_feature=True, attend_at_middle=True),
     dict(merged_boundary=True),
     dict(memory_efficient=True),
     dict(init_cross_embed=True),
