@@ -10,7 +10,11 @@ Phases, each of which raises (and exits non-zero) on failure:
   kernels       each kernel against its plain PyTorch version at every shape
                 the serve phases give it (bf16, batch 8 windows x 27
                 sub-volumes; attention over 8 windows x 8 heads), with
-                kernel, plain, library and bound times
+                kernel, plain, library and bound times; the conv kernels
+                are timed with a packed-weight cache filled before the
+                timed loop, as the model calls them, and conv3d at both of
+                its routes (small Cin on the path, the implicit GEMM at one
+                wide shape)
   forward       the full-width ``config/eval_config.yaml`` UNet3D (seeded
                 random weights, bf16) on one 27 x 32^3 group, through the
                 kernels and through the plain versions; launches per forward
@@ -28,6 +32,9 @@ Phases, each of which raises (and exits non-zero) on failure:
 ``python3 chip_smoke.py --profile`` also prints a ``torch.profiler``
 breakdown of one forward of each of the two configs at the serve batch,
 8 x 27 x 32^3 (device time by kernel, device busy share).
+``python3 chip_smoke.py --kernels-only`` stops after the kernels phase and
+prints no result line: a copy of this script placed in another checkout of
+the repository times that checkout's kernels the same way.
 
 The line before the last is ``{"kernels": [...]}`` (per kernel: launches in
 the serve run of its path, max abs error against the plain version, times
@@ -73,7 +80,9 @@ WINDOWS = 8              # windows per sampler call in the serve phase
 BATCH = GROUP * WINDOWS  # the kernels' batch on the serve path
 HALO_SHAPES = [(32, 2), (32, 64), (32, 128), (16, 64), (16, 128), (16, 192), (8, 128),
                (8, 256)]
-CONV_SHAPES = [(32, 2, 64)]
+# (s, Cin, Cout): the init conv (small-Cin route) and one wide shape that
+# holds the implicit-GEMM route, which no conv3d call of the path takes
+CONV_SHAPES = [(32, 2, 64), (16, 64, 64)]
 FUSED_SHAPES = [(32, 64, 64), (32, 128, 64), (16, 64, 64), (16, 192, 128),
                 (16, 128, 128), (8, 128, 128), (8, 256, 256)]
 # every attention slot of the attention config: 8 windows x 8 heads, 12^3
@@ -92,9 +101,16 @@ ATTN_CONFIG = os.path.join("diffusioniqt_tpu_torch", "configs", "eval_attn_softm
 # launches per forward of one 27-sub-volume group
 FLAGSHIP_COUNTS = {"halo": 39, "conv3d": 1, "fused_block": 38, "flash_attention": 0}
 ATTN_COUNTS = {"halo": 41, "conv3d": 1, "fused_block": 40, "flash_attention": 4}
-# device-kernel name of each hand-written kernel, for the profile's layers
-LAYERS = {"fused_block": "igemm::conv_kernel<true", "conv3d": "igemm::conv_kernel<false",
-          "halo": "halo_kernel", "flash_attention": "flash_kernel"}
+# device-kernel names of each hand-written kernel, for the profile's layers
+LAYERS = {"fused_block": ("igemm::conv_kernel<true",),
+          "conv3d": ("small_cin_kernel", "igemm::conv_kernel<false"),
+          "halo": ("halo_kernel",), "flash_attention": ("flash_kernel",)}
+# the one PyTorch call timed beside each kernel as its library yardstick
+LIBRARY = {"halo": "index_select gather from a precomputed source table",
+           "conv3d": "F.conv3d (cuDNN)",
+           "fused_block": "none: no single PyTorch call computes GroupNorm-affine + "
+                          "Mish + halo'd conv",
+           "flash_attention": "F.scaled_dot_product_attention"}
 
 
 def phase(name: str) -> float:
@@ -176,10 +192,11 @@ def profile_forward(label: str, fn) -> None:
     print(f"profile {label}: {plain_ms:.3f} ms per call unprofiled, {wall_ms:.3f} ms "
           f"profiled; device busy {busy_ms:.3f} ms = {100 * busy_ms / plain_ms:.1f}% of "
           f"the unprofiled call")
-    for layer, tag in LAYERS.items():
-        ms = sum(r[1] for r in rows if tag in r[0])
+    for layer, tags in LAYERS.items():
+        ms = sum(r[1] for r in rows if any(t in r[0] for t in tags))
         print(f"  layer {layer}: {ms:.3f} ms ({100 * ms / busy_ms:.1f}% of busy)")
-    other = sum(r[1] for r in rows if not any(t in r[0] for t in LAYERS.values()))
+    other = sum(r[1] for r in rows
+                if not any(t in r[0] for tags in LAYERS.values() for t in tags))
     print(f"  layer plain torch ops: {other:.3f} ms ({100 * other / busy_ms:.1f}% of busy)")
     for key, ms, count in rows[:25]:
         print(f"  {ms:9.3f} ms {100 * ms / busy_ms:5.1f}% x{count:4d}  {key[:100]}")
@@ -197,12 +214,18 @@ def main() -> int:
     from diffusioniqt_tpu_torch.models.unet3d import iqt_unet_from_config
     from diffusioniqt_tpu_torch.ops import kernels
     from diffusioniqt_tpu_torch.ops.kernels import runtime
-    from diffusioniqt_tpu_torch.ops.kernels.conv3d import conv3d_valid_plain
+    from diffusioniqt_tpu_torch.ops.kernels.conv3d import PackedWeight, conv3d_valid_plain
     from diffusioniqt_tpu_torch.ops.kernels.fused_block import (
         groupnorm_affine,
         neighbor_tables,
     )
     from diffusioniqt_tpu_torch.ops.volume import halo_exchange as halo_plain
+
+    def conv_route(cin):
+        """conv3d's route at ``cin`` input channels (a checkout that predates
+        the small-Cin route has the implicit GEMM only)."""
+        from diffusioniqt_tpu_torch.ops.kernels import conv3d as conv_module
+        return conv_module.route(cin) if hasattr(conv_module, "route") else "igemm"
 
     t_all = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -245,31 +268,49 @@ def main() -> int:
               f"{'null' if lib_ms is None else f'{lib_ms:.4f}'} "
               f"bound_ms={bnd[0]:.4f} ({bnd[1]})", flush=True)
 
+    checked_gather = False
     for s, c in HALO_SHAPES:
         x = torch.randn((BATCH, s, s, s, c), generator=gen, device=dev).to(torch.bfloat16)
         got, want = kernels.halo_exchange(x, 3), halo_plain(x, 3)
         torch.cuda.synchronize()
         stats = compare("halo", (BATCH, s, s, s, c), got, want, 0.0)
+        # the library yardstick: one gather. Built outside the timed loop: a
+        # table of source voxels (the plain halo of the voxel ids; 0 is a
+        # zero-padded voxel) and the source with one zero row appended
+        ids = torch.arange(1, BATCH * s ** 3 + 1, device=dev).view(BATCH, s, s, s, 1)
+        src_ids = halo_plain(ids, 3).flatten()
+        idx = torch.where(src_ids == 0, BATCH * s ** 3, src_ids - 1)
+        src = torch.cat([x.reshape(-1, c), x.new_zeros((1, c))])
+        gather = lambda: torch.index_select(src, 0, idx)  # noqa: E731
+        if not checked_gather:  # the gather is the kernel's function, exactly
+            if not torch.equal(gather().view_as(got), got):
+                raise AssertionError("halo: the gather yardstick disagrees with the kernel")
+            print(f"  halo gather == kernel at {(BATCH, s, s, s, c)}: exact")
+            checked_gather = True
         record("halo", (BATCH, s, c),
                stats, cuda_time_ms(lambda: kernels.halo_exchange(x, 3)),
-               cuda_time_ms(lambda: halo_plain(x, 3)), None,
+               cuda_time_ms(lambda: halo_plain(x, 3)), cuda_time_ms(gather),
                bound_ms(0.0, nbytes(x, got)))
+        del ids, src_ids, idx, src
 
     for s, cin, cout in CONV_SHAPES:
         xh = torch.randn((BATCH, s + 2, s + 2, s + 2, cin), generator=gen,
                          device=dev).to(torch.bfloat16)
-        w = torch.randn((cout, cin, 3, 3, 3), generator=gen, device=dev) * 0.1
-        got, want = kernels.conv3d_valid(xh, w), conv3d_valid_plain(xh, w)
+        w = torch.randn((cout, cin, 3, 3, 3), generator=gen, device=dev) * (27 * cin) ** -0.5
+        cache = PackedWeight()  # filled by the first call, as in the model
+        got, want = kernels.conv3d_valid(xh, w, cache), conv3d_valid_plain(xh, w)
         torch.cuda.synchronize()
         stats = compare("conv3d", (BATCH, s, cin, cout), got, want, BF16_TOL)
         w_bf = w.to(torch.bfloat16)
         x_cf = xh.permute(0, 4, 1, 2, 3)
         flops = 2.0 * BATCH * s ** 3 * 27 * cin * cout
         record("conv3d", (BATCH, s, cin, cout), stats,
-               cuda_time_ms(lambda: kernels.conv3d_valid(xh, w)),
+               cuda_time_ms(lambda: kernels.conv3d_valid(xh, w, cache)),
                cuda_time_ms(lambda: conv3d_valid_plain(xh, w)),
                cuda_time_ms(lambda: torch.nn.functional.conv3d(x_cf, w_bf)),
                bound_ms(flops, nbytes(xh, w_bf, got)))
+        results["conv3d"][-1]["kernel_route"] = conv_route(cin)
+        del xh, got, want, x_cf
 
     for s, cin, cout in FUSED_SHAPES:
         x = torch.randn((BATCH, s, s, s, cin), generator=gen, device=dev).to(torch.bfloat16)
@@ -281,13 +322,14 @@ def main() -> int:
         a, b = groupnorm_affine(x, ns, nb, 8, scale_shift=ss)
         a_tab, b_tab = neighbor_tables(a, b, 3)
         xh = kernels.halo_exchange(x, 3)
-        got = kernels.fused_conv(xh, a_tab, b_tab, w)
+        cache = PackedWeight()
+        got = kernels.fused_conv(xh, a_tab, b_tab, w, cache)
         want = kernels.fused_conv_plain(xh, a_tab, b_tab, w)
         torch.cuda.synchronize()
         stats = compare("fused_block", (BATCH, s, cin, cout), got, want, BF16_TOL)
         flops = 2.0 * BATCH * s ** 3 * 27 * cin * cout
         record("fused_block", (BATCH, s, cin, cout), stats,
-               cuda_time_ms(lambda: kernels.fused_conv(xh, a_tab, b_tab, w)),
+               cuda_time_ms(lambda: kernels.fused_conv(xh, a_tab, b_tab, w, cache)),
                cuda_time_ms(lambda: kernels.fused_conv_plain(xh, a_tab, b_tab, w), iters=3),
                None, bound_ms(flops, nbytes(xh, a_tab, b_tab, w.to(torch.bfloat16), got)))
 
@@ -308,6 +350,9 @@ def main() -> int:
                cuda_time_ms(lambda: sdpa(q4, k4, v4, scale=scale)),
                bound_ms(4.0 * bh * n * n * d, nbytes(q, k, v, got)))
     print(f"kernels seconds {time.perf_counter() - t0:.1f}", flush=True)
+    if "--kernels-only" in sys.argv[1:]:
+        print(json.dumps({"kernel_rows": results}))
+        return 0
 
     def held_forward(label, cfg, want_counts, profile):
         """One 27 x 32^3 window through the kernels and through the plain
@@ -408,6 +453,7 @@ def main() -> int:
     for name in ("halo", "conv3d", "fused_block", "flash_attention"):
         rows = results[name]
         head = next(r for r in rows if tuple(r["shape"][1:]) == HEADLINE[name])
+        extra = {"kernel_route": head["kernel_route"]} if "kernel_route" in head else {}
         line.append({
             "name": name, "route": "cuda",
             "source": f"diffusioniqt_tpu_torch/csrc/{name}.cu",
@@ -420,8 +466,8 @@ def main() -> int:
             "tolerance": head["tol"],
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-            "library_ms": head["library_ms"],
-            "shape": "x".join(str(v) for v in head["shape"]),
+            "library_ms": head["library_ms"], "library": LIBRARY[name],
+            "shape": "x".join(str(v) for v in head["shape"]), **extra,
         })
     print(f"total seconds {time.perf_counter() - t_all:.1f}")
     print(json.dumps({"kernels": line}))

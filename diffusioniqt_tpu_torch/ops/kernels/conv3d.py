@@ -5,17 +5,25 @@ Replaces ``diffusioniqt_tpu/ops/pallas/conv3d.py::conv3d_valid``:
 output in the input dtype, no bias. On the main path it is the init conv
 (Cin = 2: the noisy volume and the lowres conditioning).
 
-Weights stay in torch layout ``(Cout, Cin, 3, 3, 3)`` in the modules;
-:class:`PackedWeight` reorders one once into the kernel's
-``(27*Cin_pad, Cout)`` bf16 layout and keeps it until the parameter
-changes.
+Two hand-written routes, chosen from the shape by :func:`route`:
 
-Bound on the H100: operations for wide convs; at Cin = 2 the 54-deep
-product is tiny and moving the input and output dominates, so it is bound
-by bytes. The kernel is the implicit GEMM of ``csrc/igemm.cuh`` (per block
-a halo'd input brick in shared memory, the 27 taps as shifted views of it,
-mma.sync over M = voxels, N = Cout, K = 27*Cin; no im2col buffer in device
-memory).
+* ``"small_cin"`` (Cin <= :data:`SMALL_CIN_MAX`, the init conv). Bound by
+  bytes: at the serve batch (216, 32^3, 2 -> 64) the bf16 output is 906 MB
+  and the halo'd input 34 MB, 0.28 ms at 3.35 TB/s, while the real product
+  (K = 27 * 2 = 54) is 49 GFLOP. K is packed densely (:func:`pack_weight_small`,
+  row ``tap * Cin + c``, padded to a multiple of 16: 54 -> 64), so the
+  tensor cores do 58 GFLOP and not the 783 GFLOP that padding Cin to a
+  32-channel chunk costs. Persistent blocks own 256-voxel bricks and all of
+  Cout; the A fragments come straight from the shared-memory input brick
+  and the output leaves in coalesced 16-byte stores.
+* ``"igemm"`` (Cin > 8): the implicit GEMM of ``csrc/igemm.cuh`` (per
+  block a halo'd input brick in shared memory, the 27 taps as shifted views
+  of it, mma.sync over M = voxels, N = Cout, K = 27 * Cin in 32-channel
+  chunks, which waste little at these widths), weight :func:`pack_weight`.
+
+Weights stay in torch layout ``(Cout, Cin, 3, 3, 3)`` in the modules;
+:class:`PackedWeight` reorders one once into the layout of the route that
+runs it and keeps it until the parameter changes.
 """
 
 from __future__ import annotations
@@ -29,6 +37,10 @@ from diffusioniqt_tpu_torch.ops.kernels import runtime
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+# widest input the small-Cin route takes; wider convs take the implicit GEMM
+SMALL_CIN_MAX = 8
+# the small-Cin kernel keeps all of Cout's weights in shared memory
+SMALL_COUT_MAX = 256
 
 
 def conv3d_valid_plain(xh: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -50,19 +62,38 @@ def pack_weight(w: torch.Tensor) -> torch.Tensor:
     return packed.reshape(27 * cin_pad, cout)
 
 
+def pack_weight_small(w: torch.Tensor) -> torch.Tensor:
+    """``(Cout, Cin, 3, 3, 3)`` -> ``(K_pad, Cout)`` bf16 for the small-Cin
+    route: dense row ``k = ((kx*3 + ky)*3 + kz)*Cin + c``, K = 27 * Cin
+    padded with zero rows to the next multiple of 16."""
+    cout, cin = w.shape[0], w.shape[1]
+    k = 27 * cin
+    packed = torch.zeros((-(-k // 16) * 16, cout), dtype=torch.bfloat16, device=w.device)
+    packed[:k] = w.detach().permute(2, 3, 4, 1, 0).reshape(k, cout)
+    return packed
+
+
+def route(cin: int) -> str:
+    """The conv3d kernel for ``cin`` input channels: ``"small_cin"`` (dense
+    K, the init conv) up to :data:`SMALL_CIN_MAX`, else ``"igemm"``. A
+    dispatch by shape: each route is a hand-written kernel, and neither
+    stands in for the other."""
+    return "small_cin" if cin <= SMALL_CIN_MAX else "igemm"
+
+
 class PackedWeight:
-    """Cache of one conv weight in the kernel layout; repacks only when the
-    parameter's storage or version counter changes (an optimizer step or
-    ``load_state_dict`` bumps the version)."""
+    """Cache of one conv weight in a kernel layout; repacks only when the
+    layout asked for, or the parameter's storage or version counter, changes
+    (an optimizer step or ``load_state_dict`` bumps the version)."""
 
     def __init__(self):
         self._key = None
         self._packed = None
 
-    def get(self, w: torch.Tensor) -> torch.Tensor:
-        key = (w.data_ptr(), w._version, w.device, w.dtype, tuple(w.shape))
+    def get(self, w: torch.Tensor, pack=pack_weight) -> torch.Tensor:
+        key = (pack, w.data_ptr(), w._version, w.device, w.dtype, tuple(w.shape))
         if key != self._key:
-            self._packed = pack_weight(w)
+            self._packed = pack(w)
             self._key = key
         return self._packed
 
@@ -90,7 +121,9 @@ def _launch(xh: torch.Tensor, w: torch.Tensor, packed: torch.Tensor):
     name = "conv3d"
     b, s, cin, cout = xh.shape[0], xh.shape[1] - 2, xh.shape[4], w.shape[0]
     out = torch.empty((b, s, s, s, cout), dtype=xh.dtype, device=xh.device)
-    fn = runtime.c_function(name, "conv3d_valid_launch", _ARGTYPES)
+    entry = ("conv3d_small_cin_launch" if route(cin) == "small_cin"
+             else "conv3d_valid_launch")
+    fn = runtime.c_function(name, entry, _ARGTYPES)
     err = fn(xh.data_ptr(), packed.data_ptr(), out.data_ptr(), b, s, cin, cout,
              runtime.stream_handle(xh.device))
     runtime.check_launch(name, err)
@@ -121,7 +154,12 @@ def conv3d_valid(xh: torch.Tensor, w: torch.Tensor,
     if xh.device.type != "cuda":
         raise ValueError(f"conv3d kernel: unsupported device {xh.device}")
     check_igemm_args("conv3d", xh, w)
-    packed = cache.get(w) if cache is not None else pack_weight(w)
+    small = route(xh.shape[4]) == "small_cin"
+    if small:
+        runtime.require(w.shape[0] <= SMALL_COUT_MAX, "conv3d",
+                        f"Cout = {w.shape[0]} > {SMALL_COUT_MAX} at Cin = {xh.shape[4]}")
+    pack = pack_weight_small if small else pack_weight
+    packed = cache.get(w, pack) if cache is not None else pack(w)
     return _Conv3dValid.apply(xh, w, packed)
 
 

@@ -7,10 +7,15 @@ with B = batch * heads, computed tile by tile with an online softmax so the
 
 Bound on the H100: operations (``4 * B * Nq * Nk * D`` FLOP against reading
 q, k, v and writing the output once; about 860 FLOP per byte at the main
-path's (64, 1728, 64)). The kernel is FlashAttention-2 shaped: one CTA of
-four warps per (b, 64-row query tile), Q in registers, 64-row K/V tiles
-through a 2-stage ``cp.async`` ring, ``mma.sync`` m16n8k16 bf16 for both
-products, the running max, sum and accumulator in fp32 registers.
+path's (64, 1728, 64)), with ``B * Nq * Nk`` exponentials on the side. The
+kernel is FlashAttention-3 shaped: one CTA per (b, query tile of 192 rows,
+128 at D = 128), a producer warpgroup that issues TMA loads of Q and of
+128-row K/V tiles into a 3-stage mbarrier ring (3-D tensor maps, so rows
+past N are zeros), and consumer warpgroups of 64 query rows that run
+``wgmma`` (S = Q K^T from shared memory, O += P V with P from registers)
+and overlap each tile's softmax with the previous tile's P V product. The
+tensor maps are encoded on the host with the CUDA driver's
+``cuTensorMapEncodeTiled`` (:func:`runtime.driver_function`).
 
 The kernel rounds the unnormalised probabilities to bf16 before the P V
 product (as the Pallas kernel does); :func:`attention_plain` rounds the
@@ -30,7 +35,7 @@ from diffusioniqt_tpu_torch.ops.kernels import runtime
 
 HEAD_DIMS = (32, 64, 128)
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_float, ctypes.c_void_p]
 
 
@@ -58,8 +63,9 @@ def _launch(q, k, v, scale: float) -> torch.Tensor:
     b, nq, d = q.shape
     out = torch.empty_like(q)
     fn = runtime.c_function(name, "flash_attention_launch", _ARGTYPES)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, nq,
-             k.shape[1], d, float(scale), runtime.stream_handle(q.device))
+    err = fn(runtime.driver_function("cuTensorMapEncodeTiled"), q.data_ptr(),
+             k.data_ptr(), v.data_ptr(), out.data_ptr(), b, nq, k.shape[1], d,
+             float(scale), runtime.stream_handle(q.device))
     runtime.check_launch(name, err)
     flash_attention.launches += 1
     return out
@@ -88,6 +94,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention kernel: unsupported device {q.device}")
     check_flash_args(q, k, v)
+    # the kernel takes the max of the raw scores (every caller's scale is
+    # dim_head ** -0.5)
+    runtime.require(scale > 0, "flash_attention", f"scale must be positive, got {scale}")
     return _FlashAttention.apply(q, k, v, scale)
 
 

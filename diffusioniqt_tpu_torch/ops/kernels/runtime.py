@@ -31,6 +31,7 @@ NVCC_FLAGS = (
 )
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_DRIVER_FNS: Dict[str, int] = {}
 
 
 def nvcc_path() -> str:
@@ -106,6 +107,18 @@ def c_function(lib_name: str, fn_name: str, argtypes: Sequence):
     fn = getattr(library(lib_name), fn_name)
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
+    return fn
+
+
+def driver_function(name: str) -> int:
+    """Address of a CUDA driver API function (``libcuda.so.1``, which the
+    CUDA runtime has already loaded). The kernels' libraries do not link
+    libcuda; a launcher that needs a CUDA driver function, as the TMA
+    descriptors do, takes its address from here."""
+    fn = _DRIVER_FNS.get(name)
+    if fn is None:
+        fn = ctypes.cast(getattr(ctypes.CDLL("libcuda.so.1"), name), ctypes.c_void_p).value
+        _DRIVER_FNS[name] = fn
     return fn
 
 

@@ -60,6 +60,34 @@ def test_conv_and_fused_match_plain(dev, s, cin, cout):
     _close(kernels.fused_conv(xh, ta, tb, w), kernels.fused_conv_plain(xh, ta, tb, w))
 
 
+@pytest.mark.parametrize("s,cin,cout", [(8, 1, 16), (8, 2, 16), (8, 3, 16), (8, 8, 16),
+                                        (8, 1, 64), (8, 2, 64), (8, 3, 64), (8, 8, 64),
+                                        (32, 2, 64)])
+def test_small_cin_conv_matches_plain(dev, s, cin, cout):
+    """The init conv's route (dense K) at the test widths and at the main
+    path's sub-volume edge."""
+    g = torch.Generator(device=dev).manual_seed(cin * 100 + cout)
+    xh = torch.randn((27, s + 2, s + 2, s + 2, cin), generator=g, device=dev).to(torch.bfloat16)
+    w = torch.randn((cout, cin, 3, 3, 3), generator=g, device=dev) * (27 * cin) ** -0.5
+    kernels.reset_launch_counts()
+    _close(kernels.conv3d_valid(xh, w), kernels.conv3d_valid_plain(xh, w))
+    assert kernels.launch_counts()["conv3d"] == 1
+
+
+def test_small_cin_conv_large_values_and_after_nan(dev):
+    """|x| up to 1e4, then a launch after one whose input held NaN: the K
+    padding never multiplies stale shared memory."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    w = torch.randn((64, 2, 3, 3, 3), generator=g, device=dev) * 0.1
+    bad = torch.full((27, 10, 10, 10, 2), float("nan"), device=dev).to(torch.bfloat16)
+    kernels.conv3d_valid(bad, w)
+    xh = (1e4 * torch.rand((27, 10, 10, 10, 2), generator=g, device=dev) * 2 - 1e4)
+    xh = xh.to(torch.bfloat16)
+    got = kernels.conv3d_valid(xh, w)
+    assert torch.isfinite(got).all()
+    _close(got, kernels.conv3d_valid_plain(xh, w))
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     xh = torch.randn((27, 10, 10, 10, 64), device=dev)
     w = torch.randn((64, 64, 3, 3, 3), device=dev)
@@ -76,10 +104,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
 
 
 @pytest.mark.parametrize("d", [32, 64, 128])
-@pytest.mark.parametrize("n", [100, 1728])
+@pytest.mark.parametrize("n", [64, 100, 129, 1728])
 def test_flash_attention_matches_plain(dev, n, d):
-    """n = 100: one partial 64-row tile of queries and keys; n = 1728: the
-    main path's 27 full tiles."""
+    """n = 64 and 100: one partial 128-row tile of queries and keys; 129:
+    one full tile and one row; 1728: the main path's 13.5 tiles. B = 16
+    with a ragged n catches rows of one head read as the next head's."""
     g = torch.Generator(device=dev).manual_seed(n + d)
     q, k, v = (torch.randn((16, n, d), generator=g, device=dev).to(torch.bfloat16)
                for _ in range(3))
@@ -87,6 +116,14 @@ def test_flash_attention_matches_plain(dev, n, d):
     got = kernels.flash_attention(q, k, v, d ** -0.5)
     assert kernels.launch_counts()["flash_attention"] == 1
     _close(got, kernels.attention_plain(q, k, v, d ** -0.5))
+
+
+def test_flash_attention_more_keys_than_queries(dev):
+    g = torch.Generator(device=dev).manual_seed(3)
+    q = torch.randn((16, 100, 64), generator=g, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((16, 1728, 64), generator=g, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    _close(kernels.flash_attention(q, k, v, 0.125), kernels.attention_plain(q, k, v, 0.125))
 
 
 def test_flash_attention_refuses_what_the_kernel_does_not_take(dev):

@@ -79,6 +79,64 @@ def test_pack_weight_layout_and_cache():
     torch.testing.assert_close(cache.get(w).float(), tconv.pack_weight(w).float())
 
 
+def _bf16_values(a):
+    """fp32 array holding bf16-representable values, so a bf16 packing of it
+    is exact and the comparisons below see only summation order."""
+    return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+
+
+def _im2col_dense(xh: torch.Tensor, k_pad: int) -> torch.Tensor:
+    """What the small-Cin kernel reads: one row per output voxel, column
+    k = ((kx*3 + ky)*3 + kz)*Cin + c, zero columns from 27*Cin to k_pad."""
+    b, s, cin = xh.shape[0], xh.shape[1] - 2, xh.shape[4]
+    taps = [xh[:, kx:kx + s, ky:ky + s, kz:kz + s, :]
+            for kx in range(3) for ky in range(3) for kz in range(3)]
+    a = torch.stack(taps, dim=4).reshape(b * s ** 3, 27 * cin)
+    return torch.nn.functional.pad(a, (0, k_pad - 27 * cin))
+
+
+@pytest.mark.parametrize("cin", [1, 2, 3, 8])
+def test_small_cin_dense_k_matches_plain_and_pallas(cin):
+    """The small-Cin route's layout (dense k = tap*Cin + c, K padded to a
+    multiple of 16) times its packed weight is the conv, against the plain
+    version and the Pallas kernel in interpret mode, fp32."""
+    b, s, cout = 2, 4, 16
+    xh = _bf16_values(_rand((b, s + 2, s + 2, s + 2, cin), seed=11))
+    w = _bf16_values(_rand((3, 3, 3, cin, cout), seed=12, scale=0.1))
+    packed = tconv.pack_weight_small(_torch_w(w))
+    assert packed.shape == (-(-27 * cin // 16) * 16, cout)
+    got = (_im2col_dense(_t(xh), packed.shape[0]) @ packed.float()).reshape(b, s, s, s, cout)
+    plain = tconv.conv3d_valid_plain(_t(xh), _torch_w(w))
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(j_conv3d_valid(jnp.asarray(xh), jnp.asarray(w)))
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_conv3d_route_by_input_width():
+    assert [tconv.route(c) for c in (1, 2, 3, 8)] == ["small_cin"] * 4
+    assert [tconv.route(c) for c in (9, 16, 64, 256)] == ["igemm"] * 4
+
+
+def test_pack_weight_small_layout_and_cache():
+    w = torch.randn(16, 2, 3, 3, 3)
+    packed = tconv.pack_weight_small(w)
+    # K = 27 * 2 = 54 padded to 64 with zero rows, not Cin to 32
+    assert packed.shape == (64, 16) and packed.dtype == torch.bfloat16
+    # row ((kx*3 + ky)*3 + kz)*Cin + c, column o
+    assert packed[((1 * 3 + 2) * 3 + 0) * 2 + 1, 5] == w[5, 1, 1, 2, 0].to(torch.bfloat16)
+    assert not packed[54:].any()
+    cache = tconv.PackedWeight()
+    first = cache.get(w, tconv.pack_weight_small)
+    assert cache.get(w, tconv.pack_weight_small) is first  # unchanged: no repack
+    assert cache.get(w).shape == (27 * 32, 16)   # the other route's layout: repacked
+    with torch.no_grad():
+        w.mul_(2.0)                              # in-place update bumps the version
+    again = cache.get(w, tconv.pack_weight_small)
+    assert again is not first
+    torch.testing.assert_close(again.float(), tconv.pack_weight_small(w).float())
+
+
 # ---------------------------------------------------------- fused block
 
 @pytest.fixture
