@@ -10,11 +10,14 @@ Phases, each of which raises (and exits non-zero) on failure:
   kernels       each kernel against its plain PyTorch version at every shape
                 the serve phases give it (bf16, batch 8 windows x 27
                 sub-volumes; attention over 8 windows x 8 heads), with
-                kernel, plain, library and bound times; the conv kernels
+                kernel, plain, library and bound times; kernel and library
+                times are the median of 5 timings (min and max beside
+                them), the plain version's one timing; the conv kernels
                 are timed with a packed-weight cache filled before the
                 timed loop, as the model calls them, and conv3d at both of
                 its routes (small Cin on the path, the implicit GEMM at one
-                wide shape)
+                wide shape); each fused shape also times cuDNN's conv alone
+                on the already transformed input (conv_only_library_ms)
   forward       the full-width ``config/eval_config.yaml`` UNet3D (seeded
                 random weights, bf16) on one 27 x 32^3 group, through the
                 kernels and through the plain versions; launches per forward
@@ -102,14 +105,15 @@ ATTN_CONFIG = os.path.join("diffusioniqt_tpu_torch", "configs", "eval_attn_softm
 FLAGSHIP_COUNTS = {"halo": 39, "conv3d": 1, "fused_block": 38, "flash_attention": 0}
 ATTN_COUNTS = {"halo": 41, "conv3d": 1, "fused_block": 40, "flash_attention": 4}
 # device-kernel names of each hand-written kernel, for the profile's layers
-LAYERS = {"fused_block": ("igemm::conv_kernel<true",),
-          "conv3d": ("small_cin_kernel", "igemm::conv_kernel<false"),
-          "halo": ("halo_kernel",), "flash_attention": ("flash_kernel",)}
+LAYERS = {"fused_block": ("igemm::conv_sm90<true",),
+          "conv3d": ("small_cin_kernel", "igemm::conv_sm90<false"),
+          "halo": ("halo_row_kernel",), "flash_attention": ("flash_kernel",)}
 # the one PyTorch call timed beside each kernel as its library yardstick
 LIBRARY = {"halo": "index_select gather from a precomputed source table",
            "conv3d": "F.conv3d (cuDNN)",
            "fused_block": "none: no single PyTorch call computes GroupNorm-affine + "
-                          "Mish + halo'd conv",
+                          "Mish + halo'd conv (conv_only_library_ms: F.conv3d, cuDNN, on "
+                          "the transformed input materialised beforehand)",
            "flash_attention": "F.scaled_dot_product_attention"}
 
 
@@ -129,6 +133,16 @@ def cuda_time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def timed(fn, repeats: int = 5, **kw):
+    """(median, min, max) of ``repeats`` timings of :func:`cuda_time_ms`."""
+    runs = sorted(cuda_time_ms(fn, **kw) for _ in range(repeats))
+    return runs[len(runs) // 2], runs[0], runs[-1]
+
+
+def fmt(t) -> str:
+    return "null" if t is None else f"{t[0]:.4f} [{t[1]:.4f}-{t[2]:.4f}]"
 
 
 def bound_ms(flops: float, nbytes: float):
@@ -213,6 +227,7 @@ def main() -> int:
     from diffusioniqt_tpu_torch.infer import build_sampler, fake_volumes, infer_volume
     from diffusioniqt_tpu_torch.models.unet3d import iqt_unet_from_config
     from diffusioniqt_tpu_torch.ops import kernels
+    from diffusioniqt_tpu_torch.ops.kernels import fused_block as fused_module
     from diffusioniqt_tpu_torch.ops.kernels import runtime
     from diffusioniqt_tpu_torch.ops.kernels.conv3d import PackedWeight, conv3d_valid_plain
     from diffusioniqt_tpu_torch.ops.kernels.fused_block import (
@@ -248,8 +263,8 @@ def main() -> int:
     logs = runtime.build()
     for name, log in logs.items():
         info = [ln.strip() for ln in log.splitlines()
-                if "registers" in ln or "spill" in ln or "error" in ln.lower()]
-        print(f"  {name}: " + " | ".join(info[-6:]))
+                if any(k in ln.lower() for k in ("registers", "spill", "error", "warning"))]
+        print(f"  {name}: " + " | ".join(info[-12:]))
     for name in runtime.SOURCES:
         runtime.library(name)
     print(f"build seconds {time.perf_counter() - t0:.1f} "
@@ -260,13 +275,21 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     results = {}
 
-    def record(name, shape, stats, k_ms, p_ms, lib_ms, bnd):
-        row = {"shape": list(shape), **stats, "ms": k_ms, "plain_ms": p_ms,
-               "library_ms": lib_ms, "bound_ms": bnd[0], "bound_by": bnd[1]}
+    def record(name, shape, stats, k_ms, p_ms, lib_ms, bnd, **extra):
+        """``k_ms`` and ``lib_ms`` are :func:`timed` triples (``lib_ms``
+        may be None), ``p_ms`` one timing; ``extra`` more timed triples."""
+        row = {"shape": list(shape), **stats, "ms": k_ms[0], "ms_min": k_ms[1],
+               "ms_max": k_ms[2], "plain_ms": p_ms,
+               "library_ms": None if lib_ms is None else lib_ms[0],
+               "library_ms_min": None if lib_ms is None else lib_ms[1],
+               "library_ms_max": None if lib_ms is None else lib_ms[2],
+               "bound_ms": bnd[0], "bound_by": bnd[1]}
+        for key, val in extra.items():
+            row.update({key: val[0], f"{key}_min": val[1], f"{key}_max": val[2]})
         results.setdefault(name, []).append(row)
-        print(f"    kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms="
-              f"{'null' if lib_ms is None else f'{lib_ms:.4f}'} "
-              f"bound_ms={bnd[0]:.4f} ({bnd[1]})", flush=True)
+        more = "".join(f" {k}={fmt(v)}" for k, v in extra.items())
+        print(f"    kernel_ms={fmt(k_ms)} plain_ms={p_ms:.4f} library_ms={fmt(lib_ms)}"
+              f"{more} bound_ms={bnd[0]:.4f} ({bnd[1]})", flush=True)
 
     checked_gather = False
     for s, c in HALO_SHAPES:
@@ -288,8 +311,8 @@ def main() -> int:
             print(f"  halo gather == kernel at {(BATCH, s, s, s, c)}: exact")
             checked_gather = True
         record("halo", (BATCH, s, c),
-               stats, cuda_time_ms(lambda: kernels.halo_exchange(x, 3)),
-               cuda_time_ms(lambda: halo_plain(x, 3)), cuda_time_ms(gather),
+               stats, timed(lambda: kernels.halo_exchange(x, 3)),
+               cuda_time_ms(lambda: halo_plain(x, 3)), timed(gather),
                bound_ms(0.0, nbytes(x, got)))
         del ids, src_ids, idx, src
 
@@ -305,9 +328,9 @@ def main() -> int:
         x_cf = xh.permute(0, 4, 1, 2, 3)
         flops = 2.0 * BATCH * s ** 3 * 27 * cin * cout
         record("conv3d", (BATCH, s, cin, cout), stats,
-               cuda_time_ms(lambda: kernels.conv3d_valid(xh, w, cache)),
+               timed(lambda: kernels.conv3d_valid(xh, w, cache)),
                cuda_time_ms(lambda: conv3d_valid_plain(xh, w)),
-               cuda_time_ms(lambda: torch.nn.functional.conv3d(x_cf, w_bf)),
+               timed(lambda: torch.nn.functional.conv3d(x_cf, w_bf)),
                bound_ms(flops, nbytes(xh, w_bf, got)))
         results["conv3d"][-1]["kernel_route"] = conv_route(cin)
         del xh, got, want, x_cf
@@ -328,10 +351,19 @@ def main() -> int:
         torch.cuda.synchronize()
         stats = compare("fused_block", (BATCH, s, cin, cout), got, want, BF16_TOL)
         flops = 2.0 * BATCH * s ** 3 * 27 * cin * cout
+        # the GEMM's floor: cuDNN's conv alone on mish(A_r * xh + B_r),
+        # materialised in bf16 outside the timed loop
+        reg = fused_module._region_index(s + 2, dev)
+        act = fused_module.mish_one_exp(a_tab[:, reg] * xh.float() + b_tab[:, reg])
+        act_cf = act.to(torch.bfloat16).permute(0, 4, 1, 2, 3)
+        w_bf = w.to(torch.bfloat16)
+        del act
         record("fused_block", (BATCH, s, cin, cout), stats,
-               cuda_time_ms(lambda: kernels.fused_conv(xh, a_tab, b_tab, w, cache)),
+               timed(lambda: kernels.fused_conv(xh, a_tab, b_tab, w, cache)),
                cuda_time_ms(lambda: kernels.fused_conv_plain(xh, a_tab, b_tab, w), iters=3),
-               None, bound_ms(flops, nbytes(xh, a_tab, b_tab, w.to(torch.bfloat16), got)))
+               None, bound_ms(flops, nbytes(xh, a_tab, b_tab, w_bf, got)),
+               conv_only_library_ms=timed(lambda: torch.nn.functional.conv3d(act_cf, w_bf)))
+        del act_cf, xh, got, want
 
     for bh, n, d in FLASH_SHAPES:
         q, k, v = (torch.randn((bh, n, d), generator=gen, device=dev).to(torch.bfloat16)
@@ -345,9 +377,9 @@ def main() -> int:
         q4, k4, v4 = (a.view(WINDOWS, bh // WINDOWS, n, d) for a in (q, k, v))
         sdpa = torch.nn.functional.scaled_dot_product_attention
         record("flash_attention", (bh, n, d), stats,
-               cuda_time_ms(lambda: kernels.flash_attention(q, k, v, scale)),
+               timed(lambda: kernels.flash_attention(q, k, v, scale)),
                cuda_time_ms(lambda: kernels.attention_plain(q, k, v, scale), iters=3),
-               cuda_time_ms(lambda: sdpa(q4, k4, v4, scale=scale)),
+               timed(lambda: sdpa(q4, k4, v4, scale=scale)),
                bound_ms(4.0 * bh * n * n * d, nbytes(q, k, v, got)))
     print(f"kernels seconds {time.perf_counter() - t0:.1f}", flush=True)
     if "--kernels-only" in sys.argv[1:]:
@@ -453,7 +485,9 @@ def main() -> int:
     for name in ("halo", "conv3d", "fused_block", "flash_attention"):
         rows = results[name]
         head = next(r for r in rows if tuple(r["shape"][1:]) == HEADLINE[name])
-        extra = {"kernel_route": head["kernel_route"]} if "kernel_route" in head else {}
+        extra = {k: head[k] for k in ("kernel_route", "conv_only_library_ms",
+                                      "conv_only_library_ms_min", "conv_only_library_ms_max")
+                 if k in head}
         line.append({
             "name": name, "route": "cuda",
             "source": f"diffusioniqt_tpu_torch/csrc/{name}.cu",
@@ -464,9 +498,11 @@ def main() -> int:
             "launches_by_path": {"serve": served[name], "serve-attn": served_attn[name]},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "tolerance": head["tol"],
-            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "ms": head["ms"], "ms_min": head["ms_min"], "ms_max": head["ms_max"],
+            "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-            "library_ms": head["library_ms"], "library": LIBRARY[name],
+            "library_ms": head["library_ms"], "library_ms_min": head["library_ms_min"],
+            "library_ms_max": head["library_ms_max"], "library": LIBRARY[name],
             "shape": "x".join(str(v) for v in head["shape"]), **extra,
         })
     print(f"total seconds {time.perf_counter() - t_all:.1f}")

@@ -26,12 +26,12 @@
 //        k >= 27 * Cin is a register set to zero, never stale shared memory;
 //     4. the fp32 tile goes to bf16 through a padded shared tile and out
 //        with 16-byte streaming stores, whole output rows per warp.
-//   The product is mma.sync m16n8k16, as in igemm.cuh, not wgmma: the
+//   The product is mma.sync m16n8k16, not wgmma: the
 //   padded product is 58 GFLOP, 0.06 ms at the bf16 peak, against 0.28 ms
 //   of stores. Whether wgmma would move this kernel's time is not measured.
 //
-// * Cin > 8: the implicit GEMM of igemm.cuh (a shared-memory brick per
-//   block, mma.sync, Cin in 32-channel chunks, which waste little there).
+// * Cin > 8: the implicit GEMM of igemm.cuh (wgmma + TMA, the fused
+//   block's GEMM without its Mish prologue), weight (27, Cin, Cout).
 
 #include "igemm.cuh"
 
@@ -61,9 +61,6 @@ struct Dims {
 
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" :: "r"(dst), "l"(src));
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 __host__ __device__ inline int halo_voxels(int tx, int ty, int tz) {
@@ -108,7 +105,7 @@ small_cin_kernel(const Params p) {
         const int hx = row / HY, hy = row % HY;
         const long long g =
             ((((long long)b * E + x0 + hx) * E + y0 + hy) * E + z0) * CIN + 2 * wi;
-        cp_async4(igemm::smem_addr(dst + row * run + 2 * wi), p.xh + g);
+        cp_async4(sm90::smem_addr(dst + row * run + 2 * wi), p.xh + g);
       }
     } else {
       for (int id = tid; id < (TX + 2) * HY * run; id += THREADS) {
@@ -147,7 +144,7 @@ small_cin_kernel(const Params p) {
 
   int brick = blockIdx.x;
   if (brick < total) load_brick(0, brick);
-  igemm::cp_async_commit();
+  sm90::cp_async_commit();
 
   // weights -> shared memory once, columns past Cout zero
   for (int id = tid; id < Dm::KPAD * (cpad / 8); id += THREADS) {
@@ -162,8 +159,8 @@ small_cin_kernel(const Params p) {
   for (int it = 0; brick < total; brick += gridDim.x, ++it) {
     const int nxt = brick + gridDim.x;
     if (nxt < total) load_brick((it + 1) & 1, nxt);
-    igemm::cp_async_commit();   // (possibly empty) group: uniform wait count
-    igemm::cp_async_wait_one(); // this brick has landed
+    sm90::cp_async_commit();   // (possibly empty) group: uniform wait count
+    sm90::cp_async_wait_one(); // this brick has landed
     __syncthreads();            // ... for every thread; staging free again
     const __nv_bfloat16* br = bricks + (it & 1) * brick_elems;
 
@@ -206,12 +203,12 @@ small_cin_kernel(const Params p) {
 #pragma unroll
         for (int jj = 0; jj < 4; ++jj) {
           uint32_t bf[4];
-          igemm::ldmatrix_x4_trans(bf,
-                                   igemm::smem_addr(wsm + b_off + ks * 16 * w_ld + n0 + jj * 16));
+          sm90::ldmatrix_x4_trans(bf,
+                                   sm90::smem_addr(wsm + b_off + ks * 16 * w_ld + n0 + jj * 16));
 #pragma unroll
           for (int i = 0; i < 2; ++i) {
-            igemm::mma_bf16(acc[i][2 * jj], a[i], bf[0], bf[1]);
-            igemm::mma_bf16(acc[i][2 * jj + 1], a[i], bf[2], bf[3]);
+            sm90::mma_bf16(acc[i][2 * jj], a[i], bf[0], bf[1]);
+            sm90::mma_bf16(acc[i][2 * jj + 1], a[i], bf[2], bf[3]);
           }
         }
       }
@@ -244,7 +241,7 @@ small_cin_kernel(const Params p) {
       }
     }
   }
-  cp_async_wait_all();
+  sm90::cp_async_wait_all();
 }
 
 template <int CIN>
@@ -275,23 +272,12 @@ int launch(const Params& p, cudaStream_t stream) {
 
 }  // namespace small
 
-// The implicit-GEMM route (Cin > 8): weight (27 * Cin_pad, Cout), Cin_pad =
-// Cin rounded up to 32. Returns a cudaError_t.
-extern "C" int conv3d_valid_launch(const void* xh, const void* w, void* out,
-                                   int nb, int s, int cin, int cout,
-                                   void* stream) {
-  igemm::Params p;
-  p.xh = static_cast<const __nv_bfloat16*>(xh);
-  p.w = static_cast<const __nv_bfloat16*>(w);
-  p.a_tab = nullptr;
-  p.b_tab = nullptr;
-  p.out = static_cast<__nv_bfloat16*>(out);
-  p.nb = nb;
-  p.s = s;
-  p.cin = cin;
-  p.cin_pad = (cin + igemm::BK - 1) / igemm::BK * igemm::BK;
-  p.cout = cout;
-  return igemm::launch<false>(p, static_cast<cudaStream_t>(stream));
+// The implicit-GEMM route (Cin > 8): weight (27, Cin, Cout), bn = 64 or
+// 128. Returns a cudaError_t.
+extern "C" int conv3d_valid_launch(void* encode, const void* xh, const void* w, void* out,
+                                   int nb, int s, int cin, int cout, int bn, void* stream) {
+  return igemm::launch<false>(encode, xh, nullptr, nullptr, w, out, nb, s, cin, cout, bn,
+                              static_cast<cudaStream_t>(stream));
 }
 
 // The small-Cin route (1 <= Cin <= 8): weight (K_pad, Cout), row

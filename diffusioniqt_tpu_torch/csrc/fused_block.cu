@@ -11,29 +11,24 @@
 //   out = conv_valid(mish(A_r * xh + B_r), w)       (bf16 out, fp32 accum)
 // The conv bias is added by the caller.
 //
-// Bound: operations (2 * M * 27 * Cin * Cout FLOP against reading xh once:
-// hundreds of FLOP per byte at Cin, Cout >= 64). Design: the implicit GEMM
-// of igemm.cuh with the affine + Mish applied where the input brick is
-// loaded into shared memory, so the normalised activation never goes to
-// device memory and each input value is transformed once per block (its
-// 27 taps and BN = 64 or 128 output channels share it).
+// Bound: operations, 2 * M * 27 * Cin * Cout FLOP against reading xh once
+// (1.583 ms at the main path's (216, 32^3, 64->64) on the H100). The old
+// design, an 8-warp mma.sync implicit GEMM that put the brick through Mish
+// on the same warps between products, reached 15% of it; igemm.cuh lists
+// the five causes. Design: the wgmma + TMA implicit GEMM of igemm.cuh with
+// the affine + Mish applied by three transform warps to the TMA-loaded
+// brick in shared memory, one brick ahead of the two consumer warpgroups:
+// the normalised activation never goes to device memory, each input value
+// is transformed once per 256-voxel brick (2.3x halo overhead, not
+// 3.4-5x), and the SFU work runs beside the tensor cores.
 
 #include "igemm.cuh"
 
-extern "C" int fused_block_launch(const void* xh, const float* a_tab,
-                                  const float* b_tab, const void* w, void* out,
-                                  int nb, int s, int cin, int cout,
-                                  void* stream) {
-  igemm::Params p;
-  p.xh = static_cast<const __nv_bfloat16*>(xh);
-  p.w = static_cast<const __nv_bfloat16*>(w);
-  p.a_tab = a_tab;
-  p.b_tab = b_tab;
-  p.out = static_cast<__nv_bfloat16*>(out);
-  p.nb = nb;
-  p.s = s;
-  p.cin = cin;
-  p.cin_pad = (cin + igemm::BK - 1) / igemm::BK * igemm::BK;
-  p.cout = cout;
-  return igemm::launch<true>(p, static_cast<cudaStream_t>(stream));
+// weight (27, Cin, Cout) bf16; tables (B, 27, Cin) fp32; bn = 64 or 128.
+// Returns a cudaError_t.
+extern "C" int fused_block_launch(void* encode, const void* xh, const float* a_tab,
+                                  const float* b_tab, const void* w, void* out, int nb, int s,
+                                  int cin, int cout, int bn, void* stream) {
+  return igemm::launch<true>(encode, xh, a_tab, b_tab, w, out, nb, s, cin, cout, bn,
+                             static_cast<cudaStream_t>(stream));
 }

@@ -16,10 +16,12 @@ Two hand-written routes, chosen from the shape by :func:`route`:
   32-channel chunk costs. Persistent blocks own 256-voxel bricks and all of
   Cout; the A fragments come straight from the shared-memory input brick
   and the output leaves in coalesced 16-byte stores.
-* ``"igemm"`` (Cin > 8): the implicit GEMM of ``csrc/igemm.cuh`` (per
-  block a halo'd input brick in shared memory, the 27 taps as shifted views
-  of it, mma.sync over M = voxels, N = Cout, K = 27 * Cin in 32-channel
-  chunks, which waste little at these widths), weight :func:`pack_weight`.
+* ``"igemm"`` (Cin > 8): the implicit GEMM of ``csrc/igemm.cuh``, the
+  fused Block kernel's GEMM without its Mish prologue (``wgmma`` over
+  M = voxels, N = Cout, K = 27 * Cin; persistent CTAs, TMA loads of a
+  halo'd 6 x 10 x 10 input brick per 4 x 8 x 8 outputs and of the tap
+  weight slices, the 27 taps as row shifts of the brick), tiled as
+  :func:`gemm_geometry` says; weight :func:`pack_weight`.
 
 Weights stay in torch layout ``(Cout, Cin, 3, 3, 3)`` in the modules;
 :class:`PackedWeight` reorders one once into the layout of the route that
@@ -29,6 +31,7 @@ runs it and keeps it until the parameter changes.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -37,6 +40,8 @@ from diffusioniqt_tpu_torch.ops.kernels import runtime
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+# the implicit GEMM's launcher also takes the TMA encoder first and BN last
+IGEMM_ARGTYPES = [ctypes.c_void_p, *_ARGTYPES[:-1], ctypes.c_int, ctypes.c_void_p]
 # widest input the small-Cin route takes; wider convs take the implicit GEMM
 SMALL_CIN_MAX = 8
 # the small-Cin kernel keeps all of Cout's weights in shared memory
@@ -51,15 +56,38 @@ def conv3d_valid_plain(xh: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def pack_weight(w: torch.Tensor) -> torch.Tensor:
-    """``(Cout, Cin, 3, 3, 3)`` -> ``(27*Cin_pad, Cout)`` bf16, row
-    ``((kx*3 + ky)*3 + kz)*Cin_pad + c``, Cin_pad = Cin rounded up to the
-    kernel's 32-channel chunk (zero rows)."""
+    """``(Cout, Cin, 3, 3, 3)`` -> ``(27*Cin, Cout)`` bf16, row
+    ``((kx*3 + ky)*3 + kz)*Cin + c``. Not padded: the kernel's TMA loads
+    fill the channels past Cin of a 64-channel chunk with zeros."""
     cout, cin = w.shape[0], w.shape[1]
-    cin_pad = -(-cin // 32) * 32
-    taps = w.detach().permute(2, 3, 4, 1, 0).reshape(27, cin, cout)
-    packed = torch.zeros((27, cin_pad, cout), dtype=torch.bfloat16, device=w.device)
-    packed[:, :cin] = taps
-    return packed.reshape(27 * cin_pad, cout)
+    taps = w.detach().permute(2, 3, 4, 1, 0).reshape(27 * cin, cout)
+    return taps.to(torch.bfloat16).contiguous()
+
+
+class GemmGeometry(NamedTuple):
+    """How the implicit-GEMM kernels (``csrc/igemm.cuh``) tile one shape."""
+
+    brick: Tuple[int, int, int]   # output voxels (x, y, z) per unit of work
+    chunk: int                    # input channels per K chunk (one 128-byte row)
+    cin_pad: int                  # Cin rounded up to the chunk (zeros past Cin)
+    bn: int                       # output channels per unit of work
+    n_tiles: int                  # units per brick along Cout
+    bricks: int                   # bricks per sub-volume
+    tma_brick: bool               # the brick comes by TMA (Cin % 8 == 0), else plain loads
+
+
+def gemm_geometry(s: int, cin: int, cout: int) -> GemmGeometry:
+    """The tiling the implicit-GEMM kernels run at sub-volume edge ``s``:
+    bricks of 4 x 8 x 8 output voxels (a halo'd 6 x 10 x 10 input brick),
+    Cin in 64-channel chunks, BN = 128 output channels where Cout is a
+    multiple of 128, else 64 (columns past Cout computed and not stored).
+    ``s`` must be a multiple of 8."""
+    brick, chunk = (4, 8, 8), 64
+    bn = 128 if cout % 128 == 0 else 64
+    return GemmGeometry(brick=brick, chunk=chunk, cin_pad=-(-cin // chunk) * chunk, bn=bn,
+                        n_tiles=-(-cout // bn),
+                        bricks=(s // brick[0]) * (s // brick[1]) * (s // brick[2]),
+                        tma_brick=cin % 8 == 0)
 
 
 def pack_weight_small(w: torch.Tensor) -> torch.Tensor:
@@ -121,11 +149,15 @@ def _launch(xh: torch.Tensor, w: torch.Tensor, packed: torch.Tensor):
     name = "conv3d"
     b, s, cin, cout = xh.shape[0], xh.shape[1] - 2, xh.shape[4], w.shape[0]
     out = torch.empty((b, s, s, s, cout), dtype=xh.dtype, device=xh.device)
-    entry = ("conv3d_small_cin_launch" if route(cin) == "small_cin"
-             else "conv3d_valid_launch")
-    fn = runtime.c_function(name, entry, _ARGTYPES)
-    err = fn(xh.data_ptr(), packed.data_ptr(), out.data_ptr(), b, s, cin, cout,
-             runtime.stream_handle(xh.device))
+    stream = runtime.stream_handle(xh.device)
+    if route(cin) == "small_cin":
+        fn = runtime.c_function(name, "conv3d_small_cin_launch", _ARGTYPES)
+        err = fn(xh.data_ptr(), packed.data_ptr(), out.data_ptr(), b, s, cin, cout, stream)
+    else:
+        fn = runtime.c_function(name, "conv3d_valid_launch", IGEMM_ARGTYPES)
+        err = fn(runtime.driver_function("cuTensorMapEncodeTiled"), xh.data_ptr(),
+                 packed.data_ptr(), out.data_ptr(), b, s, cin, cout,
+                 gemm_geometry(s, cin, cout).bn, stream)
     runtime.check_launch(name, err)
     conv3d_valid.launches += 1
     return out

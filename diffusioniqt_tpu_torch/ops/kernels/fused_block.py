@@ -17,12 +17,19 @@ As in the JAX package, the work splits in three:
   uses the one-exp identity with the input clamped at 20, as the Pallas
   kernel does.
 
-Bound on the H100: operations (hundreds of FLOP per byte of input at
-Cin, Cout >= 64). The kernel is the implicit GEMM of ``csrc/igemm.cuh``
-with the affine + Mish applied where each block loads its halo'd input
-brick into shared memory: the normalised activation never reaches device
-memory, and each input value is transformed once per block, not once per
-tap.
+Bound on the H100: operations, ``2 * M * 27 * Cin * Cout`` FLOP (1.583 ms
+at the main path's (216, 32^3, 64->64)). The first kernel (an 8-warp
+``mma.sync`` implicit GEMM, both operands through ``ldmatrix``, a barrier on
+every tap, the brick loaded and put through Mish by the same warps between
+products, 3.4-5x halo overhead) reached 15% of it. The kernel now is the
+``wgmma`` + TMA implicit GEMM of ``csrc/igemm.cuh``: persistent CTAs walk
+4 x 8 x 8-voxel output bricks (:func:`..conv3d.gemm_geometry`); one warp
+streams the tap weight slices through an mbarrier ring; three transform
+warps load each halo'd brick by TMA and apply the affine + Mish in shared
+memory one brick ahead of two consumer warpgroups, which gather their A
+fragments from the brick by ``ldmatrix`` (a tap is a row shift) and read B
+from the ring. The normalised activation never reaches device memory, and
+the Mish runs beside the products rather than between them.
 """
 
 from __future__ import annotations
@@ -38,12 +45,12 @@ from diffusioniqt_tpu_torch.ops.kernels.conv3d import (
     PackedWeight,
     check_igemm_args,
     conv3d_valid_plain,
+    gemm_geometry,
     pack_weight,
 )
 
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+# encoder, xh, a_tab, b_tab, w, out, B, s, Cin, Cout, BN, stream
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 # ---------------------------------------------------------------------------
@@ -150,8 +157,9 @@ def _launch(xh, a_tab, b_tab, w, packed):
     b, s, cin, cout = xh.shape[0], xh.shape[1] - 2, xh.shape[4], w.shape[0]
     out = torch.empty((b, s, s, s, cout), dtype=xh.dtype, device=xh.device)
     fn = runtime.c_function(name, "fused_block_launch", _ARGTYPES)
-    err = fn(xh.data_ptr(), a_tab.data_ptr(), b_tab.data_ptr(), packed.data_ptr(),
-             out.data_ptr(), b, s, cin, cout, runtime.stream_handle(xh.device))
+    err = fn(runtime.driver_function("cuTensorMapEncodeTiled"), xh.data_ptr(),
+             a_tab.data_ptr(), b_tab.data_ptr(), packed.data_ptr(), out.data_ptr(), b, s,
+             cin, cout, gemm_geometry(s, cin, cout).bn, runtime.stream_handle(xh.device))
     runtime.check_launch(name, err)
     fused_conv.launches += 1
     return out
@@ -182,8 +190,10 @@ def fused_conv(xh, a_tab, b_tab, w, cache: PackedWeight = None) -> torch.Tensor:
     want = (xh.shape[0], 27, xh.shape[4])
     for tab in (a_tab, b_tab):
         runtime.require(tab.dtype == torch.float32 and tuple(tab.shape) == want
-                        and tab.is_contiguous() and tab.device == xh.device,
-                        name, f"tables must be contiguous fp32 {want} on {xh.device}")
+                        and tab.is_contiguous() and tab.device == xh.device
+                        and tab.data_ptr() % 16 == 0,
+                        name, f"tables must be contiguous, 16-byte aligned fp32 {want} "
+                        f"on {xh.device}")
     packed = cache.get(w) if cache is not None else pack_weight(w)
     return _FusedConv.apply(xh, a_tab, b_tab, w, packed)
 

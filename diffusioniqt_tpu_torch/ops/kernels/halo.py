@@ -6,9 +6,12 @@ one-voxel shell filled from its 26 grid neighbours, zeros at the merged
 volume's outer border. ``factor=1`` is plain zero padding.
 
 Bound on the H100: bytes (pure data movement, input read once and output
-written once). The kernel gives each thread one 16-byte channel vector of
-one output voxel, so loads and stores are coalesced, and moves bytes
-whatever the dtype. The plain version is the axis sweep of
+written once). The kernel is row-wise: a team of lanes owns one output row
+(n, px, py) of s+2 voxels, works out its sources once (:func:`row_sources`,
+32-bit arithmetic in the kernel), copies the interior z-run as one
+contiguous run of the source row with the widest vector both pointers
+allow, and fills the two end voxels from the z-neighbours or with zeros. It
+moves bytes whatever the dtype. The plain version is the axis sweep of
 ``ops.volume.halo_exchange``; the two must agree exactly.
 """
 
@@ -23,6 +26,27 @@ from diffusioniqt_tpu_torch.ops.volume import halo_exchange as halo_exchange_pla
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+
+def row_sources(n: int, px: int, py: int, s: int, factor: int):
+    """Where the kernel takes output row ``(n, px, py)`` from: three
+    ``(sub-volume, x, y, z0)`` source starts, for the low z end voxel, the
+    interior run of s voxels and the high z end voxel, each ``None`` where
+    that part is zeros (a missing grid neighbour)."""
+    e, f = s + 2, factor
+    cell = n % f ** 3
+    gx, gy, gz = cell // (f * f), (cell // f) % f, cell % f
+
+    def axis(p):  # grid step to the neighbour, index inside it
+        return (-1, s - 1) if p == 0 else ((1, 0) if p == e - 1 else (0, p - 1))
+
+    (dx, sx), (dy, sy) = axis(px), axis(py)
+    row_ok = 0 <= gx + dx < f and 0 <= gy + dy < f
+    src = n + (dx * f + dy) * f
+    lo = (src - 1, sx, sy, s - 1) if row_ok and gz > 0 else None
+    mid = (src, sx, sy, 0) if row_ok else None
+    hi = (src + 1, sx, sy, 0) if row_ok and gz < f - 1 else None
+    return lo, mid, hi
 
 
 def _launch(x: torch.Tensor, factor: int) -> torch.Tensor:

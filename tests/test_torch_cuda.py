@@ -35,12 +35,19 @@ def _close(got, want, tol_rel=BF16_TOL):
     assert err <= tol_rel * want.float().abs().max().item(), err
 
 
+# every vector width of the row-wise copy (1 to 16 bytes a vector, the
+# interior run starting C elements into the row) at factor 1 and 3
+_HALO_WIDTHS = [(2 * f ** 3, 8, c, f) for c in (1, 2, 3, 4, 8, 64, 192) for f in (1, 3)]
+
+
 @pytest.mark.parametrize("n,s,c,factor", [(54, 8, 2, 3), (27, 4, 64, 3),
-                                          (27, 8, 192, 3), (2, 6, 3, 1)])
+                                          (27, 8, 192, 3), (2, 6, 3, 1)] + _HALO_WIDTHS)
 def test_halo_equals_plain(dev, n, s, c, factor):
     x = torch.randn((n, s, s, s, c), device=dev).to(torch.bfloat16)
-    torch.testing.assert_close(kernels.halo_exchange(x, factor),
-                               kernels.halo_exchange_plain(x, factor), rtol=0, atol=0)
+    kernels.reset_launch_counts()
+    got = kernels.halo_exchange(x, factor)
+    assert kernels.launch_counts()["halo"] == 1
+    torch.testing.assert_close(got, kernels.halo_exchange_plain(x, factor), rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("s,cin,cout", [(8, 2, 64), (16, 64, 64), (24, 64, 128),
@@ -58,6 +65,58 @@ def test_conv_and_fused_match_plain(dev, s, cin, cout):
                                 torch.zeros(cin, device=dev), groups, scale_shift=ss)
     ta, tb = tfb.neighbor_tables(a, b, 3)
     _close(kernels.fused_conv(xh, ta, tb, w), kernels.fused_conv_plain(xh, ta, tb, w))
+
+
+def _fused_case(dev, s, cin, cout, seed, n=27):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((n, s, s, s, cin), generator=g, device=dev).to(torch.bfloat16)
+    w = torch.randn((cout, cin, 3, 3, 3), generator=g, device=dev) * (27 * cin) ** -0.5
+    groups = 8 if cin % 8 == 0 else 1
+    ss = tuple(0.2 * torch.randn((n, 1, 1, 1, cin), generator=g, device=dev)
+               for _ in range(2))
+    a, b = tfb.groupnorm_affine(x, 1.0 + 0.1 * torch.randn(cin, generator=g, device=dev),
+                                0.1 * torch.randn(cin, generator=g, device=dev), groups,
+                                scale_shift=ss)
+    ta, tb = tfb.neighbor_tables(a, b, 3)
+    return kernels.halo_exchange(x, 3), ta, tb, w
+
+
+@pytest.mark.parametrize("cin,cout", [(2, 64), (16, 16), (64, 64), (128, 64), (192, 128),
+                                      (256, 256)])
+@pytest.mark.parametrize("s", [8, 16, 32])
+def test_fused_kernel_matches_plain(dev, s, cin, cout):
+    """The wgmma GEMM at both BN (64, 128; Cout 16 as padded columns), one
+    to four 64-channel chunks (Cin 2 and 16 with zero-filled channels), the
+    plain-load brick (Cin = 2) and the TMA brick, at every sub-volume edge
+    of the path."""
+    xh, ta, tb, w = _fused_case(dev, s, cin, cout, seed=s * 1000 + cin + cout)
+    kernels.reset_launch_counts()
+    got = kernels.fused_conv(xh, ta, tb, w)
+    assert kernels.launch_counts()["fused_block"] == 1
+    _close(got, kernels.fused_conv_plain(xh, ta, tb, w))
+
+
+@pytest.mark.parametrize("s,cin,cout", [(16, 64, 64), (8, 72, 32), (8, 12, 16)])
+def test_wide_conv_route_matches_plain(dev, s, cin, cout):
+    """conv3d's implicit-GEMM route: the fused kernel's GEMM without Mish;
+    Cin = 72 is one full and one partial 64-channel chunk, Cout = 32 half a
+    BN = 64 tile; Cin = 12 takes the plain-load brick."""
+    g = torch.Generator(device=dev).manual_seed(cin + cout)
+    xh = torch.randn((27, s + 2, s + 2, s + 2, cin), generator=g, device=dev).to(torch.bfloat16)
+    w = torch.randn((cout, cin, 3, 3, 3), generator=g, device=dev) * (27 * cin) ** -0.5
+    _close(kernels.conv3d_valid(xh, w), kernels.conv3d_valid_plain(xh, w))
+
+
+@pytest.mark.parametrize("cin", [16, 192])
+def test_fused_kernel_after_nan(dev, cin):
+    """A launch on NaN input, then a clean one: the channels past Cin of a
+    64-channel chunk (Cin = 16) and the second brick buffer never carry
+    stale NaN into the product."""
+    xh, ta, tb, w = _fused_case(dev, 16, cin, 64, seed=cin)
+    kernels.fused_conv(torch.full_like(xh, float("nan")), ta, tb, w)
+    got = kernels.fused_conv(xh, ta, tb, w)
+    assert torch.isfinite(got).all()
+    _close(got, kernels.fused_conv_plain(xh, ta, tb, w))
 
 
 @pytest.mark.parametrize("s,cin,cout", [(8, 1, 16), (8, 2, 16), (8, 3, 16), (8, 8, 16),

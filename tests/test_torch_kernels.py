@@ -18,6 +18,7 @@ from diffusioniqt_tpu.ops.pallas.halo import halo_exchange_pallas
 from diffusioniqt_tpu_torch.ops import kernels
 from diffusioniqt_tpu_torch.ops.kernels import conv3d as tconv
 from diffusioniqt_tpu_torch.ops.kernels import fused_block as tfb
+from diffusioniqt_tpu_torch.ops.kernels import halo as thalo
 
 torch.set_num_threads(1)
 
@@ -48,6 +49,39 @@ def test_halo_plain_equals_pallas_interpret(n, s, c):
     assert kernels.launch_counts() == before  # the CPU path launches nothing
 
 
+def _halo_by_rows(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """What the row-wise halo kernel writes: each output row (n, px, py)
+    from the three sources :func:`row_sources` gives it (low z end voxel,
+    interior run of s voxels, high z end voxel), zeros where one is None."""
+    n, s, c = x.shape[0], x.shape[1], x.shape[4]
+    e = s + 2
+    out = torch.zeros((n, e, e, e, c), dtype=x.dtype)
+    for nn in range(n):
+        for px in range(e):
+            for py in range(e):
+                lo, mid, hi = thalo.row_sources(nn, px, py, s, factor)
+                if lo is not None:
+                    out[nn, px, py, 0] = x[lo[0], lo[1], lo[2], lo[3]]
+                if mid is not None:
+                    out[nn, px, py, 1:s + 1] = x[mid[0], mid[1], mid[2], mid[3]:mid[3] + s]
+                if hi is not None:
+                    out[nn, px, py, s + 1] = x[hi[0], hi[1], hi[2], hi[3]]
+    return out
+
+
+@pytest.mark.parametrize("n,s,c,factor", [(2, 5, 3, 1), (54, 4, 2, 3), (27, 3, 1, 3)])
+def test_halo_row_decomposition_matches_plain_and_pallas(n, s, c, factor):
+    """The halo kernel's row decomposition, exact against the axis sweep
+    and the Pallas kernel in interpret mode."""
+    x = _rand((n, s, s, s, c), seed=13)
+    got = _halo_by_rows(torch.from_numpy(x), factor).numpy()
+    np.testing.assert_array_equal(got, kernels.halo_exchange_plain(torch.from_numpy(x),
+                                                                   factor).numpy())
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(halo_exchange_pallas(jnp.asarray(x), factor))
+    np.testing.assert_array_equal(got, want)
+
+
 # --------------------------------------------------------------- conv3d
 
 @pytest.mark.parametrize("b,s,cin,cout", [(2, 8, 8, 8), (27, 4, 2, 16)])
@@ -65,11 +99,10 @@ def test_conv3d_plain_matches_pallas_interpret(b, s, cin, cout):
 def test_pack_weight_layout_and_cache():
     w = torch.randn(16, 4, 3, 3, 3)
     packed = tconv.pack_weight(w)
-    # Cin padded to the kernel's 32-channel chunk with zero rows
-    assert packed.shape == (27 * 32, 16) and packed.dtype == torch.bfloat16
-    # row ((kx*3 + ky)*3 + kz)*Cin_pad + c, column o
-    assert packed[((1 * 3 + 2) * 3 + 0) * 32 + 3, 5] == w[5, 3, 1, 2, 0].to(torch.bfloat16)
-    assert not packed.reshape(27, 32, 16)[:, 4:].any()
+    # no padding: the kernel's TMA fills channels past Cin with zeros
+    assert packed.shape == (27 * 4, 16) and packed.dtype == torch.bfloat16
+    # row ((kx*3 + ky)*3 + kz)*Cin + c, column o
+    assert packed[((1 * 3 + 2) * 3 + 0) * 4 + 3, 5] == w[5, 3, 1, 2, 0].to(torch.bfloat16)
     cache = tconv.PackedWeight()
     first = cache.get(w)
     assert cache.get(w) is first           # unchanged parameter: no repack
@@ -129,7 +162,7 @@ def test_pack_weight_small_layout_and_cache():
     cache = tconv.PackedWeight()
     first = cache.get(w, tconv.pack_weight_small)
     assert cache.get(w, tconv.pack_weight_small) is first  # unchanged: no repack
-    assert cache.get(w).shape == (27 * 32, 16)   # the other route's layout: repacked
+    assert cache.get(w).shape == (27 * 2, 16)    # the other route's layout: repacked
     with torch.no_grad():
         w.mul_(2.0)                              # in-place update bumps the version
     again = cache.get(w, tconv.pack_weight_small)
@@ -218,3 +251,108 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         kernels.conv3d_valid(torch.empty((1, 6, 6, 6, 8), device="meta"),
                              torch.empty((8, 8, 3, 3, 3), device="meta"))
+
+
+# ------------------------------------------- the implicit GEMM, tile by tile
+
+def _region_per_axis(p: torch.Tensor, e: int) -> torch.Tensor:
+    """0 on the low halo plane, 2 on the high one, 1 inside (per axis)."""
+    return torch.where(p == 0, 0, torch.where(p == e - 1, 2, 1))
+
+
+def _emulate_igemm(xh, a_tab, b_tab, w, fused=True):
+    """What ``csrc/igemm.cuh`` computes, unit by unit, in fp32: for each
+    4 x 8 x 8 output brick (:func:`gemm_geometry`) and BN output channels,
+    the halo'd 6 x 10 x 10 brick in 64-channel chunks (zeros past Cin),
+    put through mish(A_r x + B_r) with r the region of each brick voxel,
+    stored with the 128-byte swizzle (16-byte group pc of row r holds the
+    chunk's channels 8 (pc ^ (r & 7))), and 27 taps, each a row shift of the
+    brick read back through the same swizzle, times the packed weight."""
+    nb, e, cin = xh.shape[0], xh.shape[1], xh.shape[4]
+    s, cout = e - 2, w.shape[0]
+    geo = tconv.gemm_geometry(s, cin, cout)
+    assert geo.bricks == (s // 4) * (s // 8) * (s // 8)
+    tx, ty, tz = geo.brick
+    hx, hy, hz = tx + 2, ty + 2, tz + 2
+    rows = hx * hy * hz
+    ncol = geo.n_tiles * geo.bn
+    wpad = torch.zeros((27, geo.cin_pad, ncol))
+    wpad[:, :cin, :cout] = tconv.pack_weight(w).float().reshape(27, cin, cout)
+    # every unit's brick origin (sub-volume, x0, y0, z0)
+    ub, ux, uy, uz = (g.reshape(-1) for g in torch.meshgrid(
+        torch.arange(nb), torch.arange(0, s, tx), torch.arange(0, s, ty),
+        torch.arange(0, s, tz), indexing="ij"))
+    # brick row r = (hx*HY + hy)*HZ + hz; output row m = (mx*TY + my)*TZ + mz
+    bx, by, bz = (g.reshape(-1) for g in torch.meshgrid(
+        torch.arange(hx), torch.arange(hy), torch.arange(hz), indexing="ij"))
+    px, py, pz = ux[:, None] + bx, uy[:, None] + by, uz[:, None] + bz   # (U, rows)
+    region = (_region_per_axis(px, e) * 3 + _region_per_axis(py, e)) * 3 + \
+        _region_per_axis(pz, e)
+    mx, my, mz = (g.reshape(-1) for g in torch.meshgrid(
+        torch.arange(tx), torch.arange(ty), torch.arange(tz), indexing="ij"))
+    row0 = (mx * hy + my) * hz + mz
+    r8 = torch.arange(rows) % 8
+    acc = torch.zeros((ux.shape[0], tx * ty * tz, ncol))
+    for c0 in range(0, geo.cin_pad, geo.chunk):
+        n_c = min(geo.chunk, cin - c0)
+        brick = torch.zeros((ux.shape[0], rows, geo.chunk))
+        raw = xh[ub[:, None], px, py, pz, c0:c0 + n_c]
+        if fused:
+            ub_r = ub[:, None].expand_as(region)
+            raw = tfb.mish_one_exp(a_tab[ub_r, region, c0:c0 + n_c] * raw
+                                   + b_tab[ub_r, region, c0:c0 + n_c])
+        brick[..., :n_c] = raw
+        groups = brick.reshape(-1, rows, 8, 8)
+        phys = groups[:, torch.arange(rows)[:, None], torch.arange(8)[None, :] ^ r8[:, None]]
+        for tap in range(27):
+            kx, ky, kz = tap // 9, (tap // 3) % 3, tap % 3
+            r = row0 + (kx * hy + ky) * hz + kz
+            a = phys[:, r[:, None], torch.arange(8)[None, :] ^ (r % 8)[:, None]]
+            acc += a.reshape(a.shape[0], -1, geo.chunk) @ wpad[tap, c0:c0 + geo.chunk]
+    out = acc[..., :cout].reshape(nb, s // tx, s // ty, s // tz, tx, ty, tz, cout)
+    return out.permute(0, 1, 4, 2, 5, 3, 6, 7).reshape(nb, s, s, s, cout)
+
+
+def test_gemm_geometry():
+    assert tconv.gemm_geometry(32, 64, 64) == tconv.GemmGeometry(
+        brick=(4, 8, 8), chunk=64, cin_pad=64, bn=64, n_tiles=1, bricks=128, tma_brick=True)
+    g = tconv.gemm_geometry(8, 256, 256)
+    assert (g.bn, g.n_tiles, g.bricks, g.cin_pad) == (128, 2, 2, 256)
+    g = tconv.gemm_geometry(16, 2, 16)
+    assert (g.bn, g.n_tiles, g.cin_pad, g.tma_brick) == (64, 1, 64, False)
+    assert tconv.gemm_geometry(8, 72, 32).cin_pad == 128
+
+
+@pytest.mark.parametrize("cout", [16, 64, 128])
+@pytest.mark.parametrize("cin", [2, 16, 64, 72])
+@pytest.mark.parametrize("s", [8, 16])
+def test_fused_kernel_tiles_match_plain_and_pallas(_interpret, s, cin, cout):
+    """The fused kernel's decomposition (bricks, regions, chunk padding,
+    swizzle, taps as row shifts) equals ``fused_conv_plain`` at fp32, and
+    the JAX fused_boundary_block in interpret mode; at s = 8 the same
+    decomposition without the prologue is the conv (the wide conv route)."""
+    factor, groups = 2, (1 if cin == 2 else 8)
+    nb = factor ** 3
+    x = _bf16_values(_rand((nb, s, s, s, cin), seed=21))
+    ns = 1.0 + _rand((cin,), seed=22, scale=0.1)
+    nbias = _rand((cin,), seed=23, scale=0.1)
+    ss = (_rand((nb, 1, 1, 1, cin), seed=24, scale=0.2),
+          _rand((nb, 1, 1, 1, cin), seed=25, scale=0.2))
+    w = _bf16_values(_rand((3, 3, 3, cin, cout), seed=26, scale=(27 * cin) ** -0.5))
+    a, b = tfb.groupnorm_affine(_t(x), _t(ns), _t(nbias), groups,
+                                scale_shift=tuple(map(_t, ss)))
+    ta, tb = tfb.neighbor_tables(a, b, factor)
+    xh = kernels.halo_exchange_plain(_t(x), factor)
+    got = _emulate_igemm(xh, ta, tb, _torch_w(w))
+    np.testing.assert_allclose(got.numpy(), tfb.fused_conv_plain(xh, ta, tb, _torch_w(w)).numpy(),
+                               rtol=1e-5, atol=1e-5)
+    want = np.asarray(jfb.fused_boundary_block(
+        jnp.asarray(x), jnp.asarray(ns), jnp.asarray(nbias), tuple(map(jnp.asarray, ss)),
+        jnp.asarray(w), groups, factor, jnp.float32))
+    # the tolerance of test_fused_block_plain_matches_pallas_interpret
+    np.testing.assert_allclose(got.numpy(), want, rtol=3e-3, atol=3e-4)
+    if s == 8:
+        conv = _emulate_igemm(xh, None, None, _torch_w(w), fused=False)
+        np.testing.assert_allclose(conv.numpy(),
+                                   tconv.conv3d_valid_plain(xh, _torch_w(w)).numpy(),
+                                   rtol=1e-5, atol=1e-5)
