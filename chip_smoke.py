@@ -31,6 +31,25 @@ Phases, each of which raises (and exits non-zero) on failure:
                 128^3 volume: 8 windows of 96^3, 20 sampler steps, full width;
                 launch counters are zeroed just before and read just after
   serve-attn    the same with the attention config
+  edm-step      one EDM sampler call of two steps (one corrected Heun step,
+                one Euler step: 3 forwards) over one 27 x 32^3 group with
+                ``config/eval_edm.yaml`` at full width, through the kernels
+                and through the plain versions with the same noise; launches
+                3 x (39 halos, 1 conv3d, 38 fused blocks), agreement within
+                FORWARD_REL_TOL
+  serve-edm     ``infer_volume`` with ``config/eval_edm.yaml`` on the fake
+                128^3 volume: 8 windows in one sampler call, 64 Heun steps =
+                127 forwards, full width, nothing cut; launches exactly 4953
+                halos, 127 conv3d, 4826 fused blocks, 0 flash; seconds of the
+                sampler call, ms per forward and per Heun step
+  stitch        125 seeded window predictions on the card (the users' 240^3
+                volume at overlap 32) stitched by the host ``VolumeStitcher``
+                and by ``DeviceVolumeStitcher`` in batches of 8 (the last
+                ragged, padded, and dropped by ``valid``), trim (exact) and
+                Gaussian (1e-6 relative), with the ms of each
+  metrics       ``evaluate.evaluate`` (centre-cropped MS-SSIM and PSNR) of the
+                serve-edm output against the fake highres volume on the card
+                and on the CPU, agreeing to 1e-5 relative
 
 ``python3 chip_smoke.py --profile`` also prints a ``torch.profiler``
 breakdown of one forward of each of the two configs at the serve batch,
@@ -40,7 +59,9 @@ prints no result line: a copy of this script placed in another checkout of
 the repository times that checkout's kernels the same way.
 
 The line before the last is ``{"kernels": [...]}`` (per kernel: launches in
-the serve run of its path, max abs error against the plain version, times
+the serve run of its path, serve-edm for the conv kernels and serve-attn for
+flash attention, with every serve run's count beside them, max abs error
+against the plain version, times
 in ms at the main path's heaviest shape for that kernel, the bound and what
 sets it); the last line is ``{"ok": true, "device": {...}}``. Imports
 nothing of JAX or of ``diffusioniqt_tpu``. Exits non-zero without CUDA.
@@ -76,6 +97,11 @@ FORWARD_REL_TOL = 5e-2
 # its output to bf16 once. The outputs may then differ by one bf16 ulp,
 # which at any magnitude m <= max|plain| is at most 2^-7 * max|plain|.
 FLASH_TOL = 2.0 ** -7
+# the device stitch against the host one: trim copies (exact); Gaussian
+# accumulates the same fp32 products in the same order
+STITCH_GAUSS_REL_TOL = 1e-6
+# the metrics on the card against the CPU: fp32 reductions in other orders
+METRICS_REL_TOL = 1e-5
 
 SUB = 32                 # sub-volume edge on the main path
 GROUP = 27               # one 96^3 window = 27 sub-volumes
@@ -100,6 +126,7 @@ REPLACES = {
 HEADLINE = {"halo": (32, 64), "conv3d": (32, 2, 64), "fused_block": (32, 64, 64),
             "flash_attention": (1728, 64)}
 FLAGSHIP_CONFIG = os.path.join("config", "eval_config.yaml")
+EDM_CONFIG = os.path.join("config", "eval_edm.yaml")
 ATTN_CONFIG = os.path.join("diffusioniqt_tpu_torch", "configs", "eval_attn_softmax.yaml")
 # launches per forward of one 27-sub-volume group
 FLAGSHIP_COUNTS = {"halo": 39, "conv3d": 1, "fused_block": 38, "flash_attention": 0}
@@ -223,7 +250,9 @@ def main() -> int:
         return 1
 
     from diffusioniqt_tpu_torch.config import load_config
+    from diffusioniqt_tpu_torch.data.stitching import VolumeStitcher, sliding_window_grid
     from diffusioniqt_tpu_torch.diffusion.gaussian import gaussian_noise
+    from diffusioniqt_tpu_torch.evaluate import evaluate
     from diffusioniqt_tpu_torch.infer import build_sampler, fake_volumes, infer_volume
     from diffusioniqt_tpu_torch.models.unet3d import iqt_unet_from_config
     from diffusioniqt_tpu_torch.ops import kernels
@@ -234,6 +263,7 @@ def main() -> int:
         groupnorm_affine,
         neighbor_tables,
     )
+    from diffusioniqt_tpu_torch.ops.stitch_device import DeviceVolumeStitcher
     from diffusioniqt_tpu_torch.ops.volume import halo_exchange as halo_plain
 
     def conv_route(cin):
@@ -435,11 +465,29 @@ def main() -> int:
 
     def serve(cfg, per_forward):
         """infer_volume on the seeded fake 128^3 volume; the launches must be
-        ``per_forward`` times the forwards the sampler ran."""
-        edge, steps, windows_per_batch = 128, cfg.train.timesteps, WINDOWS
+        ``per_forward`` times the forwards the sampler ran (one per step for
+        the ancestral sampler, two per Heun step but the last one for EDM).
+        Returns the launches, the prediction and the fake highres volume."""
+        edge, windows_per_batch = 128, WINDOWS
+        if cfg.train.elucidated:
+            steps = cfg.train.edm_num_sample_steps
+            nfe = 2 * steps - 1
+        else:
+            steps = nfe = cfg.train.timesteps
         imagen = build_sampler(cfg, device=dev, seed=0)
-        lowres_vol, _ = fake_volumes(cfg, edge, seed=0)
+        lowres_vol, highres_vol = fake_volumes(cfg, edge, seed=0)
         noise = gaussian_noise(torch.Generator(device=dev).manual_seed(0))
+        call_s, sample = [], imagen.sample
+
+        def timed_sample(**kw):  # the sampler calls alone, synchronised
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = sample(**kw)
+            torch.cuda.synchronize()
+            call_s.append(time.perf_counter() - t0)
+            return out
+
+        imagen.sample = timed_sample
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
         t_serve = time.perf_counter()
@@ -450,24 +498,116 @@ def main() -> int:
         served = kernels.launch_counts()
         n_windows = ((edge - cfg.train.patch_size) // cfg.eval.overlap + 1) ** 3
         n_calls = -(-n_windows // windows_per_batch)
-        print(f"windows {n_windows} steps {steps} width dim={cfg.train.dim} "
+        print(f"sampler {type(imagen).__name__} windows {n_windows} steps {steps} "
+              f"forwards per call {nfe} width dim={cfg.train.dim} "
               f"mults={cfg.train.dim_mults} nothing cut")
         print(f"serve seconds {serve_s:.3f} ms per denoise step "
               f"{serve_s * 1e3 / (steps * n_calls):.3f} ({n_calls} sampler call(s) of "
               f"{min(n_windows, windows_per_batch)} windows)")
+        print(f"sampler call seconds {' '.join(f'{s:.3f}' for s in call_s)}; ms per "
+              f"forward (NFE) {sum(call_s) * 1e3 / (nfe * n_calls):.3f}, per step "
+              f"{sum(call_s) * 1e3 / (steps * n_calls):.3f}")
         print(f"output {pred.shape} finite {bool(np.isfinite(pred).all())} "
               f"launches {served}", flush=True)
-        want_counts = {k: n * steps * n_calls for k, n in per_forward.items()}
+        want_counts = {k: n * nfe * n_calls for k, n in per_forward.items()}
         if pred.shape != (edge,) * 3 or not np.isfinite(pred).all():
             raise AssertionError("serve output is not a finite volume of the input's shape")
         if served != want_counts:
             raise AssertionError(f"serve launches {served}, expected {want_counts}")
-        return served
+        return served, pred, highres_vol
+
+    def edm_step(cfg):
+        """Two EDM steps (3 forwards) over one 27 x 32^3 group through the
+        kernels and through the plain versions, with the same noise."""
+        imagen = build_sampler(cfg, device=dev, seed=0)
+        model = imagen.unets[-1]
+        lowres = torch.randn((GROUP, SUB, SUB, SUB, 1), generator=gen, device=dev)
+
+        def run():
+            noise = gaussian_noise(torch.Generator(device=dev).manual_seed(0))
+            return imagen.sample(batch_size=GROUP, noise=noise, start_at_unet_number=2,
+                                 start_image_or_video=lowres)
+
+        kernels.reset_launch_counts()
+        out_k = run()
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        want = {k: 3 * n for k, n in FLAGSHIP_COUNTS.items()}
+        model.use_ops(kernels.PLAIN)
+        out_p = run()
+        model.use_ops(kernels.KERNELS)
+        rel = ((out_k - out_p).abs().max() / out_p.abs().max()).item()
+        print(f"edm 2 steps out {tuple(out_k.shape)} finite {bool(torch.isfinite(out_k).all())} "
+              f"max_rel_err_vs_plain {rel:.3e} (tol {FORWARD_REL_TOL}) launches {counts}",
+              flush=True)
+        if counts != want:
+            raise AssertionError(f"edm-step launches {counts}, expected {want}")
+        if not (torch.isfinite(out_k).all() and rel <= FORWARD_REL_TOL):
+            raise AssertionError("edm-step: the sampler through the kernels disagrees "
+                                 "with the plain path")
+
+    def stitch():
+        """The users' 240^3 volume at overlap 32: 125 seeded window
+        predictions on the card, host and device stitch in both modes."""
+        vol_shape, patch, overlap = (240,) * 3, 96, 32
+        starts = sliding_window_grid(vol_shape, patch, overlap)
+        preds = torch.randn((len(starts), patch, patch, patch), generator=gen, device=dev)
+        for mode in ("trim", "gaussian"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            host = VolumeStitcher(vol_shape, patch, overlap, mode=mode, fill_value=-0.72)
+            for b in range(0, len(starts), WINDOWS):
+                outs = preds[b:b + WINDOWS].cpu().numpy()
+                for j, idx in enumerate(starts[b:b + WINDOWS]):
+                    host.add(outs[j], idx)
+            want = host.result()
+            host_ms = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            device = DeviceVolumeStitcher(vol_shape, patch, overlap, mode=mode,
+                                          fill_value=-0.72, device=dev)
+            for b in range(0, len(starts), WINDOWS):
+                outs, idx = preds[b:b + WINDOWS], starts[b:b + WINDOWS]
+                valid = np.ones(WINDOWS, bool)
+                if len(idx) < WINDOWS:  # the ragged last batch, padded
+                    pad = WINDOWS - len(idx)
+                    valid[len(idx):] = False
+                    outs = torch.cat([outs, torch.full_like(preds[:pad], 1e3)])
+                    idx = np.concatenate([idx, starts[:pad]])
+                device.add_batch(outs, idx, valid)
+            got = device.result()
+            device_ms = (time.perf_counter() - t0) * 1e3
+            err = float(np.abs(got - want).max())
+            tol = 0.0 if mode == "trim" else STITCH_GAUSS_REL_TOL * float(np.abs(want).max())
+            print(f"stitch {mode} 240^3, {len(starts)} windows of {patch}^3 in batches of "
+                  f"{WINDOWS}: host {host_ms:.1f} ms (incl. the per-batch copies back), "
+                  f"device {device_ms:.1f} ms (incl. the one copy back); max_abs_err "
+                  f"{err:.3e} tol {tol:.3e}", flush=True)
+            if err > tol:
+                raise AssertionError(f"stitch {mode}: device and host stitch disagree")
+
+    def metrics(pred, highres):
+        """evaluate() of the serve-edm output on the card and on the CPU."""
+        gt = (highres - cfg_edm.data.mean) / cfg_edm.data.std
+        border = min(32, (pred.shape[0] - 1) // 3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        on_card = evaluate(pred, gt, border=border, device=dev)
+        card_ms = (time.perf_counter() - t0) * 1e3
+        on_cpu = evaluate(pred, gt, border=border, device="cpu")
+        print(f"metrics (border {border}) on the card {on_card} in {card_ms:.1f} ms; "
+              f"on the CPU {on_cpu} (random weights: no measure of quality)", flush=True)
+        for key, want in on_cpu.items():
+            if not abs(on_card[key] - want) <= METRICS_REL_TOL * abs(want):
+                raise AssertionError(f"metrics: {key} on the card disagrees with the CPU")
 
     cfg = load_config(os.path.join(ROOT, FLAGSHIP_CONFIG))
     cfg_attn = load_config(os.path.join(ROOT, ATTN_CONFIG))
     cfg_vit = load_config(os.path.join(ROOT, ATTN_CONFIG))
     cfg_vit.train.att_type = "vit"
+    cfg_edm = load_config(os.path.join(ROOT, EDM_CONFIG))
+    cfg_edm_step = load_config(os.path.join(ROOT, EDM_CONFIG))
+    cfg_edm_step.train.edm_num_sample_steps = 2
 
     phase("forward")
     held_forward("flagship", cfg, FLAGSHIP_COUNTS, profile=True)
@@ -476,9 +616,17 @@ def main() -> int:
     phase("forward-vit")
     held_forward("vit", cfg_vit, ATTN_COUNTS, profile=False)
     phase("serve")
-    served = serve(cfg, FLAGSHIP_COUNTS)
+    served, _, _ = serve(cfg, FLAGSHIP_COUNTS)
     phase("serve-attn")
-    served_attn = serve(cfg_attn, ATTN_COUNTS)
+    served_attn, _, _ = serve(cfg_attn, ATTN_COUNTS)
+    phase("edm-step")
+    edm_step(cfg_edm_step)
+    phase("serve-edm")
+    served_edm, pred_edm, highres_edm = serve(cfg_edm, FLAGSHIP_COUNTS)
+    phase("stitch")
+    stitch()
+    phase("metrics")
+    metrics(pred_edm, highres_edm)
 
     # ------------------------------------------------------------- report
     line = []
@@ -492,10 +640,11 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"diffusioniqt_tpu_torch/csrc/{name}.cu",
             "replaces": REPLACES[name],
-            # the serve run of the kernel's own path: the flagship for the
-            # conv kernels, the attention config for flash attention
-            "launches": (served_attn if name == "flash_attention" else served)[name],
-            "launches_by_path": {"serve": served[name], "serve-attn": served_attn[name]},
+            # the serve run of the kernel's own path: the flagship's EDM
+            # sampler for the conv kernels, the attention config for flash
+            "launches": (served_attn if name == "flash_attention" else served_edm)[name],
+            "launches_by_path": {"serve": served[name], "serve-attn": served_attn[name],
+                                 "serve-edm": served_edm[name]},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "tolerance": head["tol"],
             "ms": head["ms"], "ms_min": head["ms_min"], "ms_max": head["ms_max"],

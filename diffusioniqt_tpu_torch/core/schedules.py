@@ -5,6 +5,7 @@ imagen_pytorch3D.py:222-357, after @crowsonkb's v-diffusion).
 
   log_snr(t)         — noise schedule, cosine or linear
   alpha, sigma       — sqrt(sigmoid(+/- log_snr))
+  q_sample           — diffuse x0 to time t (the EDM lowres noise aug)
   q_posterior        — DDPM ancestral posterior, continuous-time form
   predict_start_*    — invert the noise / v parameterisations
 """
@@ -82,6 +83,13 @@ class GaussianDiffusionContinuousTimes:
         t_cur = times[:-1, None].expand(self.timesteps, batch)
         t_next = times[1:, None].expand(self.timesteps, batch)
         return t_cur, t_next
+
+    def q_sample(self, x_start, t, noise):
+        """Diffuse x0 to time ``t``: ``(x_t, log_snr, alpha, sigma)``
+        (reference :311-322)."""
+        log_snr = self.log_snr(t).to(x_start.dtype)
+        alpha, sigma = log_snr_to_alpha_sigma(right_pad_dims_to(x_start, log_snr))
+        return alpha * x_start + sigma * noise, log_snr, alpha, sigma
 
     def q_posterior(self, x_start, x_t, t, t_next=None):
         """Posterior q(x_s | x_t, x0) mean / variance / clipped log variance

@@ -1,7 +1,8 @@
 """Volume IO and sliding-window inference patches (copied from
 ``diffusioniqt_tpu/data/datasets.py``: ``load_volume``, ``load_affine``,
-``save_volume`` and ``SupervisedIQTInference``; ``tests/test_torch_data.py``
-holds them equal). The training datasets are not ported yet.
+``save_volume`` and ``SupervisedIQTInference`` with ``valid_indices``;
+``tests/test_torch_data.py`` and ``tests/test_torch_stitch_device.py`` hold
+them equal). The training datasets are not ported yet.
 
 nibabel is optional: without it NIfTI goes through ``data/nifti.py``.
 """
@@ -92,3 +93,15 @@ class SupervisedIQTInference:
             return None
         patch = self.normalize(patch)[..., None]
         return patch, np.asarray([i, j, k], np.int32)
+
+    def valid_indices(self) -> np.ndarray:
+        """(N, 3) start indices of windows that pass the >=5%-content
+        filter — the device-resident inference path gathers these windows
+        on-device instead of materialising host patches."""
+        p = self.patch_size
+        keep = []
+        for i, j, k in self.lr_idx:
+            patch = self.lr_data[i:i + p, j:j + p, k:k + p]
+            if np.count_nonzero(patch) / self.total_voxel >= self.ratio:
+                keep.append([i, j, k])
+        return np.asarray(keep, np.int32).reshape(-1, 3)

@@ -40,6 +40,22 @@ def _gaussian_weight(patch_size: int, sigma_frac: float = 0.125) -> np.ndarray:
     return (w / w.max()).astype(np.float32)
 
 
+def trim_slices(index: Sequence[int], vol_shape: Sequence[int], patch_size: int,
+                overlap: int):
+    """Trim mode's (volume, patch) slices of one window (reference
+    test.py:184-243): ``overlap // 2`` off every interior face; faces on the
+    volume border stay untrimmed; the whole window when ``overlap >=
+    patch_size``. Shared by the host and the device stitcher."""
+    p, op = patch_size, overlap // 2
+    if overlap >= p:
+        return tuple(slice(s, s + p) for s in index), (slice(None),) * 3
+    lo = [0 if s == 0 else op for s in index]
+    hi = [0 if s + p == edge else op for s, edge in zip(index, vol_shape)]
+    dst = tuple(slice(s + a, s + p - b) for s, a, b in zip(index, lo, hi))
+    src = tuple(slice(a, p - b) for a, b in zip(lo, hi))
+    return dst, src
+
+
 class VolumeStitcher:
     """Accumulates predicted patches into a full volume."""
 
@@ -68,22 +84,8 @@ class VolumeStitcher:
             self.weight[i:i + p, j:j + p, k:k + p] += self._w
             return
 
-        # trim mode (reference test.py:184-243): trim overlap//2 from every
-        # interior face; faces on the volume border stay untrimmed
-        op = self.overlap // 2
-        if self.overlap >= p:
-            self.pred[i:i + p, j:j + p, k:k + p] = patch
-            return
-        lo = []
-        hi = []
-        for start, vol_edge in zip((i, j, k), self.vol_shape):
-            lo.append(0 if start == 0 else op)
-            hi.append(0 if start + p == vol_edge else op)
-        self.pred[
-            i + lo[0]:i + p - hi[0],
-            j + lo[1]:j + p - hi[1],
-            k + lo[2]:k + p - hi[2],
-        ] = patch[lo[0]:p - hi[0], lo[1]:p - hi[1], lo[2]:p - hi[2]]
+        dst, src = trim_slices((i, j, k), self.vol_shape, p, self.overlap)
+        self.pred[dst] = patch[src]
 
     def result(self, background_mask: np.ndarray = None,
                background_value: float = 0.0) -> np.ndarray:

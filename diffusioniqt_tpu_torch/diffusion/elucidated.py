@@ -1,0 +1,325 @@
+"""Cascaded EDM (Karras) diffusion sampling (counterpart of
+``diffusioniqt_tpu/diffusion/elucidated.py``; reference
+``elucidated_imagen.py``), sampling side only, in plain PyTorch:
+
+  * per-unet EDM hyperparameters (``core/edm.py::EDMParams``)
+  * the preconditioned network forward, Table-1 ``c_skip`` / ``c_out`` /
+    ``c_in`` / ``c_noise``, with ``cond_scale`` guidance on the raw output
+  * the stochastic Heun sampler with churn and the second-order
+    correction, as a Python loop over the steps; the last step
+    (``sigma_next == 0``) is plain Euler
+  * cascade ``sample`` with ``start_at_unet_number``
+
+Randomness is injected as in ``diffusion/gaussian.py``: the sampler takes
+``noise(shape) -> tensor`` (``NoiseFn``) and draws, per cascade stage, in
+this order:
+
+  1. the lowres noise augmentation, only when ``lowres_noise_aug`` is on
+     (the IQT configs keep it off);
+  2. the initial image, ``sigma_cur[0] * noise``;
+  3. per step, per resample round: one ``eps``, drawn even where the
+     churn ``gamma`` is 0; then, under inpainting and for every round but
+     the last, one repaint draw.
+
+The JAX sampler draws the same in that order from its own keys
+(elucidated.py:292-293, :324-329, :374-376), so a test feeds a loop built
+from its public functions and this one the same numpy noise. The training
+loss (``forward``) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence, Tuple, Union
+
+import torch
+
+from diffusioniqt_tpu_torch.core.edm import EDMParams
+from diffusioniqt_tpu_torch.core.schedules import (
+    GaussianDiffusionContinuousTimes,
+    right_pad_dims_to,
+)
+from diffusioniqt_tpu_torch.diffusion.gaussian import (
+    NoiseFn,
+    clamp_to_range,
+    threshold_x_start,
+)
+from diffusioniqt_tpu_torch.ops.volume import resize_volume
+from diffusioniqt_tpu_torch.utils.misc import cast_tuple, default
+
+
+def normalize_neg_one_to_one(img):
+    return img * 2 - 1
+
+
+def unnormalize_zero_to_one(img):
+    return (img + 1) * 0.5
+
+
+def identity(img):
+    return img
+
+
+class ElucidatedImagen:
+    """Cascaded EDM sampler over one or more U-Nets (``nn.Module``s whose
+    forward is ``unet(x, t, c_noise, lowres_cond_img=..., cond_drop_prob=...)``)."""
+
+    def __init__(
+        self,
+        unets,
+        *,
+        image_sizes: Sequence[int],
+        channels: int = 3,
+        lowres_sample_noise_level: float = 0.2,
+        lowres_noise_aug: bool = True,
+        auto_normalize_img: bool = True,
+        dynamic_thresholding: Union[bool, Sequence[bool]] = True,
+        dynamic_thresholding_percentile: float = 0.95,
+        lowres_noise_schedule: str = "linear",
+        norm: str = "min-max",
+        min_bound: float = -1.0,
+        spatial_dims: int = 3,
+        num_sample_steps: Union[int, Sequence[int]] = 32,
+        sigma_min: Union[float, Sequence[float]] = 0.002,
+        sigma_max: Union[float, Sequence[float]] = 80.0,
+        sigma_data: Union[float, Sequence[float]] = 0.5,
+        rho: Union[float, Sequence[float]] = 7.0,
+        P_mean: Union[float, Sequence[float]] = -1.2,
+        P_std: Union[float, Sequence[float]] = 1.2,
+        S_churn: Union[float, Sequence[float]] = 80.0,
+        S_tmin: Union[float, Sequence[float]] = 0.05,
+        S_tmax: Union[float, Sequence[float]] = 50.0,
+        S_noise: Union[float, Sequence[float]] = 1.003,
+    ):
+        unets = list(unets) if isinstance(unets, (list, tuple)) else [unets]
+        num_unets = len(unets)
+        self.channels = channels
+        self.norm = norm
+        self.min_bound = float(min_bound)
+        self.spatial_dims = spatial_dims
+        self.image_sizes = cast_tuple(tuple(image_sizes))
+        if num_unets != len(self.image_sizes):
+            raise ValueError("one image size per unet")
+        # first unet unconditioned, the rest lowres-conditioned; the JAX
+        # wrapper re-instantiates the modules, here they must already match
+        for ind, unet in enumerate(unets):
+            if ind > 0 and not getattr(unet, "lowres_cond", False):
+                raise ValueError(f"unet {ind + 1} must be lowres-conditioned")
+        self.unets = unets
+
+        self.lowres_noise_schedule = GaussianDiffusionContinuousTimes(
+            noise_schedule=lowres_noise_schedule)
+        self.lowres_sample_noise_level = lowres_sample_noise_level
+        self.lowres_noise_aug = lowres_noise_aug
+        self.normalize_img = normalize_neg_one_to_one if auto_normalize_img else identity
+        self.unnormalize_img = unnormalize_zero_to_one if auto_normalize_img else identity
+        self.dynamic_thresholding = cast_tuple(dynamic_thresholding, num_unets)
+        self.dynamic_thresholding_percentile = dynamic_thresholding_percentile
+
+        hp_fields = (num_sample_steps, sigma_min, sigma_max, sigma_data, rho,
+                     P_mean, P_std, S_churn, S_tmin, S_tmax, S_noise)
+        hp_fields = [cast_tuple(f, num_unets) for f in hp_fields]
+        self.hparams = [
+            EDMParams(num_sample_steps=ns, sigma_min=smin, sigma_max=smax,
+                      sigma_data=sd, rho=r, P_mean=pm, P_std=ps, S_churn=sc,
+                      S_tmin=st0, S_tmax=st1, S_noise=sn)
+            for ns, smin, smax, sd, r, pm, ps, sc, st0, st1, sn in zip(*hp_fields)
+        ]
+
+    @property
+    def num_unets(self) -> int:
+        return len(self.unets)
+
+    # ------------------------------------------------------------------
+    def preconditioned_network_forward(self, unet, noised_images, sigma, hp: EDMParams, *,
+                                       clamp: bool = False, dynamic_threshold: bool = True,
+                                       cond_scale: float = 1.0, lowres_cond_img=None):
+        """EDM eq. (7) (reference :329-358). ``cond_scale != 1`` mixes a
+        second, null-conditioned evaluation into the raw network output
+        before the c_skip / c_out recombination (JAX elucidated.py:227-237);
+        the IQT U-Net ignores ``cond_drop_prob``, so both evaluations agree."""
+        batch = noised_images.shape[0]
+        sigma = torch.as_tensor(sigma, dtype=torch.float32, device=noised_images.device)
+        if sigma.dim() == 0:
+            sigma = sigma.expand(batch)
+        padded_sigma = right_pad_dims_to(noised_images, sigma)
+        c_noise = hp.c_noise(sigma)
+        net_in = hp.c_in(padded_sigma) * noised_images
+        net_out = unet(net_in, c_noise, c_noise, lowres_cond_img=lowres_cond_img)
+        if cond_scale != 1.0:
+            null_out = unet(net_in, c_noise, c_noise, lowres_cond_img=lowres_cond_img,
+                            cond_drop_prob=1.0)
+            net_out = null_out + (net_out - null_out) * cond_scale
+        out = hp.c_skip(padded_sigma) * noised_images + hp.c_out(padded_sigma) * net_out
+        if not clamp:
+            return out
+        return threshold_x_start(
+            out, dynamic_threshold=dynamic_threshold, norm=self.norm,
+            min_bound=self.min_bound, percentile=self.dynamic_thresholding_percentile)
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def one_unet_sample(self, unet, shape: Tuple[int, ...], *, noise: NoiseFn,
+                        hp: EDMParams, clamp: bool = True, dynamic_threshold: bool = True,
+                        cond_scale: float = 1.0, lowres_cond_img=None,
+                        inpaint_images=None, inpaint_masks=None,
+                        inpaint_resample_times: int = 5, init_images=None,
+                        skip_steps: Optional[int] = None, sigma_min: Optional[float] = None,
+                        sigma_max: Optional[float] = None):
+        """Stochastic Heun sampling (reference :381-532; JAX
+        elucidated.py:245-447). The sigma overrides keep the JAX ``or``
+        semantics: 0 or None keeps the hyperparameter."""
+        if sigma_min is not None or sigma_max is not None:
+            hp = dataclasses.replace(hp, sigma_min=sigma_min or hp.sigma_min,
+                                     sigma_max=sigma_max or hp.sigma_max)
+        sigmas = hp.sample_schedule()
+        gammas = hp.gammas(sigmas)
+        sigma_cur, sigma_next, gamma_cur = sigmas[:-1], sigmas[1:], gammas[:-1]
+        initial_step = default(skip_steps, 0)
+        sigma_cur = sigma_cur[initial_step:]
+        sigma_next = sigma_next[initial_step:]
+        gamma_cur = gamma_cur[initial_step:]
+
+        first = noise(tuple(shape))
+        sigma_cur, sigma_next, gamma_cur = (t.to(first.device)
+                                            for t in (sigma_cur, sigma_next, gamma_cur))
+        images = sigma_cur[0] * first
+        if init_images is not None:
+            images = images + init_images
+
+        has_inpainting = inpaint_images is not None and inpaint_masks is not None
+        resample_times = inpaint_resample_times if has_inpainting else 1
+        if has_inpainting:
+            inpaint_images = resize_volume(self.normalize_img(inpaint_images), shape[1])
+            inpaint_masks = resize_volume(inpaint_masks.float(), shape[1])
+
+        fwd = dict(hp=hp, clamp=clamp, dynamic_threshold=dynamic_threshold,
+                   cond_scale=cond_scale, lowres_cond_img=lowres_cond_img)
+        n_steps = sigma_cur.shape[0]
+        for i in range(n_steps):
+            sig, sig_next, gamma = sigma_cur[i], sigma_next[i], gamma_cur[i]
+            for r in reversed(range(resample_times)):
+                eps = hp.S_noise * noise(tuple(shape))
+                sigma_hat = sig + gamma * sig
+                added_noise = torch.sqrt(torch.clamp(sigma_hat ** 2 - sig ** 2, min=0.0)) * eps
+                images_hat = images + added_noise
+                if has_inpainting:
+                    images_hat = (images_hat * (1 - inpaint_masks)
+                                  + (inpaint_images + added_noise) * inpaint_masks)
+                model_output = self.preconditioned_network_forward(
+                    unet, images_hat, sigma_hat, **fwd)
+                denoised_over_sigma = (images_hat - model_output) / sigma_hat
+                images_next = images_hat + (sig_next - sigma_hat) * denoised_over_sigma
+                if i < n_steps - 1:
+                    # second-order correction on every step but the last,
+                    # whose sigma_next is the schedule's trailing 0
+                    model_output_next = self.preconditioned_network_forward(
+                        unet, images_next, sig_next, **fwd)
+                    denoised_prime = (images_next - model_output_next) / sig_next
+                    images = images_hat + 0.5 * (sig_next - sigma_hat) * (
+                        denoised_over_sigma + denoised_prime)
+                else:
+                    images = images_next
+                if has_inpainting and r != 0:
+                    images = images + (sig - sig_next) * noise(tuple(shape))
+
+        images = clamp_to_range(images, self.norm, self.min_bound)
+        if has_inpainting:
+            images = images * (1 - inpaint_masks) + inpaint_images * inpaint_masks
+        return self.unnormalize_img(images)
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def sample(self, *, batch_size: int = 1, noise: NoiseFn, inpaint_images=None,
+               inpaint_masks=None, inpaint_resample_times: int = 5, init_images=None,
+               skip_steps=None, sigma_min=None, sigma_max=None,
+               cond_scale: Union[float, Sequence[float]] = 1.0,
+               lowres_sample_noise_level: Optional[float] = None,
+               start_at_unet_number: int = 1, start_image_or_video=None,
+               stop_at_unet_number: Optional[int] = None,
+               return_all_outputs: bool = False, video_frames: Optional[int] = None,
+               text_embeds=None, text_mask=None):
+        """Cascade EDM sampling (reference :536-702; JAX elucidated.py:450-555).
+        ``start_image_or_video`` is the lowres input of the first sampled
+        stage when ``start_at_unet_number > 1``."""
+        if video_frames is not None:
+            raise NotImplementedError("video sampling needs models/unet_video.py, "
+                                      "which is not ported yet")
+        if text_embeds is not None or text_mask is not None:
+            raise NotImplementedError("text conditioning needs the T5 encoder, "
+                                      "which is not ported yet")
+        num_unets = self.num_unets
+        cond_scale = cast_tuple(cond_scale, num_unets)
+        init_images = [None if im is None else self.normalize_img(im)
+                       for im in cast_tuple(init_images, num_unets)]
+        skip_steps = cast_tuple(skip_steps, num_unets)
+        sigma_min = cast_tuple(sigma_min, num_unets)
+        sigma_max = cast_tuple(sigma_max, num_unets)
+        level = default(lowres_sample_noise_level, self.lowres_sample_noise_level)
+
+        img = None
+        if start_at_unet_number > 1:
+            if not 1 < start_at_unet_number <= num_unets:
+                raise ValueError(f"start_at_unet_number {start_at_unet_number} "
+                                 f"out of range for {num_unets} unets")
+            if start_image_or_video is None:
+                raise ValueError("starting image must be supplied if only doing upscaling")
+            img = resize_volume(start_image_or_video,
+                                self.image_sizes[start_at_unet_number - 2])
+
+        outputs = []
+        for unet_number in range(start_at_unet_number, num_unets + 1):
+            index = unet_number - 1
+            unet = self.unets[index]
+            size = self.image_sizes[index]
+            lowres_cond_img = None
+            if getattr(unet, "lowres_cond", False):
+                lowres_cond_img = self.normalize_img(resize_volume(img, size))
+                if self.lowres_noise_aug:
+                    times = torch.full((batch_size,), level, dtype=torch.float32,
+                                       device=lowres_cond_img.device)
+                    lowres_cond_img, *_ = self.lowres_noise_schedule.q_sample(
+                        lowres_cond_img, times, noise(tuple(lowres_cond_img.shape)))
+            unet_init = init_images[index]
+            if unet_init is not None:
+                unet_init = resize_volume(unet_init, size)
+            shape = (batch_size,) + (size,) * self.spatial_dims + (self.channels,)
+            img = self.one_unet_sample(
+                unet, shape, noise=noise, hp=self.hparams[index], clamp=True,
+                dynamic_threshold=self.dynamic_thresholding[index],
+                cond_scale=cond_scale[index], lowres_cond_img=lowres_cond_img,
+                inpaint_images=inpaint_images, inpaint_masks=inpaint_masks,
+                inpaint_resample_times=inpaint_resample_times, init_images=unet_init,
+                skip_steps=skip_steps[index], sigma_min=sigma_min[index],
+                sigma_max=sigma_max[index])
+            outputs.append(img)
+            if stop_at_unet_number == unet_number:
+                break
+        return outputs if return_all_outputs else outputs[-1]
+
+
+def elucidated_imagen_from_config(cfg, unets) -> ElucidatedImagen:
+    """The EDM sampler from the shared YAML config (``Train.elucidated``;
+    JAX elucidated.py:661-685), as the JAX entry scripts build it.
+
+    ``Train.edm_steps_per_launch`` is loaded and not read: the JAX sampler
+    splits the Heun loop into launches of that many steps only to stay
+    under the TPU runtime's limit on one launch's duration, and the split
+    is numerically identical to one loop (elucidated.py:416-447). Eager
+    PyTorch launches kernel by kernel, so the port runs one loop."""
+    return ElucidatedImagen(
+        unets,
+        image_sizes=(cfg.train.patch_size_sub, cfg.train.patch_size_sub),
+        channels=cfg.train.channels,
+        auto_normalize_img=False,
+        dynamic_thresholding=cfg.train.dynamic_threshold,
+        norm=cfg.data.norm,
+        min_bound=cfg.data.min_bound,
+        num_sample_steps=cfg.train.edm_num_sample_steps,
+        sigma_min=cfg.train.edm_sigma_min,
+        sigma_max=cfg.train.edm_sigma_max,
+        sigma_data=cfg.train.edm_sigma_data,
+        rho=cfg.train.edm_rho,
+        S_churn=cfg.train.edm_s_churn,
+        lowres_noise_aug=cfg.train.edm_lowres_noise_aug,
+    )

@@ -40,6 +40,28 @@ def gaussian_noise(generator: torch.Generator) -> NoiseFn:
     return draw
 
 
+def clamp_to_range(img: torch.Tensor, norm: str, min_bound: float) -> torch.Tensor:
+    """The samplers' output clamp: ``[-1, 1]`` under min-max, ``min_bound``
+    from below under z-score."""
+    if norm == "min-max":
+        return torch.clamp(img, -1.0, 1.0)
+    return torch.clamp(img, min=min_bound)
+
+
+def threshold_x_start(x_start: torch.Tensor, *, dynamic_threshold: bool, norm: str,
+                      min_bound: float, percentile: float) -> torch.Tensor:
+    """Dynamic thresholding with min_bound clamp semantics (reference
+    imagen_pytorch3D.py:2006-2026, elucidated_imagen.py:291-310), shared by
+    both samplers."""
+    if not dynamic_threshold:
+        return clamp_to_range(x_start, norm, min_bound)
+    b = x_start.shape[0]
+    s = torch.quantile(x_start.reshape(b, -1).abs(), percentile, dim=-1)
+    s = torch.clamp(s, min=(1.0 if norm == "min-max" else min_bound))
+    s = right_pad_dims_to(x_start, s)
+    return torch.minimum(torch.maximum(x_start, -s), s) / s
+
+
 class Imagen:
     """Cascaded DDPM sampler over one or more U-Nets (``nn.Module``s whose
     forward is ``unet(x, t, log_snr, lowres_cond_img=...)``)."""
@@ -90,20 +112,6 @@ class Imagen:
         self.dynamic_thresholding_percentile = dynamic_thresholding_percentile
 
     # ------------------------------------------------------------------
-    def _threshold_x_start(self, x_start, dynamic_threshold: bool):
-        """Dynamic thresholding with min_bound clamp semantics (reference
-        :2006-2026)."""
-        if dynamic_threshold:
-            b = x_start.shape[0]
-            s = torch.quantile(x_start.reshape(b, -1).abs(),
-                               self.dynamic_thresholding_percentile, dim=-1)
-            s = torch.clamp(s, min=(1.0 if self.norm == "min-max" else self.min_bound))
-            s = right_pad_dims_to(x_start, s)
-            return torch.minimum(torch.maximum(x_start, -s), s) / s
-        if self.norm == "min-max":
-            return torch.clamp(x_start, -1.0, 1.0)
-        return torch.clamp(x_start, min=self.min_bound)
-
     def p_mean_variance(self, unet, x, t, *, noise_scheduler, t_next=None,
                         lowres_cond_img=None, model_output=None,
                         pred_objective: str = "noise",
@@ -122,7 +130,9 @@ class Imagen:
             x_start = noise_scheduler.predict_start_from_v(x, t, pred)
         else:
             raise ValueError(f"unknown objective {pred_objective}")
-        x_start = self._threshold_x_start(x_start, dynamic_threshold)
+        x_start = threshold_x_start(
+            x_start, dynamic_threshold=dynamic_threshold, norm=self.norm,
+            min_bound=self.min_bound, percentile=self.dynamic_thresholding_percentile)
         mean_and_variance = noise_scheduler.q_posterior(
             x_start=x_start, x_t=x, t=t, t_next=t_next)
         return mean_and_variance, x_start
@@ -155,9 +165,7 @@ class Imagen:
                 lowres_cond_img=lowres_cond_img, pred_objective=pred_objective,
                 dynamic_threshold=dynamic_threshold,
             )
-        if self.norm == "min-max":
-            return torch.clamp(img, -1.0, 1.0)
-        return torch.clamp(img, min=self.min_bound)
+        return clamp_to_range(img, self.norm, self.min_bound)
 
     def sample(self, *, batch_size: int, noise: NoiseFn,
                start_at_unet_number: int = 1, start_image_or_video=None,
@@ -200,7 +208,11 @@ class Imagen:
 def imagen_from_config(cfg, unets) -> Imagen:
     """The Imagen sampler as the reference entry scripts build it
     (reference train.py:118-133 / test.py:110-125), without the perceptual
-    losses (training only)."""
+    losses (training only). Refuses a ``Train.elucidated`` config, whose
+    sampler is ``diffusion/elucidated.py::elucidated_imagen_from_config``."""
+    if cfg.train.elucidated:
+        raise ValueError("the config sets Train.elucidated: build the EDM sampler "
+                         "with elucidated_imagen_from_config")
     if getattr(cfg.train, "non_uniform_sampling", False):
         raise NotImplementedError("non-uniform sampling times are not ported yet")
     return Imagen(

@@ -1,15 +1,21 @@
 """Full-volume inference on the card: the port's counterpart of the root
-``test.py`` (its host path, ``_infer_volume_host``; reference
-test.py:141-256).
+``test.py`` (reference test.py:141-256).
 
 A low-field volume is covered by ``patch_size`` windows at stride
 ``Eval.overlap``; windows with at least 5% non-zero voxels are split into
-``f^3`` sub-volumes, sampled by the 20-step ancestral sampler over the SR
-U-Net (cascade stage 2 over a ``NullUnet``), merged back and stitched
-(trim or Gaussian). One batch of ``patch_batch`` windows is in flight at a
+``f^3`` sub-volumes, sampled over the SR U-Net (cascade stage 2 over a
+``NullUnet``), merged back and stitched (trim or Gaussian). The sampler is
+the one the config names: the 64-step EDM Heun sampler when
+``Train.elucidated`` is set (``config/eval_edm.yaml``), else the 20-step
+ancestral sampler. One batch of ``patch_batch`` windows is in flight at a
 time; the last batch is not padded (eager PyTorch needs no fixed shape).
 
+The normalised volume is copied to the model's device once, the windows are
+sliced out there and stitched into device buffers (``ops/stitch_device.py``),
+and the result comes back in one copy.
+
     python -m diffusioniqt_tpu_torch.infer --config config/eval_config.yaml --fake-data
+    python -m diffusioniqt_tpu_torch.infer --config config/eval_edm.yaml --fake-data
 
 Runs on ``cuda`` unless ``--device cpu`` is given.
 """
@@ -19,7 +25,7 @@ from __future__ import annotations
 import argparse
 import os
 import time
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -31,7 +37,10 @@ from diffusioniqt_tpu_torch.data.datasets import (
     load_volume,
     save_volume,
 )
-from diffusioniqt_tpu_torch.data.stitching import VolumeStitcher
+from diffusioniqt_tpu_torch.diffusion.elucidated import (
+    ElucidatedImagen,
+    elucidated_imagen_from_config,
+)
 from diffusioniqt_tpu_torch.diffusion.gaussian import (
     Imagen,
     NoiseFn,
@@ -39,8 +48,11 @@ from diffusioniqt_tpu_torch.diffusion.gaussian import (
     imagen_from_config,
 )
 from diffusioniqt_tpu_torch.models.unet3d import NullUnet, iqt_unet_from_config
+from diffusioniqt_tpu_torch.ops.stitch_device import DeviceVolumeStitcher, gather_windows
 from diffusioniqt_tpu_torch.ops.volume import subvolumes_to_volume, volume_to_subvolumes
 from diffusioniqt_tpu_torch.utils.misc import resolve_device
+
+Sampler = Union[Imagen, ElucidatedImagen]
 
 
 def load_unet_state_dict(path: str) -> dict:
@@ -58,8 +70,10 @@ def load_unet_state_dict(path: str) -> dict:
 
 
 def build_sampler(cfg, device="cuda", checkpoint: Optional[str] = None,
-                  seed: int = 0) -> Imagen:
-    """The IQT cascade sampler with the SR U-Net on ``device``: weights from
+                  seed: int = 0) -> Sampler:
+    """The IQT cascade sampler with the SR U-Net on ``device``: the EDM
+    ``ElucidatedImagen`` when ``Train.elucidated`` is set, else the
+    Gaussian ``Imagen`` (as test.py:45-54 chooses). Weights from
     ``checkpoint``, else random from ``seed``. Raises if CUDA is asked for
     and missing."""
     device = resolve_device(device)
@@ -69,38 +83,47 @@ def build_sampler(cfg, device="cuda", checkpoint: Optional[str] = None,
     if checkpoint:
         unet.load_state_dict(load_unet_state_dict(checkpoint))
     unet.eval()
+    if cfg.train.elucidated:
+        return elucidated_imagen_from_config(cfg, (NullUnet(), unet))
     return imagen_from_config(cfg, (NullUnet(), unet))
 
 
-def infer_volume(cfg, imagen: Imagen, lowres_raw: np.ndarray, *,
+def describe_sampler(imagen: Sampler) -> str:
+    """One line naming the sampler and its steps."""
+    if isinstance(imagen, ElucidatedImagen):
+        return (f"ElucidatedImagen (EDM) loaded: {imagen.hparams[-1].num_sample_steps} "
+                f"Heun steps")
+    return f"Imagen loaded: {imagen.noise_schedulers[-1].timesteps} ancestral steps"
+
+
+def infer_volume(cfg, imagen: Sampler, lowres_raw: np.ndarray, *,
                  noise: NoiseFn, stitch_mode: str = "trim",
                  patch_batch: int = 8, verbose: bool = True) -> np.ndarray:
-    """Sliding-window sampling + stitching over one raw LR volume. Returns
-    the prediction in normalised (z-score) space, shaped like
-    ``lowres_raw``."""
+    """Sliding-window sampling + stitching over one raw LR volume, on the
+    model's device. Returns the prediction in normalised (z-score) space,
+    shaped like ``lowres_raw``."""
     device = next(imagen.unets[-1].parameters()).device
     dataset = SupervisedIQTInference(cfg, lr_file=None, volume=lowres_raw)
-    items = [it for it in (dataset[i] for i in range(len(dataset)))
-             if it is not None]
-    stitcher = VolumeStitcher(lowres_raw.shape, cfg.train.patch_size,
-                              cfg.eval.overlap, mode=stitch_mode,
-                              fill_value=cfg.data.min_bound)
+    starts = dataset.valid_indices()
+    patch = cfg.train.patch_size
+    volume = torch.from_numpy(dataset.normalize(lowres_raw.astype(np.float32))).to(device)
+    stitcher = DeviceVolumeStitcher(lowres_raw.shape, patch, cfg.eval.overlap,
+                                    mode=stitch_mode, fill_value=cfg.data.min_bound,
+                                    device=device)
     f = cfg.train.batch_sample_factor
-    split = cfg.train.batch_sample and cfg.train.patch_size != cfg.train.patch_size_sub
-    for start in range(0, len(items), patch_batch):
-        chunk = items[start:start + patch_batch]
-        x = torch.from_numpy(np.stack([c[0] for c in chunk])).to(device)
+    split = cfg.train.batch_sample and patch != cfg.train.patch_size_sub
+    for start in range(0, len(starts), patch_batch):
+        chunk = starts[start:start + patch_batch]
+        x = gather_windows(volume, chunk, patch)
         if split:
             x = volume_to_subvolumes(x, f)
         out = imagen.sample(batch_size=x.shape[0], noise=noise,
                             start_image_or_video=x, start_at_unet_number=2)
         if split:
             out = subvolumes_to_volume(out, f)
-        out_np = out.float().cpu().numpy()
-        for j, (_, idx) in enumerate(chunk):
-            stitcher.add(out_np[j, ..., 0], idx)
+        stitcher.add_batch(out[..., 0], chunk)
         if verbose:
-            print(f"patches {start + len(chunk)}/{len(items)}")
+            print(f"patches {start + len(chunk)}/{len(starts)}")
     return stitcher.result()
 
 
@@ -114,14 +137,11 @@ def fake_volumes(cfg, edge: int, seed: int = 0):
     return lowres, highres
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+def add_serving_args(ap: argparse.ArgumentParser) -> None:
+    """The options ``infer`` and ``evaluate`` share."""
     ap.add_argument("--config", default="./config/eval_config.yaml")
     ap.add_argument("--checkpoint", default=None,
                     help="SR U-Net weights (.pt state dict)")
-    ap.add_argument("--lowres", default=None, help="LR NIfTI/.npy path")
-    ap.add_argument("--highres", default=None, help="HR NIfTI/.npy path")
-    ap.add_argument("--output-dir", default=".")
     ap.add_argument("--stitch", choices=["trim", "gaussian"], default="trim")
     ap.add_argument("--patch-batch", type=int, default=8,
                     help="windows denoised together per sampler call")
@@ -129,14 +149,31 @@ def main(argv=None):
     ap.add_argument("--fake-edge", type=int, default=None)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args(argv)
 
+
+def serve_from_args(args):
+    """(cfg, sampler, noise, infer kwargs) from parsed :func:`add_serving_args`."""
     cfg = load_config(args.config)
     imagen = build_sampler(cfg, device=args.device, checkpoint=args.checkpoint,
                            seed=args.seed)
+    print(describe_sampler(imagen))
     if not args.checkpoint:
         print("WARNING: no checkpoint given — sampling with random weights")
+    device = next(imagen.unets[-1].parameters()).device
+    noise = gaussian_noise(torch.Generator(device=device).manual_seed(args.seed))
+    kwargs = dict(stitch_mode=args.stitch, patch_batch=args.patch_batch)
+    return cfg, imagen, noise, kwargs
 
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    add_serving_args(ap)
+    ap.add_argument("--lowres", default=None, help="LR NIfTI/.npy path")
+    ap.add_argument("--highres", default=None, help="HR NIfTI/.npy path")
+    ap.add_argument("--output-dir", default=".")
+    args = ap.parse_args(argv)
+
+    cfg, imagen, noise, kwargs = serve_from_args(args)
     if args.fake_data:
         edge = args.fake_edge or cfg.train.patch_size + cfg.eval.overlap
         lowres, highres = fake_volumes(cfg, edge, args.seed)
@@ -153,11 +190,8 @@ def main(argv=None):
             highres = highres[low:high, low:high, low:high]
     print(f"lowres: {lowres.shape} highres: {highres.shape}")
 
-    device = next(imagen.unets[-1].parameters()).device
-    generator = torch.Generator(device=device).manual_seed(args.seed)
     start = time.time()
-    pred = infer_volume(cfg, imagen, lowres, noise=gaussian_noise(generator),
-                        stitch_mode=args.stitch, patch_batch=args.patch_batch)
+    pred = infer_volume(cfg, imagen, lowres, noise=noise, **kwargs)
     print(f"TIME: {time.time() - start}")
 
     mean, std = cfg.data.mean, cfg.data.std

@@ -246,8 +246,11 @@ class UNet3D(nn.Module):
         time: torch.Tensor,         # log-SNR conditioning, (B,)
         *,
         lowres_cond_img: Optional[torch.Tensor] = None,
+        cond_drop_prob: float = 0.0,
     ) -> torch.Tensor:
-        del time_steps
+        # the IQT U-Net is unconditional: the JAX UNet3D takes
+        # cond_drop_prob for API parity and ignores it, and so does this one
+        del time_steps, cond_drop_prob
         dt = self.dtype
         x = x.to(dt)
         if self.lowres_cond:

@@ -11,7 +11,8 @@ reference's unfold/permute order differs; see
 
 ``halo_exchange`` here is the plain PyTorch version of the halo kernel
 (``ops/kernels/halo.py``); ``upsample_trilinear`` is the attention
-modules' reconstruction upsample.
+modules' reconstruction upsample; ``resize_volume`` is the cascade's
+resize, with ``jax.image.resize`` semantics.
 """
 
 from __future__ import annotations
@@ -139,4 +140,57 @@ def upsample_trilinear(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
         shape[axis] = m
         w = w.reshape(shape)
         out = out.index_select(axis, lo) * (1 - w) + out.index_select(axis, hi) * w
+    return out
+
+
+# ---------------------------------------------------------------------------
+# resize (the cascade's resize_image_to)
+# ---------------------------------------------------------------------------
+
+def _linear_weights(n_in: int, n_out: int, device) -> torch.Tensor:
+    """(n_in, n_out) fp32 weights of ``jax.image.resize``'s linear method
+    with its default ``antialias=True``: half-pixel centres, a triangle
+    kernel widened by the scale when downsampling, columns renormalised
+    (jax/_src/image/scale.py ``compute_weight_mat``). ``F.interpolate``
+    neither widens the kernel nor renormalises at the edges."""
+    inv_scale = 1.0 / (n_out / n_in)
+    kernel_scale = max(inv_scale, 1.0)
+    sample_f = (torch.arange(n_out, dtype=torch.float32, device=device) + 0.5) * inv_scale - 0.5
+    src = torch.arange(n_in, dtype=torch.float32, device=device)
+    w = torch.clamp(1 - (sample_f[None, :] - src[:, None]).abs() / kernel_scale, min=0)
+    total = w.sum(dim=0, keepdim=True)
+    eps = 1000.0 * torch.finfo(torch.float32).eps
+    w = torch.where(total.abs() > eps, w / torch.where(total != 0, total, 1.0),
+                    torch.zeros_like(w))
+    inside = (sample_f >= -0.5) & (sample_f <= n_in - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros_like(w))
+
+
+def resize_volume(x: torch.Tensor, target_size: int, method: str = "nearest",
+                  clamp_range=None) -> torch.Tensor:
+    """Spatially resize a channels-last volume (B, ..., C) to edge
+    ``target_size`` on every spatial axis (reference ``resize_image_to``,
+    imagen_pytorch3D.py:165-181), 2D slices and 3D volumes. Returns ``x``
+    itself when every edge already matches. Otherwise it follows
+    ``jax.image.resize``: ``"nearest"`` takes source ``floor((i + 0.5) *
+    n_in / n_out)`` (torch's ``nearest-exact``), ``"trilinear"`` /
+    ``"linear"`` antialiases when downsampling (:func:`_linear_weights`)."""
+    spatial = x.shape[1:-1]
+    if all(s == target_size for s in spatial):
+        return x
+    if method not in ("nearest", "trilinear", "linear"):
+        raise ValueError(f"unknown resize method {method}")
+    out = x if (method == "nearest" or x.is_floating_point()) else x.float()
+    for axis, n_in in enumerate(spatial, start=1):
+        if n_in == target_size:
+            continue
+        if method == "nearest":
+            pos = (torch.arange(target_size, dtype=torch.float32, device=x.device) + 0.5)
+            idx = torch.floor(pos * n_in / target_size).long()
+            out = out.index_select(axis, idx)
+        else:
+            w = _linear_weights(n_in, target_size, x.device).to(out.dtype)
+            out = torch.movedim(torch.movedim(out, axis, -1) @ w, -1, axis)
+    if clamp_range is not None:
+        out = torch.clamp(out, clamp_range[0], clamp_range[1])
     return out

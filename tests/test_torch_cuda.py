@@ -9,12 +9,17 @@ only ``torch`` and the port, so it runs where JAX is not installed:
 (``--noconftest`` skips ``tests/conftest.py``, which sets JAX up.)
 """
 
+import numpy as np
 import pytest
 import torch
 
-from diffusioniqt_tpu_torch.models.unet3d import UNet3D
+from diffusioniqt_tpu_torch.data.stitching import VolumeStitcher, sliding_window_grid
+from diffusioniqt_tpu_torch.diffusion.elucidated import ElucidatedImagen
+from diffusioniqt_tpu_torch.diffusion.gaussian import gaussian_noise
+from diffusioniqt_tpu_torch.models.unet3d import NullUnet, UNet3D
 from diffusioniqt_tpu_torch.ops import kernels
 from diffusioniqt_tpu_torch.ops.kernels import fused_block as tfb
+from diffusioniqt_tpu_torch.ops.stitch_device import DeviceVolumeStitcher, gather_windows
 
 pytestmark = pytest.mark.cuda
 
@@ -238,3 +243,55 @@ def test_small_unet_runs_through_the_kernels(dev):
     assert torch.isfinite(got).all()
     # bf16 rounding differences compound through the network
     assert ((got - want).abs().max() / want.abs().max()).item() <= 5e-2
+
+
+def test_edm_heun_step_through_the_kernels(dev):
+    """One EDM sampler call of two steps (one corrected Heun step, one Euler
+    step: 3 forwards) over a small U-Net, through the kernels and through
+    the plain versions with the same noise."""
+    torch.manual_seed(0)
+    model = UNet3D(dim=16, init_dim=16, dim_mults=(1, 2), num_resnet_blocks=(2, 2),
+                   resnet_groups=4, dtype=torch.bfloat16).to(dev).eval()
+    imagen = ElucidatedImagen([NullUnet(), model], image_sizes=(16, 16), channels=1,
+                              auto_normalize_img=False, dynamic_thresholding=False,
+                              norm="z-score", min_bound=-0.72, num_sample_steps=2,
+                              lowres_noise_aug=False)
+    lowres = torch.randn((27, 16, 16, 16, 1), generator=torch.Generator(device=dev).manual_seed(1),
+                         device=dev)
+
+    def run():
+        noise = gaussian_noise(torch.Generator(device=dev).manual_seed(2))
+        return imagen.sample(batch_size=27, noise=noise, start_at_unet_number=2,
+                             start_image_or_video=lowres)
+
+    kernels.reset_launch_counts()
+    got = run()
+    counts = kernels.launch_counts()
+    model.use_ops(kernels.PLAIN)
+    want = run()
+    n_res = 2 * 3 + 2 * 3 + 1
+    assert counts == {"halo": 3 * (2 * n_res + 1), "conv3d": 3, "fused_block": 3 * 2 * n_res,
+                      "flash_attention": 0}
+    assert torch.isfinite(got).all()
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 5e-2
+
+
+@pytest.mark.parametrize("mode", ["trim", "gaussian"])
+def test_device_stitcher_on_the_card_matches_host(dev, mode):
+    rng = np.random.default_rng(0)
+    vol = rng.standard_normal((64, 64, 64)).astype(np.float32)
+    starts = sliding_window_grid(vol.shape, 32, 16)
+    host = VolumeStitcher(vol.shape, 32, 16, mode=mode, fill_value=-0.5)
+    stitcher = DeviceVolumeStitcher(vol.shape, 32, 16, mode=mode, fill_value=-0.5, device=dev)
+    windows = gather_windows(torch.from_numpy(vol).to(dev), starts, 32)
+    assert windows.is_cuda
+    preds = windows[..., 0] * 2.0 + 1.0
+    for b in range(0, len(starts), 8):
+        stitcher.add_batch(preds[b:b + 8], starts[b:b + 8])
+    for p, idx in zip(preds.cpu().numpy(), starts):
+        host.add(p, idx)
+    got, want = stitcher.result(), host.result()
+    if mode == "trim":
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)

@@ -1,7 +1,8 @@
-"""The port's inference entry point (diffusioniqt_tpu_torch/infer.py) on
-the CPU at a tiny size: its stitched volume equals the JAX package's
-``VolumeStitcher`` fed the same per-window outputs, and ``main()`` runs
-end to end with ``--device cpu``."""
+"""The port's entry points (diffusioniqt_tpu_torch/infer.py, evaluate.py)
+on the CPU at a tiny size: the volume stitched in device buffers equals
+the JAX package's ``VolumeStitcher`` fed the same per-window outputs, and
+the port's host ``VolumeStitcher`` under the EDM sampler, and both
+``main()``s run end to end with ``--device cpu``."""
 
 import os
 
@@ -15,6 +16,8 @@ from diffusioniqt_tpu.data.datasets import SupervisedIQTInference as JInference
 from diffusioniqt_tpu.data.stitching import VolumeStitcher as JStitcher
 from diffusioniqt_tpu_torch import infer
 from diffusioniqt_tpu_torch.config import load_config
+from diffusioniqt_tpu_torch.data.datasets import SupervisedIQTInference
+from diffusioniqt_tpu_torch.data.stitching import VolumeStitcher
 from diffusioniqt_tpu_torch.diffusion.gaussian import gaussian_noise
 from diffusioniqt_tpu_torch.ops.volume import subvolumes_to_volume
 
@@ -70,13 +73,19 @@ def test_infer_volume_matches_jax_stitcher(mode, patch_batch):
     np.testing.assert_array_equal(pred, stitcher.result())
 
 
-def test_main_runs_on_cpu(tmp_path):
-    raw = yaml.safe_load(open("config/eval_config.yaml"))
+def _tiny_config_file(tmp_path, source):
+    raw = yaml.safe_load(open(source))
     raw["Train"].update({k: list(v) if isinstance(v, tuple) else v
                          for k, v in TINY.items()})
+    raw["Train"]["edm_num_sample_steps"] = 3
     raw["Eval"]["overlap"] = 8
-    cfg_path = tmp_path / "tiny.yaml"
-    cfg_path.write_text(yaml.safe_dump(raw))
+    path = tmp_path / "tiny.yaml"
+    path.write_text(yaml.safe_dump(raw))
+    return path
+
+
+def test_main_runs_on_cpu(tmp_path):
+    cfg_path = _tiny_config_file(tmp_path, "config/eval_config.yaml")
     out = tmp_path / "out"
     infer.main(["--config", str(cfg_path), "--fake-data", "--fake-edge", "20",
                 "--device", "cpu", "--output-dir", str(out), "--patch-batch", "4"])
@@ -97,3 +106,53 @@ def test_checkpoint_formats_load(tmp_path):
         loaded = infer.build_sampler(cfg, device="cpu", seed=0, checkpoint=str(path))
         for k, v in loaded.unets[1].state_dict().items():
             assert torch.equal(v, sd[k]), k
+
+
+def _tiny_edm():
+    cfg = _tiny(load_config("config/eval_edm.yaml"))
+    cfg.train.edm_num_sample_steps = 3
+    return cfg
+
+
+@pytest.mark.parametrize("mode", ["trim", "gaussian"])
+def test_edm_infer_volume_device_stitch_equals_host(mode):
+    """The EDM sampler served by infer_volume (3 steps, dim 8): a finite
+    volume of the input's shape, equal to the host ``VolumeStitcher`` fed
+    the same per-window outputs in the same order."""
+    cfg = _tiny_edm()
+    imagen = infer.build_sampler(cfg, device="cpu", seed=0)
+    rec = _Recorder(imagen)
+    lowres, _ = infer.fake_volumes(cfg, 20, seed=2)
+    pred = infer.infer_volume(cfg, imagen, lowres, stitch_mode=mode, patch_batch=3,
+                              verbose=False,
+                              noise=gaussian_noise(torch.Generator().manual_seed(4)))
+    assert pred.shape == lowres.shape and np.isfinite(pred).all()
+    starts = SupervisedIQTInference(cfg, lr_file=None, volume=lowres).valid_indices()
+    windows = np.concatenate([subvolumes_to_volume(o, 3).numpy() for o in rec.outputs])
+    assert len(rec.outputs) == -(-len(starts) // 3) and len(windows) == len(starts)
+    host = VolumeStitcher(lowres.shape, cfg.train.patch_size, cfg.eval.overlap,
+                          mode=mode, fill_value=cfg.data.min_bound)
+    for idx, window in zip(starts, windows):
+        host.add(window[..., 0], idx)
+    np.testing.assert_array_equal(pred, host.result())
+
+
+def test_evaluate_main_runs_on_cpu(tmp_path, capsys):
+    from diffusioniqt_tpu_torch import evaluate
+
+    cfg_path = _tiny_config_file(tmp_path, "config/eval_edm.yaml")
+    out = tmp_path / "out"
+    evaluate.main(["--config", str(cfg_path), "--fake-data", "--fake-volumes", "2",
+                   "--fake-edge", "20", "--device", "cpu",
+                   "--output-dir", str(out), "--patch-batch", "4"])
+    lines = capsys.readouterr().out.splitlines()
+    assert "ElucidatedImagen (EDM) loaded: 3 Heun steps" in lines
+    assert sum(ln.startswith(("fake0: msssim=", "fake1: msssim=")) for ln in lines) == 2
+    for prefix in ("MS-SSIM: ", "PSNR:    ", "Avg sampling time: "):
+        assert any(ln.startswith(prefix) for ln in lines), prefix
+    for name in ("fake0", "fake1"):
+        vol = np.load(out / f"{name}_inf.npy")
+        assert vol.shape == (20, 20, 20) and np.isfinite(vol).all()
+        assert os.path.exists(out / f"{name}_inf.nii.gz")
+    with pytest.raises(NotImplementedError, match="lpips"):
+        evaluate.main(["--config", str(cfg_path), "--fake-data", "--device", "cpu", "--lpips"])
