@@ -50,17 +50,40 @@ Phases, each of which raises (and exits non-zero) on failure:
   metrics       ``evaluate.evaluate`` (centre-cropped MS-SSIM and PSNR) of the
                 serve-edm output against the fake highres volume on the card
                 and on the CPU, agreeing to 1e-5 relative
+  train-step    the EDM loss of ``config/eval_edm.yaml`` and its backward on one
+                27 x 32^3 microbatch at full width (seeded weights and draws),
+                through the kernels (launches exactly 39 / 1 / 38 / 0) and
+                through the plain versions: the loss within FORWARD_REL_TOL,
+                every gradient within the GRAD_* bounds; again with
+                ``Train.remat`` (launches 77 / 1 / 76 / 0): gradients equal to
+                the remat-off ones of the kernel path
+  train         ``ImagenTrainer`` (built as ``python -m diffusioniqt_tpu_torch.train``
+                builds it) on two seeded 128^3 synthetic phantom pairs: 4 patches
+                of 96^3 per optimizer step in 4 microbatches of 27 x 32^3, 10
+                steps; finite losses, launches exactly 10 x 4 x (39, 1, 38, 0),
+                the EMA equal to the online weights after the update of step
+                10, every packed-weight cache equal to a fresh pack of its
+                weight after the last step; seconds per step (median of steps 2-10), patches per
+                second, the backward's share of a microbatch (CUDA events),
+                peak device memory
+  train-serve   the trainer saved to a ``.pt`` bundle and served by
+                ``infer.build_sampler`` (its EMA weights): a 2-step EDM sampler
+                call over one window equals, bit for bit, the same call on
+                the trainer's EMA module with the same noise; then the
+                optimizer step + EMA update time
 
 ``python3 chip_smoke.py --profile`` also prints a ``torch.profiler``
 breakdown of one forward of each of the two configs at the serve batch,
-8 x 27 x 32^3 (device time by kernel, device busy share).
+8 x 27 x 32^3 (device time by kernel, device busy share), and of one
+training microbatch's forward and backward (27 x 32^3).
 ``python3 chip_smoke.py --kernels-only`` stops after the kernels phase and
 prints no result line: a copy of this script placed in another checkout of
 the repository times that checkout's kernels the same way.
 
 The line before the last is ``{"kernels": [...]}`` (per kernel: launches in
 the serve run of its path, serve-edm for the conv kernels and serve-attn for
-flash attention, with every serve run's count beside them, max abs error
+flash attention, with every serve run's and the train run's count beside
+them, max abs error
 against the plain version, times
 in ms at the main path's heaviest shape for that kernel, the bound and what
 sets it); the last line is ``{"ok": true, "device": {...}}``. Imports
@@ -70,9 +93,11 @@ nothing of JAX or of ``diffusioniqt_tpu``. Exits non-zero without CUDA.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -102,6 +127,22 @@ FLASH_TOL = 2.0 ** -7
 STITCH_GAUSS_REL_TOL = 1e-6
 # the metrics on the card against the CPU: fp32 reductions in other orders
 METRICS_REL_TOL = 1e-5
+# gradients of the train-step microbatch, kernels vs plain versions. Both
+# backward passes are the same plain VJPs; what differs is the forward that
+# fed them: the kernel forward and the plain one round fp32 sums to bf16 in
+# other orders (BF16_TOL per kernel, FORWARD_REL_TOL over a forward), so the
+# saved activations and the cotangents differ by bf16-level noise that does
+# not cancel in the gradient sums. The whole gradient (every tensor
+# concatenated) must point the same way and have the same length, and each
+# tensor must keep its direction. Readings on an H100 (torch 2.11, the
+# seeded weights and draws of this phase, the same in four runs): whole
+# cosine 0.999999, norm 1.07e-5 relative, worst tensor cosine 0.99998
+# (an SE gate's weight). Each limit leaves about 50-100x room in
+# 1 - cosine or in the norm: a kernel that drops or corrupts one tensor's
+# share of the gradient falls outside.
+GRAD_GLOBAL_COS_MIN = 0.9999
+GRAD_GLOBAL_NORM_REL_TOL = 1e-3
+GRAD_TENSOR_COS_MIN = 0.999
 
 SUB = 32                 # sub-volume edge on the main path
 GROUP = 27               # one 96^3 window = 27 sub-volumes
@@ -131,6 +172,15 @@ ATTN_CONFIG = os.path.join("diffusioniqt_tpu_torch", "configs", "eval_attn_softm
 # launches per forward of one 27-sub-volume group
 FLAGSHIP_COUNTS = {"halo": 39, "conv3d": 1, "fused_block": 38, "flash_attention": 0}
 ATTN_COUNTS = {"halo": 41, "conv3d": 1, "fused_block": 40, "flash_attention": 4}
+# launches per microbatch forward + backward with Train.remat: each of the
+# 19 ResnetBlocks is recomputed in the backward, its 2 halos and 2 fused
+# blocks launched again; the init conv and its halo are not in a block
+REMAT_COUNTS = {"halo": 1 + 2 * 38, "conv3d": 1, "fused_block": 2 * 38, "flash_attention": 0}
+# the train phase, as tools/quality_run.py trains the EDM flagship: 96^3
+# patches per optimizer step, microbatches per step (27 x 32^3 each), steps
+# (the EMA is applied every 10th), and the synthetic phantoms' edge and count
+TRAIN_PATCHES, TRAIN_ACCUM, TRAIN_STEPS = 4, 4, 10
+PHANTOM_EDGE, PHANTOMS = 128, 2
 # device-kernel names of each hand-written kernel, for the profile's layers
 LAYERS = {"fused_block": ("igemm::conv_sm90<true",),
           "conv3d": ("small_cin_kernel", "igemm::conv_sm90<false"),
@@ -251,10 +301,18 @@ def main() -> int:
 
     from diffusioniqt_tpu_torch.config import load_config
     from diffusioniqt_tpu_torch.data.stitching import VolumeStitcher, sliding_window_grid
+    from diffusioniqt_tpu_torch.data.synthetic import (
+        SyntheticIQTDataset,
+        generate_pair,
+        population_stats,
+    )
+    from diffusioniqt_tpu_torch.diffusion.elucidated import elucidated_imagen_from_config
     from diffusioniqt_tpu_torch.diffusion.gaussian import gaussian_noise
     from diffusioniqt_tpu_torch.evaluate import evaluate
     from diffusioniqt_tpu_torch.infer import build_sampler, fake_volumes, infer_volume
-    from diffusioniqt_tpu_torch.models.unet3d import iqt_unet_from_config
+    from diffusioniqt_tpu_torch.models.unet3d import NullUnet, iqt_unet_from_config
+    from diffusioniqt_tpu_torch.train.__main__ import build_trainer
+    from diffusioniqt_tpu_torch.train.ema import ema_update
     from diffusioniqt_tpu_torch.ops import kernels
     from diffusioniqt_tpu_torch.ops.kernels import fused_block as fused_module
     from diffusioniqt_tpu_torch.ops.kernels import runtime
@@ -601,6 +659,203 @@ def main() -> int:
             if not abs(on_card[key] - want) <= METRICS_REL_TOL * abs(want):
                 raise AssertionError(f"metrics: {key} on the card disagrees with the CPU")
 
+    def grad_stats(got, want):
+        """Per-tensor and whole-gradient cosine similarity and the whole
+        gradient's relative norm difference."""
+        def cos(a, b):
+            return float((a * b).sum() / (a.norm() * b.norm()).clamp_min(1e-30))
+        per = {k: cos(got[k].double(), want[k].double()) for k in want}
+        g = torch.cat([got[k].double().flatten() for k in want])
+        w = torch.cat([want[k].double().flatten() for k in want])
+        return per, cos(g, w), float((g.norm() - w.norm()).abs() / w.norm())
+
+    def assert_packs_fresh(model, label):
+        """Every packed-weight cache of ``model`` hands the kernels the pack
+        of its weight as it is now (no pack kept across an in-place update
+        such as the optimizer's)."""
+        from diffusioniqt_tpu_torch.ops.kernels.conv3d import pack_weight, pack_weight_small
+        stale = [name for name, m in model.named_modules() if hasattr(m, "_packed")
+                 and not torch.equal(m._packed.get(m.project.weight),
+                                     pack_weight(m.project.weight))]
+        w = model.init_conv.weight
+        if not torch.equal(model._init_packed.get(w, pack_weight_small), pack_weight_small(w)):
+            stale.append("init_conv")
+        print(f"  {label}: packed weights fresh: {not stale}", flush=True)
+        if stale:
+            raise AssertionError(f"{label}: stale packed weights in {stale[:5]}")
+
+    def train_step_phase(cfg):
+        """The EDM loss and backward of one 27 x 32^3 microbatch at full
+        width through the kernels and the plain versions with the same
+        draws; then remat on. The plain path runs with remat on: its saved
+        fp32 intermediates would hold some 50 GB without it, and remat
+        changes no gradient of the plain path (tests/test_torch_train.py).
+        cuDNN is held to deterministic algorithms here so that two backward
+        passes can be compared bit for bit."""
+        torch.backends.cudnn.deterministic = True
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            model = iqt_unet_from_config(cfg, device=dev)
+        imagen = elucidated_imagen_from_config(cfg, (NullUnet().to(dev), model))
+        hr = torch.randn((GROUP, SUB, SUB, SUB, 1), generator=gen, device=dev)
+        lowres = hr + 0.1 * torch.randn((GROUP, SUB, SUB, SUB, 1), generator=gen, device=dev)
+        draws = {"sigmas": imagen.hparams[1].noise_distribution(gen, GROUP),
+                 "noise": torch.randn((GROUP, SUB, SUB, SUB, 1), generator=gen, device=dev)}
+
+        def run(ops, remat=False):
+            model.use_ops(ops)
+            model.remat = remat
+            model.train().zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            loss = imagen.forward(hr, lowres, unet_number=2, **draws)
+            loss.backward()
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            return (loss.item(), {k: p.grad.detach().clone() for k, p in model.named_parameters()},
+                    counts)
+
+        loss_k, grads_k, counts = run(kernels.KERNELS)
+        _, grads_k2, _ = run(kernels.KERNELS)
+        loss_p, grads_p, _ = run(kernels.PLAIN, remat=True)
+        loss_r, grads_r, counts_r = run(kernels.KERNELS, remat=True)
+        model.use_ops(kernels.KERNELS)
+        model.remat = False
+        torch.backends.cudnn.deterministic = False
+        print(f"train-step loss kernels {loss_k:.6f} plain {loss_p:.6f} remat {loss_r:.6f}; "
+              f"launches {counts}, with remat {counts_r}")
+        if counts != FLAGSHIP_COUNTS:
+            raise AssertionError(f"train-step launches {counts}, expected {FLAGSHIP_COUNTS}")
+        if counts_r != REMAT_COUNTS:
+            raise AssertionError(f"train-step remat launches {counts_r}, expected {REMAT_COUNTS}")
+        rel = abs(loss_k - loss_p) / abs(loss_p)
+        per, cos_all, norm_rel = grad_stats(grads_k, grads_p)
+        worst = sorted(per.items(), key=lambda kv: kv[1])[:3]
+        print(f"  loss rel err {rel:.3e} (tol {FORWARD_REL_TOL}); gradients vs plain: whole "
+              f"cos {cos_all:.6f} (min {GRAD_GLOBAL_COS_MIN}), norm rel {norm_rel:.3e} (tol "
+              f"{GRAD_GLOBAL_NORM_REL_TOL}); per-tensor cos min {worst[0][1]:.5f} (min "
+              f"{GRAD_TENSOR_COS_MIN}), worst {[(k, round(c, 5)) for k, c in worst]}")
+        if not (math.isfinite(loss_k) and rel <= FORWARD_REL_TOL):
+            raise AssertionError("train-step: the loss through the kernels disagrees with the plain path")
+        if (cos_all < GRAD_GLOBAL_COS_MIN or norm_rel > GRAD_GLOBAL_NORM_REL_TOL
+                or worst[0][1] < GRAD_TENSOR_COS_MIN):
+            raise AssertionError("train-step: gradients through the kernels disagree with the plain path")
+        spread = max((grads_k2[k] - grads_k[k]).abs().max().item() for k in grads_k)
+        remat_err = max((grads_r[k] - grads_k[k]).abs().max().item() for k in grads_k)
+        print(f"  remat vs remat-off gradients (kernels): max abs diff {remat_err:.3e}; two "
+              f"remat-off runs differ by {spread:.3e}", flush=True)
+        if remat_err > spread or loss_r != loss_k:
+            raise AssertionError("train-step: remat changes the gradients beyond the run-to-run "
+                                 "spread of the backward")
+        del model, imagen, grads_k, grads_k2, grads_p, grads_r
+        torch.cuda.empty_cache()
+
+    def train_phase(cfg):
+        """ImagenTrainer on synthetic phantoms, as tools/quality_run.py
+        trains the EDM flagship; launches counted over the 10 steps only."""
+        t_data = time.perf_counter()
+        pairs = [generate_pair(PHANTOM_EDGE, seed=i) for i in range(PHANTOMS)]
+        cfg.data.mean, cfg.data.std = population_stats([lr for _, lr in pairs])
+        dataset = SyntheticIQTDataset(cfg, seed=0, samples_per_volume=8, pairs=pairs)
+        trainer = build_trainer(cfg, dev)
+        trainer.add_train_dataset(dataset, batch_size=TRAIN_PATCHES)
+        print(f"phantoms {PHANTOMS} x {PHANTOM_EDGE}^3 in {time.perf_counter() - t_data:.1f} s; "
+              f"{TRAIN_PATCHES} patches of {cfg.train.patch_size}^3 per step, accum "
+              f"{trainer.gradient_accumulation_steps}, width dim={cfg.train.dim} "
+              f"mults={cfg.train.dim_mults}, sigma_data {cfg.train.edm_sigma_data}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        losses, step_s = [], []
+        for _ in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(trainer.train_step(unet_number=2, sync=False))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        losses = [float(v) for v in losses]
+        want = {k: TRAIN_STEPS * TRAIN_ACCUM * n for k, n in FLAGSHIP_COUNTS.items()}
+        ema_equal = all(torch.equal(e, p) for e, p in zip(trainer.ema_unets[1].parameters(),
+                                                          trainer.imagen.unets[1].parameters()))
+        med = sorted(step_s[1:])[len(step_s[1:]) // 2]
+        print(f"train losses {' '.join(f'{v:.4f}' for v in losses)}")
+        print(f"step seconds {' '.join(f'{v:.3f}' for v in step_s)}; median of steps 2-"
+              f"{TRAIN_STEPS} {med:.4f} s, {TRAIN_PATCHES / med:.3f} patches/s of 96^3; peak "
+              f"memory {peak / 2 ** 30:.2f} GiB; launches {counts} ({want['halo'] // TRAIN_STEPS} "
+              f"halos per step); EMA == online after step {TRAIN_STEPS}: {ema_equal}", flush=True)
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError("train: a loss is not finite")
+        if counts != want:
+            raise AssertionError(f"train launches {counts}, expected {want}")
+        if trainer.ema_steps[1] != TRAIN_STEPS or not ema_equal:
+            raise AssertionError("train: the EMA does not equal the online weights after the "
+                                 "decay-0 update of step 10")
+        assert_packs_fresh(trainer.imagen.unets[1], "train")
+        # one more microbatch, for the split of its time (not counted above)
+        hr, lr = trainer._maybe_batch_sample_split(*trainer._device_batch(
+            next(iter(trainer.train_dl))))
+        hr, lr = hr[:GROUP], lr[:GROUP]
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        events[0].record()
+        loss = trainer._loss(1, hr, lr, {})
+        events[1].record()
+        loss.backward()
+        events[2].record()
+        torch.cuda.synchronize()
+        fwd, bwd = events[0].elapsed_time(events[1]), events[1].elapsed_time(events[2])
+        print(f"microbatch (27 x 32^3): forward {fwd:.3f} ms, backward {bwd:.3f} ms, backward "
+              f"share {bwd / (fwd + bwd):.3f}", flush=True)
+        if "--profile" in sys.argv[1:]:
+            profile_forward("train microbatch (forward + backward)",
+                            lambda: trainer._loss(1, hr, lr, {}).backward())
+        trainer.imagen.unets[1].zero_grad(set_to_none=True)
+        return trainer, counts
+
+    def train_serve(trainer, cfg):
+        """The trainer's bundle served by build_sampler (EMA weights) against
+        its EMA module, 2 EDM steps over one window with the same noise."""
+        cfg.train.edm_num_sample_steps = 2
+        with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+            path = os.path.join(tmp, "trainer.pt")
+            trainer.save(path)
+            print(f"bundle {os.path.getsize(path) / 2 ** 20:.1f} MiB")
+            served = build_sampler(cfg, device=dev, checkpoint=path)
+        direct = elucidated_imagen_from_config(cfg, (NullUnet().to(dev), trainer.ema_unets[1]))
+        lowres = torch.randn((GROUP, SUB, SUB, SUB, 1), generator=gen, device=dev)
+
+        def run(imagen):
+            noise = gaussian_noise(torch.Generator(device=dev).manual_seed(5))
+            return imagen.sample(batch_size=GROUP, noise=noise, start_at_unet_number=2,
+                                 start_image_or_video=lowres)
+
+        got, want = run(served), run(direct)
+        err = (got - want).abs().max().item()
+        print(f"served bundle vs trainer EMA module: out {tuple(got.shape)} finite "
+              f"{bool(torch.isfinite(got).all())} equal {torch.equal(got, want)} max abs diff "
+              f"{err:.3e}", flush=True)
+        if not (torch.isfinite(got).all() and torch.equal(got, want)):
+            raise AssertionError("train-serve: the served bundle differs from the trainer's EMA")
+        # the optimizer update + EMA application of one step (gradients of
+        # one more microbatch in place)
+        unet, opt = trainer.imagen.unets[1], trainer.optimizers[1]
+        loss = trainer._loss(1, lowres, lowres, {})
+        loss.backward()
+        ms = []
+        for _ in range(3):
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            events[0].record()
+            opt.step()
+            events[1].record()
+            ema_update(trainer.ema_unets[1], unet, trainer.steps[1], **trainer.ema_kwargs)
+            events[2].record()
+            torch.cuda.synchronize()
+            ms.append((events[0].elapsed_time(events[1]), events[1].elapsed_time(events[2])))
+        n_params = sum(p.numel() for p in unet.parameters())
+        print(f"optimizer step ms {' '.join(f'{a:.3f}' for a, _ in ms)}; EMA update ms "
+              f"{' '.join(f'{b:.3f}' for _, b in ms)} ({n_params} parameters)", flush=True)
+
     cfg = load_config(os.path.join(ROOT, FLAGSHIP_CONFIG))
     cfg_attn = load_config(os.path.join(ROOT, ATTN_CONFIG))
     cfg_vit = load_config(os.path.join(ROOT, ATTN_CONFIG))
@@ -627,6 +882,13 @@ def main() -> int:
     stitch()
     phase("metrics")
     metrics(pred_edm, highres_edm)
+    phase("train-step")
+    train_step_phase(load_config(os.path.join(ROOT, EDM_CONFIG)))
+    phase("train")
+    trainer, trained = train_phase(load_config(os.path.join(ROOT, EDM_CONFIG)))
+    phase("train-serve")
+    train_serve(trainer, load_config(os.path.join(ROOT, EDM_CONFIG)))
+    del trainer
 
     # ------------------------------------------------------------- report
     line = []
@@ -644,7 +906,7 @@ def main() -> int:
             # sampler for the conv kernels, the attention config for flash
             "launches": (served_attn if name == "flash_attention" else served_edm)[name],
             "launches_by_path": {"serve": served[name], "serve-attn": served_attn[name],
-                                 "serve-edm": served_edm[name]},
+                                 "serve-edm": served_edm[name], "train": trained[name]},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "tolerance": head["tol"],
             "ms": head["ms"], "ms_min": head["ms_min"], "ms_max": head["ms_max"],

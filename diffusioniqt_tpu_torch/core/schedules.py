@@ -5,7 +5,9 @@ imagen_pytorch3D.py:222-357, after @crowsonkb's v-diffusion).
 
   log_snr(t)         — noise schedule, cosine or linear
   alpha, sigma       — sqrt(sigmoid(+/- log_snr))
-  q_sample           — diffuse x0 to time t (the EDM lowres noise aug)
+  sample_random_times — uniform training times from a ``torch.Generator``
+  q_sample           — diffuse x0 to time t (the training loss, the EDM
+                       lowres noise aug)
   q_posterior        — DDPM ancestral posterior, continuous-time form
   predict_start_*    — invert the noise / v parameterisations
 """
@@ -73,6 +75,12 @@ class GaussianDiffusionContinuousTimes:
         """The U-Net's time conditioning is the raw log-SNR (reference
         :258-259)."""
         return None if times is None else self.log_snr(times)
+
+    def sample_random_times(self, generator: torch.Generator, batch_size: int) -> torch.Tensor:
+        """Training times ``t ~ U[0, 1)``, ``(batch_size,)`` fp32, drawn from
+        ``generator`` on its device (reference :255-256)."""
+        return torch.rand((batch_size,), generator=generator, device=generator.device,
+                          dtype=torch.float32)
 
     def get_sampling_timesteps(self, batch: int, device="cpu"
                                ) -> Tuple[torch.Tensor, torch.Tensor]:

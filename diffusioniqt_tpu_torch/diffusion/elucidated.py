@@ -1,6 +1,6 @@
-"""Cascaded EDM (Karras) diffusion sampling (counterpart of
+"""Cascaded EDM (Karras) diffusion (counterpart of
 ``diffusioniqt_tpu/diffusion/elucidated.py``; reference
-``elucidated_imagen.py``), sampling side only, in plain PyTorch:
+``elucidated_imagen.py``) in plain PyTorch:
 
   * per-unet EDM hyperparameters (``core/edm.py::EDMParams``)
   * the preconditioned network forward, Table-1 ``c_skip`` / ``c_out`` /
@@ -9,6 +9,10 @@
     correction, as a Python loop over the steps; the last step
     (``sigma_next == 0``) is plain Euler
   * cascade ``sample`` with ``start_at_unet_number``
+  * the training loss ``forward`` (reference :712-882): lognormal sigmas,
+    one per sub-volume, the EDM loss weight, and the lowres conditioning
+    clean (``lowres_noise_aug`` off, the IQT path), noise-augmented, or
+    made by down-up-resizing the target when none is given
 
 Randomness is injected as in ``diffusion/gaussian.py``: the sampler takes
 ``noise(shape) -> tensor`` (``NoiseFn``) and draws, per cascade stage, in
@@ -23,8 +27,9 @@ this order:
 
 The JAX sampler draws the same in that order from its own keys
 (elucidated.py:292-293, :324-329, :374-376), so a test feeds a loop built
-from its public functions and this one the same numpy noise. The training
-loss (``forward``) is not ported yet.
+from its public functions and this one the same numpy noise. ``forward``
+takes its draws (augmentation times and noise, sigmas, noise) as arguments,
+else draws them from the trainer's generator in that order.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from diffusioniqt_tpu_torch.core.schedules import (
 from diffusioniqt_tpu_torch.diffusion.gaussian import (
     NoiseFn,
     clamp_to_range,
+    standard_normal,
     threshold_x_start,
 )
 from diffusioniqt_tpu_torch.ops.volume import resize_volume
@@ -71,6 +77,7 @@ class ElucidatedImagen:
         image_sizes: Sequence[int],
         channels: int = 3,
         lowres_sample_noise_level: float = 0.2,
+        per_sample_random_aug_noise_level: bool = False,
         lowres_noise_aug: bool = True,
         auto_normalize_img: bool = True,
         dynamic_thresholding: Union[bool, Sequence[bool]] = True,
@@ -110,9 +117,11 @@ class ElucidatedImagen:
         self.lowres_noise_schedule = GaussianDiffusionContinuousTimes(
             noise_schedule=lowres_noise_schedule)
         self.lowres_sample_noise_level = lowres_sample_noise_level
+        self.per_sample_random_aug_noise_level = per_sample_random_aug_noise_level
         self.lowres_noise_aug = lowres_noise_aug
         self.normalize_img = normalize_neg_one_to_one if auto_normalize_img else identity
         self.unnormalize_img = unnormalize_zero_to_one if auto_normalize_img else identity
+        self.input_image_range = (0.0 if auto_normalize_img else -1.0, 1.0)
         self.dynamic_thresholding = cast_tuple(dynamic_thresholding, num_unets)
         self.dynamic_thresholding_percentile = dynamic_thresholding_percentile
 
@@ -296,6 +305,73 @@ class ElucidatedImagen:
             if stop_at_unet_number == unet_number:
                 break
         return outputs if return_all_outputs else outputs[-1]
+
+    # ------------------------------------------------------------------
+    def forward(self, images, lowres_img=None, *, unet_number: Optional[int] = None,
+                generator: Optional[torch.Generator] = None, sigmas=None, noise=None,
+                aug_times=None, aug_noise=None, return_outputs: bool = False):
+        """EDM training loss (reference :712-882; JAX elucidated.py:558-658):
+        the scalar loss, or ``(loss, denoised, noised_images, lowres_noisy)``
+        with ``return_outputs``.
+
+        Without ``lowres_img`` a lowres-conditioned unet gets ``images``
+        down-resized to the previous stage and back up (reference
+        :779-782). The conditioning stays clean when ``lowres_noise_aug`` is
+        off (the IQT path, at noise time 0), else it is noised at one time
+        per call or, with ``per_sample_random_aug_noise_level``, per sample.
+        Draws not given come from ``generator`` in the order augmentation
+        times, augmentation noise, sigmas ``(B,)`` (one per sub-volume, not
+        shared), noise."""
+        if self.num_unets > 1 and unet_number is None:
+            raise ValueError("unet_number is required with more than one unet")
+        index = (unet_number or 1) - 1
+        unet, hp = self.unets[index], self.hparams[index]
+        target_size = self.image_sizes[index]
+        batch = images.shape[0]
+        device = images.device
+
+        lowres_cond_img = lowres_img
+        if lowres_cond_img is None and index > 0:
+            lowres_cond_img = resize_volume(images, self.image_sizes[index - 1],
+                                            clamp_range=self.input_image_range)
+            lowres_cond_img = resize_volume(lowres_cond_img, target_size,
+                                            clamp_range=self.input_image_range)
+        if lowres_cond_img is not None and aug_times is None:
+            if not self.lowres_noise_aug:
+                aug_times = torch.zeros((batch,), dtype=torch.float32, device=device)
+            else:
+                if generator is None:
+                    raise ValueError("pass a torch.Generator, or every draw of the loss")
+                sched = self.lowres_noise_schedule
+                if self.per_sample_random_aug_noise_level:
+                    aug_times = sched.sample_random_times(generator, batch)
+                else:
+                    aug_times = sched.sample_random_times(generator, 1).expand(batch)
+
+        images = self.normalize_img(resize_volume(images, target_size))
+        lowres_noisy = None
+        if lowres_cond_img is not None:
+            lowres_noisy = self.normalize_img(lowres_cond_img)
+            if self.lowres_noise_aug:
+                if aug_noise is None:
+                    aug_noise = standard_normal(lowres_noisy.shape, generator)
+                lowres_noisy = self.lowres_noise_schedule.q_sample(
+                    lowres_noisy, aug_times, aug_noise)[0]
+
+        if sigmas is None:
+            if generator is None:
+                raise ValueError("pass a torch.Generator, or every draw of the loss")
+            sigmas = hp.noise_distribution(generator, batch)
+        if noise is None:
+            noise = standard_normal(images.shape, generator)
+        noised_images = images + right_pad_dims_to(images, sigmas) * noise
+        denoised = self.preconditioned_network_forward(
+            unet, noised_images, sigmas, hp, lowres_cond_img=lowres_noisy)
+        losses = ((denoised - images) ** 2).reshape(batch, -1).mean(dim=-1)
+        loss = (losses * hp.loss_weight(sigmas)).mean()
+        if return_outputs:
+            return loss, denoised, noised_images, lowres_noisy
+        return loss
 
 
 def elucidated_imagen_from_config(cfg, unets) -> ElucidatedImagen:

@@ -1,6 +1,6 @@
-"""Cascaded continuous-time Gaussian diffusion sampling (counterpart of
+"""Cascaded continuous-time Gaussian diffusion (counterpart of
 ``diffusioniqt_tpu/diffusion/gaussian.py``; reference ``Imagen``,
-imagen_pytorch3D.py:1741-2443), sampling side only.
+imagen_pytorch3D.py:1741-2443).
 
   * ``p_mean_variance`` with the noise / x_start / v objectives, dynamic
     thresholding and the z-score ``min_bound`` clamp (:1976-2030)
@@ -9,12 +9,16 @@ imagen_pytorch3D.py:1741-2443), sampling side only.
   * cascade ``sample`` with ``start_at_unet_number`` (:2162-2274): the IQT
     entry points sample unet 2 over a ``NullUnet`` first stage, starting
     from the lowres patches
+  * the training loss ``p_losses`` (:2276-2387) with the three objectives,
+    the x_start ``min_bound`` clamp, p2 weighting and the loss table, and
+    ``forward`` (:2389-2443), which draws the diffusion times (one shared
+    by the whole microbatch under ``batch_sample``)
 
 Randomness is injected: every sampler takes ``noise(shape) -> tensor``, so
 a test can feed the JAX loop and this one the same numpy noise (the JAX
 loop draws its own, gaussian.py:282,318). :func:`gaussian_noise` makes one
-from a seeded ``torch.Generator``. Training (``p_losses``) is not ported
-yet.
+from a seeded ``torch.Generator``. ``forward`` takes ``times`` and
+``noise``, else draws them from the trainer's generator, times first.
 """
 
 from __future__ import annotations
@@ -38,6 +42,24 @@ def gaussian_noise(generator: torch.Generator) -> NoiseFn:
         return torch.randn(shape, generator=generator,
                            device=generator.device, dtype=torch.float32)
     return draw
+
+
+def standard_normal(shape, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """fp32 N(0, 1) of ``shape`` from ``generator``, on its device: the
+    training draws of both wrappers."""
+    if generator is None:
+        raise ValueError("pass a torch.Generator, or every draw of the loss")
+    return torch.randn(tuple(shape), generator=generator, device=generator.device,
+                       dtype=torch.float32)
+
+
+_LOSSES = {
+    "l1": lambda pred, target: (pred - target).abs(),
+    "l2": lambda pred, target: (pred - target) ** 2,
+    "huber": lambda pred, target: torch.where((pred - target).abs() < 1.0,
+                                              0.5 * (pred - target) ** 2,
+                                              (pred - target).abs() - 0.5),
+}
 
 
 def clamp_to_range(img: torch.Tensor, norm: str, min_bound: float) -> torch.Tensor:
@@ -80,6 +102,8 @@ class Imagen:
         dynamic_thresholding_percentile: float = 0.95,
         norm: str = "z-score",
         batch_sample: bool = False,
+        loss_type: str = "l2",
+        p2_loss_weight_gamma: Union[float, Sequence[float]] = 0.5,
     ):
         unets = list(unets) if isinstance(unets, (list, tuple)) else [unets]
         num_unets = len(unets)
@@ -87,6 +111,12 @@ class Imagen:
         self.norm = norm
         self.min_bound = float(min_bound)
         self.batch_sample = batch_sample
+        if loss_type not in _LOSSES:
+            raise NotImplementedError(f"unknown loss type {loss_type}")
+        self.loss_fn = _LOSSES[loss_type]
+        self.p2_loss_weight_gamma = cast_tuple(p2_loss_weight_gamma, num_unets)
+        if any(g > 2 for g in self.p2_loss_weight_gamma):
+            raise ValueError("p2_loss_weight_gamma must be at most 2")
 
         noise_schedules = cast_tuple(noise_schedules)
         noise_schedules = pad_tuple_to_length(noise_schedules, 2, "cosine")
@@ -204,12 +234,76 @@ class Imagen:
                 break
         return outputs if return_all_outputs else outputs[-1]
 
+    # ------------------------------------------------------------------
+    @property
+    def num_unets(self) -> int:
+        return len(self.unets)
+
+    def p_losses(self, unet, x_start, times, *, noise_scheduler, lowres_cond_img=None,
+                 noise=None, generator: Optional[torch.Generator] = None,
+                 pred_objective: str = "noise", p2_loss_weight_gamma: float = 0.0):
+        """Training loss (reference :2276-2387; JAX gaussian.py:492-564).
+        Returns ``(loss, pred, x_noisy, lowres_cond_img)``. The lowres
+        conditioning is not noised (reference :2303-2304), and an x_start
+        prediction is clamped at ``min_bound`` before the loss
+        (:2361-2362). The p2 weight is ``(1 + exp(log_snr)) ** -gamma`` (the
+        JAX default ``p2_loss_weight_k`` 1, which no caller changes)."""
+        if noise is None:
+            noise = standard_normal(x_start.shape, generator)
+        x_noisy, log_snr, alpha, sigma = noise_scheduler.q_sample(x_start, times, noise)
+        pred = unet(x_noisy, times, noise_scheduler.get_condition(times),
+                    lowres_cond_img=lowres_cond_img)
+        if pred_objective == "noise":
+            target = noise
+        elif pred_objective == "x_start":
+            target = x_start
+            pred = torch.clamp(pred, min=self.min_bound)
+        elif pred_objective == "v":
+            target = alpha * noise - sigma * x_start
+        else:
+            raise ValueError(f"unknown objective {pred_objective}")
+        losses = self.loss_fn(pred, target)
+        losses = losses.reshape(losses.shape[0], -1).mean(dim=-1)
+        if p2_loss_weight_gamma > 0:
+            losses = losses * (1.0 + torch.exp(log_snr)) ** -p2_loss_weight_gamma
+        return losses.mean(), pred, x_noisy, lowres_cond_img
+
+    def forward(self, images, lowres_img=None, *, unet_number: Optional[int] = None,
+                generator: Optional[torch.Generator] = None, times=None, noise=None):
+        """Draw the diffusion times and take :meth:`p_losses` (reference
+        :2389-2443; JAX gaussian.py:566-621). ``times`` ``(B,)`` and
+        ``noise`` (the shape of ``images``) are drawn from ``generator``
+        when not given, in that order; under ``batch_sample`` one time is
+        shared by the whole microbatch (:2428-2431)."""
+        if self.num_unets > 1 and unet_number is None:
+            raise ValueError("unet_number is required with more than one unet")
+        index = (unet_number or 1) - 1
+        scheduler = self.noise_schedulers[index]
+        b = images.shape[0]
+        if images.shape[1] < self.image_sizes[index]:
+            raise ValueError(f"images of edge {images.shape[1]} are smaller than the "
+                             f"unet's {self.image_sizes[index]}")
+        if lowres_img is None:
+            raise ValueError("lowres image must be provided")
+        if times is None:
+            if generator is None:
+                raise ValueError("pass a torch.Generator, or every draw of the loss")
+            times = scheduler.sample_random_times(generator, 1 if self.batch_sample else b)
+            times = times.expand(b) if self.batch_sample else times
+        return self.p_losses(
+            self.unets[index], images, times, noise_scheduler=scheduler,
+            lowres_cond_img=lowres_img, noise=noise, generator=generator,
+            pred_objective=self.pred_objectives[index],
+            p2_loss_weight_gamma=self.p2_loss_weight_gamma[index])
+
 
 def imagen_from_config(cfg, unets) -> Imagen:
-    """The Imagen sampler as the reference entry scripts build it
-    (reference train.py:118-133 / test.py:110-125), without the perceptual
-    losses (training only). Refuses a ``Train.elucidated`` config, whose
-    sampler is ``diffusion/elucidated.py::elucidated_imagen_from_config``."""
+    """The Imagen wrapper as the reference entry scripts build it
+    (reference train.py:118-133 / test.py:110-125): no p2 weighting (and
+    no conditioning dropout, which the IQT U-Net ignores). The perceptual
+    loss terms are the trainer's concern (``train/trainer.py`` refuses
+    them). Refuses a ``Train.elucidated`` config, whose wrapper is
+    ``diffusion/elucidated.py::elucidated_imagen_from_config``."""
     if cfg.train.elucidated:
         raise ValueError("the config sets Train.elucidated: build the EDM sampler "
                          "with elucidated_imagen_from_config")
@@ -225,4 +319,5 @@ def imagen_from_config(cfg, unets) -> Imagen:
         dynamic_thresholding=cfg.train.dynamic_threshold,
         norm=cfg.data.norm,
         batch_sample=cfg.train.batch_sample,
+        p2_loss_weight_gamma=0.0,
     )

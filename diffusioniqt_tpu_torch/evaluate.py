@@ -24,7 +24,7 @@ import torch
 from diffusioniqt_tpu_torch.data.datasets import load_volume, save_volume
 from diffusioniqt_tpu_torch.infer import (
     add_serving_args,
-    fake_volumes,
+    fake_subjects,
     infer_volume,
     serve_from_args,
 )
@@ -48,11 +48,12 @@ def evaluate(pred: np.ndarray, gt: np.ndarray, border: int = 32, device="cuda") 
 
 def load_subjects(cfg, args):
     """[(name, lowres, highres)] raw volumes, 256-edge volumes cropped to
-    240 (reference test.py:151-153)."""
+    240 (reference test.py:151-153); with ``--fake-data`` the subjects of
+    ``test_all.py --fake-data``, all from one stream of ``--seed``."""
     if args.fake_data:
         edge = args.fake_edge or cfg.train.patch_size + cfg.eval.overlap
-        return [(f"fake{i}", *fake_volumes(cfg, edge, seed=args.seed + i))
-                for i in range(args.fake_volumes)]
+        return [(f"fake{i}", lowres, highres) for i, (lowres, highres)
+                in enumerate(fake_subjects(cfg, edge, args.fake_volumes, seed=args.seed))]
     subjects = []
     for lrf in sorted(glob.glob(cfg.data.lowres_path_test)):
         lr = load_volume(lrf)

@@ -12,7 +12,9 @@ time; the last batch is not padded (eager PyTorch needs no fixed shape).
 
 The normalised volume is copied to the model's device once, the windows are
 sliced out there and stitched into device buffers (``ops/stitch_device.py``),
-and the result comes back in one copy.
+and the result comes back in one copy. A trainer bundle (``--checkpoint``,
+as ``python -m diffusioniqt_tpu_torch.train`` writes it) serves its EMA
+weights unless ``--use-non-ema`` is given, as ``test.py`` samples.
 
     python -m diffusioniqt_tpu_torch.infer --config config/eval_config.yaml --fake-data
     python -m diffusioniqt_tpu_torch.infer --config config/eval_edm.yaml --fake-data
@@ -55,14 +57,32 @@ from diffusioniqt_tpu_torch.utils.misc import resolve_device
 Sampler = Union[Imagen, ElucidatedImagen]
 
 
-def load_unet_state_dict(path: str) -> dict:
+def load_unet_state_dict(path: str, use_ema: bool = True) -> dict:
     """SR U-Net weights from a ``.pt`` file: a port or reference ``Unet``
     state dict, a model-only ``{"state_dict": ...}`` dict, or a trainer
-    bundle ``{"model": imagen_state_dict}`` whose keys are ``unets.1.*``."""
+    bundle. Of a bundle, the EMA weights by default (its ``ema`` entry,
+    ``1.ema_model.*`` for unet 2, or a bare EMA wrapper's ``ema_model.*``),
+    as the JAX entry points sample (test.py:63,116); with ``use_ema=False``
+    the online weights (``model``, an Imagen state dict whose keys are
+    ``unets.1.*``). A bundle asked for EMA weights that holds none raises,
+    as ``utils/torch_convert.py::convert_reference_checkpoint`` does."""
     obj = torch.load(path, map_location="cpu", weights_only=True)
-    for key in ("model", "state_dict"):
-        if isinstance(obj, dict) and key in obj:
-            obj = obj[key]
+    if isinstance(obj, dict) and "model" in obj:
+        if not use_ema:
+            obj = obj["model"]
+        else:
+            ema = obj.get("ema")
+            if ema is None:
+                raise KeyError(f"{path}: asked for the EMA weights but the bundle has no "
+                               "'ema' entry (serve the online ones with --use-non-ema)")
+            for prefix in ("1.ema_model.", "ema_model."):
+                picked = {k[len(prefix):]: v for k, v in ema.items() if k.startswith(prefix)}
+                if picked:
+                    return picked
+            raise KeyError(f"{path}: no '1.ema_model.*' or 'ema_model.*' keys in the "
+                           "bundle's 'ema' entry; refusing to serve the online weights")
+    if isinstance(obj, dict) and "state_dict" in obj:
+        obj = obj["state_dict"]
     if any(k.startswith("unets.") for k in obj):
         obj = {k[len("unets.1."):]: v for k, v in obj.items()
                if k.startswith("unets.1.")}
@@ -70,18 +90,18 @@ def load_unet_state_dict(path: str) -> dict:
 
 
 def build_sampler(cfg, device="cuda", checkpoint: Optional[str] = None,
-                  seed: int = 0) -> Sampler:
+                  seed: int = 0, use_ema: bool = True) -> Sampler:
     """The IQT cascade sampler with the SR U-Net on ``device``: the EDM
     ``ElucidatedImagen`` when ``Train.elucidated`` is set, else the
     Gaussian ``Imagen`` (as test.py:45-54 chooses). Weights from
-    ``checkpoint``, else random from ``seed``. Raises if CUDA is asked for
-    and missing."""
+    ``checkpoint`` (a bundle's EMA weights unless ``use_ema=False``), else
+    random from ``seed``. Raises if CUDA is asked for and missing."""
     device = resolve_device(device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         unet = iqt_unet_from_config(cfg, device=device)
     if checkpoint:
-        unet.load_state_dict(load_unet_state_dict(checkpoint))
+        unet.load_state_dict(load_unet_state_dict(checkpoint, use_ema=use_ema))
     unet.eval()
     if cfg.train.elucidated:
         return elucidated_imagen_from_config(cfg, (NullUnet(), unet))
@@ -127,21 +147,33 @@ def infer_volume(cfg, imagen: Sampler, lowres_raw: np.ndarray, *,
     return stitcher.result()
 
 
+def fake_subjects(cfg, edge: int, count: int, seed: int = 0):
+    """``count`` synthetic (lowres, highres) raw-intensity pairs drawn in
+    turn from one ``default_rng(seed)`` stream, as ``test_all.py
+    --fake-data`` draws its subjects (test_all.py:90-97, seed 0)."""
+    rng = np.random.default_rng(seed)
+    std = cfg.data.std
+    pairs = []
+    for _ in range(count):
+        highres = np.abs(rng.standard_normal((edge,) * 3)).astype(np.float32) * std
+        lowres = highres + rng.standard_normal(highres.shape).astype(np.float32) * 0.1 * std
+        pairs.append((lowres, highres))
+    return pairs
+
+
 def fake_volumes(cfg, edge: int, seed: int = 0):
     """A synthetic (lowres, highres) raw-intensity pair, as ``test.py
     --fake-data`` makes it."""
-    rng = np.random.default_rng(seed)
-    std = cfg.data.std
-    highres = np.abs(rng.standard_normal((edge,) * 3)).astype(np.float32) * std
-    lowres = highres + rng.standard_normal(highres.shape).astype(np.float32) * 0.1 * std
-    return lowres, highres
+    return fake_subjects(cfg, edge, 1, seed)[0]
 
 
 def add_serving_args(ap: argparse.ArgumentParser) -> None:
     """The options ``infer`` and ``evaluate`` share."""
     ap.add_argument("--config", default="./config/eval_config.yaml")
     ap.add_argument("--checkpoint", default=None,
-                    help="SR U-Net weights (.pt state dict)")
+                    help="SR U-Net weights (.pt state dict or trainer bundle)")
+    ap.add_argument("--use-non-ema", action="store_true",
+                    help="of a trainer bundle, serve the online weights, not the EMA ones")
     ap.add_argument("--stitch", choices=["trim", "gaussian"], default="trim")
     ap.add_argument("--patch-batch", type=int, default=8,
                     help="windows denoised together per sampler call")
@@ -155,7 +187,7 @@ def serve_from_args(args):
     """(cfg, sampler, noise, infer kwargs) from parsed :func:`add_serving_args`."""
     cfg = load_config(args.config)
     imagen = build_sampler(cfg, device=args.device, checkpoint=args.checkpoint,
-                           seed=args.seed)
+                           seed=args.seed, use_ema=not args.use_non_ema)
     print(describe_sampler(imagen))
     if not args.checkpoint:
         print("WARNING: no checkpoint given — sampling with random weights")

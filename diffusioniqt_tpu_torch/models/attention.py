@@ -1,5 +1,5 @@
 """Volumetric attention of the IQT U-Net (counterpart of
-``diffusioniqt_tpu/models/attention.py``), channels-last, inference only.
+``diffusioniqt_tpu/models/attention.py``), channels-last.
 
 The three ``att_type`` families of the reference
 (imagen_pytorch3D.py:723-1186):
@@ -18,9 +18,13 @@ plus ``Patchify`` / ``PatchReconstruct``, ``ChanFeedForward`` and the
 
 Depthwise and 1x1 convolutions, layer norms and the linear-attention
 products are plain PyTorch in the activation's dtype (the JAX package
-leaves them to XLA). There is no dropout: the reference's dropout slots
-are ``nn.Identity`` so parameter names still match its ``state_dict``
-(``to_q.{1,2}``, ``to_out.{0,1}``, ``layers.{d}.1.{0,1,3,4}``, ViT
+leaves them to XLA). Dropout sits where the JAX modules put it
+(attention.py:124,335,365,369,394,404) and acts in ``train()`` mode only:
+0.05 on the q/k/v inputs of Linear/SoftMax attention (a constant there),
+the ViT's ``drop_p`` after its attention and each residual branch and
+``forward_drop_p`` in its feed-forward. Dropout slots hold no parameters,
+so the names still match the reference ``state_dict`` (``to_q.{1,2}``,
+``to_out.{0,1}``, ``layers.{d}.1.{0,1,3,4}``, ViT
 ``block.{0,1}.fn.{0,1}``, ``reconstruction.{0,3,4}``, ...). The text
 ``context`` path is not ported and raises.
 """
@@ -122,11 +126,11 @@ def _merge_heads(t: torch.Tensor, heads: int, spatial) -> torch.Tensor:
     return t.reshape(bh // heads, *spatial, heads * d)
 
 
-def _qkv_conv(dim: int, inner_dim: int) -> nn.Sequential:
-    """1x1 conv -> depthwise 3^3 SAME conv, no biases (reference
-    imagen_pytorch3D.py:960-976); slot 0 is the reference's dropout."""
+def _qkv_conv(dim: int, inner_dim: int, dropout: float) -> nn.Sequential:
+    """Dropout -> 1x1 conv -> depthwise 3^3 SAME conv, no biases (reference
+    imagen_pytorch3D.py:960-976)."""
     return nn.Sequential(
-        nn.Identity(),
+        nn.Dropout(dropout),
         PointwiseConv(dim, inner_dim, bias=False),
         ChannelsLastConv3d(inner_dim, inner_dim, 3, padding=1, groups=inner_dim,
                            bias=False),
@@ -140,16 +144,16 @@ class _VoxelAttention(nn.Module):
     ``(B*h, N, d)`` heads."""
 
     def __init__(self, dim: int, dim_head: int = 32, heads: int = 8,
-                 patch_size: int = 2, patch: bool = False):
+                 patch_size: int = 2, patch: bool = False, dropout: float = 0.05):
         super().__init__()
         inner_dim = dim_head * heads
         self.heads = heads
         self.scale = dim_head ** -0.5
         self.patch_embed = Patchify(dim, dim, patch_size) if patch else None
         self.norm = ChanLayerNorm(dim)
-        self.to_q = _qkv_conv(dim, inner_dim)
-        self.to_k = _qkv_conv(dim, inner_dim)
-        self.to_v = _qkv_conv(dim, inner_dim)
+        self.to_q = _qkv_conv(dim, inner_dim, dropout)
+        self.to_k = _qkv_conv(dim, inner_dim, dropout)
+        self.to_v = _qkv_conv(dim, inner_dim, dropout)
         self.to_out = nn.Sequential(PointwiseConv(inner_dim, dim, bias=False),
                                     ChanLayerNorm(dim))
         self.reconstruct = PatchReconstruct(dim, patch_size) if patch else None
@@ -241,11 +245,12 @@ class MultiHeadAttention(nn.Module):
     (h, d, qkv)."""
 
     def __init__(self, emb_size: int, num_heads: int = 8, dim_head: int = 64,
-                 use_flash: bool = True):
+                 use_flash: bool = True, dropout: float = 0.0):
         super().__init__()
         self.heads, self.dim_head = num_heads, dim_head
         inner = dim_head * num_heads
         self.qkv = Dense(emb_size, inner * 3)
+        self.drop = nn.Dropout(dropout)
         self.projection = Dense(inner, emb_size)
         self.use_flash = use_flash
         self.ops = KERNELS
@@ -258,16 +263,17 @@ class MultiHeadAttention(nn.Module):
         out = scaled_dot_product_attention(q, k, v, d ** -0.5,
                                            use_flash=self.use_flash, ops=self.ops)
         out = out.reshape(b, h, n, d).permute(0, 2, 1, 3).reshape(b, n, h * d)
-        return self.projection(out)
+        return self.projection(self.drop(out))
 
 
 class FeedForwardBlock(nn.Module):
     """ViT feed-forward (reference imagen_pytorch3D.py:774-809): Dense ->
-    Mish -> Dense, or with ``local`` (LocalViT) 1x1 -> Mish -> depthwise
-    separable 3^3 -> Mish -> 1x1 over the ``patch_num^3`` token cube."""
+    Mish -> dropout -> Dense, or with ``local`` (LocalViT) 1x1 -> Mish ->
+    depthwise separable 3^3 -> Mish -> 1x1 -> dropout over the
+    ``patch_num^3`` token cube."""
 
     def __init__(self, emb_size: int, expansion: int = 4, patch_num: int = 4,
-                 local: bool = False):
+                 local: bool = False, drop_p: float = 0.0):
         super().__init__()
         hidden = emb_size * expansion
         self.local = local
@@ -276,10 +282,10 @@ class FeedForwardBlock(nn.Module):
             self.net = nn.Sequential(
                 nn.Sequential(nn.Identity(), PointwiseConv(emb_size, hidden), Mish()),
                 nn.Sequential(DepthwiseSeparableConv(hidden, hidden, 3, 1, 1), Mish()),
-                nn.Sequential(PointwiseConv(hidden, emb_size)),
+                nn.Sequential(PointwiseConv(hidden, emb_size), nn.Dropout(drop_p)),
             )
-        else:  # slot net.2 is the reference's dropout
-            self.net = nn.Sequential(Dense(emb_size, hidden), Mish(), nn.Identity(),
+        else:
+            self.net = nn.Sequential(Dense(emb_size, hidden), Mish(), nn.Dropout(drop_p),
                                      Dense(hidden, emb_size))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -291,14 +297,15 @@ class FeedForwardBlock(nn.Module):
 
 
 class _PreNormResidual(nn.Module):
-    """``x + fn(x)`` with ``fn = Sequential(LayerNorm, module)``."""
+    """``x + dropout(fn(x))`` with ``fn = Sequential(LayerNorm, module)``."""
 
-    def __init__(self, dim: int, module: nn.Module):
+    def __init__(self, dim: int, module: nn.Module, drop_p: float = 0.0):
         super().__init__()
         self.fn = nn.Sequential(LayerNorm(dim), module)
+        self.drop = nn.Dropout(drop_p)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x + self.fn(x)
+        return x + self.drop(self.fn(x))
 
 
 class TransformerEncoderBlock(nn.Module):
@@ -306,12 +313,14 @@ class TransformerEncoderBlock(nn.Module):
     imagen_pytorch3D.py:723-749); ``block.{0,1}.fn.{0,1}``."""
 
     def __init__(self, emb_size: int, num_heads: int = 8, dim_head: int = 64,
-                 forward_expansion: int = 4, patch_num: int = 4, local: bool = True):
+                 forward_expansion: int = 4, patch_num: int = 4, local: bool = True,
+                 drop_p: float = 0.0, forward_drop_p: float = 0.0):
         super().__init__()
         self.block = nn.Sequential(
-            _PreNormResidual(emb_size, MultiHeadAttention(emb_size, num_heads, dim_head)),
+            _PreNormResidual(emb_size, MultiHeadAttention(
+                emb_size, num_heads, dim_head, dropout=drop_p), drop_p),
             _PreNormResidual(emb_size, FeedForwardBlock(
-                emb_size, forward_expansion, patch_num, local)),
+                emb_size, forward_expansion, patch_num, local, forward_drop_p), drop_p),
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -344,13 +353,15 @@ class ViT3D(nn.Module):
 
     def __init__(self, in_channels: int, patch_size: int = 8, num_heads: int = 8,
                  dim_head: int = 64, img_size: int = 96, depth: int = 1,
-                 forward_expansion: int = 2, local: bool = True):
+                 forward_expansion: int = 2, local: bool = True, drop_p: float = 0.1,
+                 forward_drop_p: float = 0.3):
         super().__init__()
         emb = in_channels
         self.patch_num = p = img_size // patch_size
         self.patch_embedding = _PatchEmbedding(in_channels, emb, patch_size, p)
         self.transformer_encoder = _Encoder(
-            TransformerEncoderBlock(emb, num_heads, dim_head, forward_expansion, p, local)
+            TransformerEncoderBlock(emb, num_heads, dim_head, forward_expansion, p, local,
+                                    drop_p, forward_drop_p)
             for _ in range(depth))
         # slot 1 is the reference's token -> cube rearrange
         self.reconstruction = nn.Sequential(

@@ -15,10 +15,16 @@ conv (kernels in ``ops/kernels``); without it the same kernels run with
 group of ``batch_sample_factor^3`` sub-volumes; softmax attention goes
 through the flash-attention kernel.
 
+Training: the attention dropout (``att_drop`` and ``att_forward_drop``
+for ViT3D, a constant 0.05 on the q/k/v inputs of Linear/SoftMax
+attention, as in the JAX modules) acts in ``train()`` mode only, and
+``remat`` recomputes every ResnetBlock in the backward pass
+(``torch.utils.checkpoint``, the JAX ``nn.remat`` of unet3d.py:284-294),
+which launches its kernels a second time.
+
 Not ported yet (raise ``NotImplementedError``): the merged-boundary layout,
-``memory_efficient`` pre-downsampling, the cross-embed stem and the deconv
-upsample. The port is inference only: the attention dropout rates are
-accepted and not applied.
+``memory_efficient`` pre-downsampling, the cross-embed stem, the deconv
+upsample and ``remat_policy='conv'``.
 
 Module and parameter names are the reference ``Unet``'s
 (imagen_pytorch3D.py:1188-1737): ``init_conv``, ``to_time_hiddens.{0,1}``,
@@ -32,6 +38,7 @@ from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from diffusioniqt_tpu_torch.models.attention import AttentionTransformerBlock, ViT3D
 from diffusioniqt_tpu_torch.models.blocks import (
@@ -90,11 +97,14 @@ class UNet3D(nn.Module):
         pixel_shuffle_upsample: bool = True,
         init_conv_kernel_size: int = 3,
         final_conv_kernel_size: int = 1,
+        remat: bool = False,
+        remat_policy: Optional[str] = None,
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         num_layers = len(dim_mults)
-        del att_drop, att_forward_drop  # inference only: no dropout
+        if remat and remat_policy not in (None, "conv"):
+            raise ValueError(f"unknown remat_policy {remat_policy!r}")
         unsupported = {
             "merged_boundary": merged_boundary and boundary and batch_sample,
             "memory_efficient": memory_efficient,
@@ -102,6 +112,7 @@ class UNet3D(nn.Module):
             "the deconv upsample": not pixel_shuffle_upsample,
             "init_conv_kernel_size != 3": init_conv_kernel_size != 3,
             "final_conv_kernel_size != 1": final_conv_kernel_size != 1,
+            "remat_policy 'conv'": remat and remat_policy == "conv",
         }
         missing = [k for k, v in unsupported.items() if v]
         if missing:
@@ -115,6 +126,7 @@ class UNet3D(nn.Module):
         self.batch_sample = batch_sample
         self.batch_sample_factor = batch_sample_factor
         self.dtype = dtype
+        self.remat = remat
         self.skip_scale = 2 ** -0.5 if scale_skip_connection else 1.0
         factor = batch_sample_factor if boundary else 1
         self.factor = factor
@@ -147,7 +159,8 @@ class UNet3D(nn.Module):
                 return ViT3D(d, patch_size=patch, num_heads=heads,
                              dim_head=attn_dim_head, img_size=img, depth=depth,
                              forward_expansion=att_forward_expansion,
-                             local=att_localvit)
+                             local=att_localvit, drop_p=att_drop,
+                             forward_drop_p=att_forward_drop)
             return AttentionTransformerBlock(
                 d, att_type=att_type, depth=depth, heads=heads,
                 dim_head=attn_dim_head, ff_mult=att_forward_expansion,
@@ -225,6 +238,12 @@ class UNet3D(nn.Module):
                 m.ops = ops
         return self
 
+    def _resnet(self, block: nn.Module, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """One ResnetBlock, recomputed in the backward pass under ``remat``."""
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(block, x, t, use_reentrant=False)
+        return block(x, t)
+
     def _attend_merged(self, x: torch.Tensor, attn: nn.Module,
                        residual: bool = True) -> torch.Tensor:
         """Merge each group of f^3 sub-volumes into one volume, attend, split
@@ -268,11 +287,11 @@ class UNet3D(nn.Module):
 
         hiddens = []
         for ind, (_, init_block, attn, blocks, post) in enumerate(self.downs):
-            x = init_block(x, t)
+            x = self._resnet(init_block, x, t)
             if self.attend_enc[ind]:
                 x = self._attend_merged(x, attn)
             for block in blocks:
-                x = block(x, t)
+                x = self._resnet(block, x, t)
             if ind < len(self.downs) - 1:
                 hiddens.append(x)
             x = post(x)
@@ -280,19 +299,19 @@ class UNet3D(nn.Module):
         if self.mid_attn is not None:
             x = self._attend_merged(x, self.mid_attn, residual=False)
         if self.mid_block is not None:
-            x = self.mid_block(x, t)
+            x = self._resnet(self.mid_block, x, t)
 
         for upsample, init_block, blocks in self.ups:
             x = upsample(x)
             if hiddens:
                 skip = hiddens.pop() * self.skip_scale
                 x = torch.cat([x, skip.to(x.dtype)], dim=-1)
-            x = init_block(x, t)
+            x = self._resnet(init_block, x, t)
             for block in blocks:
-                x = block(x, t)
+                x = self._resnet(block, x, t)
 
         if self.final_res_block is not None:
-            x = self.final_res_block(x, t)
+            x = self._resnet(self.final_res_block, x, t)
         return self.final_conv(x.float())
 
 
@@ -346,6 +365,8 @@ def iqt_unet_from_config(cfg, device="cuda") -> UNet3D:
         batch_sample=train.batch_sample,
         batch_sample_factor=train.batch_sample_factor,
         deep_feature=train.deep_feature,
+        remat=train.remat,
+        remat_policy=train.remat_policy,
         dtype=torch.bfloat16 if train.compute_dtype == "bfloat16" else torch.float32,
     )
     return model.to(device)

@@ -111,17 +111,32 @@ def route(cin: int) -> str:
 
 class PackedWeight:
     """Cache of one conv weight in a kernel layout; repacks only when the
-    layout asked for, or the parameter's storage or version counter, changes
-    (an optimizer step or ``load_state_dict`` bumps the version)."""
+    layout asked for, or the parameter's storage or version counter, changes.
+    ``load_state_dict`` and other in-place ops bump the version. Some
+    in-place updates on CUDA do not: the fused Adam and
+    ``torch._foreach_lerp_`` (torch 2.11 on an H100: versions 0 -> 0). Code
+    that updates weights in place must bump their versions itself with
+    ``torch.autograd.graph.increment_version``, as
+    ``train/trainer.py::ImagenTrainer.train_step`` does after its optimizer
+    step and ``train/ema.py::ema_update`` after its lerp; else the kernels
+    run a stale pack.
+    The pack is a plain tensor, made under ``no_grad``: it holds no autograd
+    graph from one step to the next, and the kernels' backward
+    differentiates the weight itself. A copied module (the EMA model is a
+    ``deepcopy``) starts with an empty cache."""
 
     def __init__(self):
         self._key = None
         self._packed = None
 
+    def __deepcopy__(self, memo):
+        return PackedWeight()
+
     def get(self, w: torch.Tensor, pack=pack_weight) -> torch.Tensor:
         key = (pack, w.data_ptr(), w._version, w.device, w.dtype, tuple(w.shape))
         if key != self._key:
-            self._packed = pack(w)
+            with torch.no_grad():
+                self._packed = pack(w)
             self._key = key
         return self._packed
 

@@ -7,7 +7,9 @@ weights into its flax ``UNet3D``, and reference ``.pt`` files load into the
 port with ``load_state_dict``. :func:`state_dict_from_jax_params` is the
 inverse of ``convert_iqt_unet_state_dict`` for the models the port builds:
 it turns a flax ``UNet3D`` parameter tree (numpy arrays, or anything
-``np.asarray`` takes) into a port ``state_dict``.
+``np.asarray`` takes) into a port ``state_dict``. :func:`adam_state_from_optax`
+maps optax Adam's ``mu`` / ``nu`` trees, which have the parameters' names,
+the same way onto ``torch.optim.Adam``'s ``exp_avg`` / ``exp_avg_sq``.
 
 Layout rules (the converter's, reversed): flax conv kernel
 ``(k1, k2, k3, in, out)`` -> torch ``(out, in, k1, k2, k3)``; flax Dense
@@ -194,3 +196,30 @@ def state_dict_from_jax_params(params: Dict[str, Any]) -> Dict[str, torch.Tensor
     if unknown:
         raise KeyError(f"parameter groups the port has no module for: {unknown}")
     return out
+
+
+def _find_adam_state(state):
+    """The ``ScaleByAdamState`` (``count``, ``mu``, ``nu``) inside an optax
+    chain's state, found by its fields so that optax need not be imported."""
+    if all(hasattr(state, f) for f in ("count", "mu", "nu")):
+        return state
+    if isinstance(state, (tuple, list)):
+        for sub in state:
+            found = _find_adam_state(sub)
+            if found is not None:
+                return found
+    return None
+
+
+def adam_state_from_optax(opt_state) -> Dict[str, Dict[str, torch.Tensor]]:
+    """optax Adam state of a flax ``UNet3D`` (the JAX trainer's
+    ``opt_states[i]``) -> per port parameter name, ``torch.optim.Adam``'s
+    state: ``exp_avg`` from ``mu`` and ``exp_avg_sq`` from ``nu``, mapped by
+    the names and layouts of :func:`state_dict_from_jax_params`, and
+    ``step`` from ``count``."""
+    adam = _find_adam_state(opt_state)
+    if adam is None:
+        raise KeyError("no Adam state (count, mu, nu) in the optax state")
+    mu, nu = state_dict_from_jax_params(adam.mu), state_dict_from_jax_params(adam.nu)
+    step = torch.tensor(float(np.asarray(adam.count)))
+    return {k: {"step": step, "exp_avg": mu[k], "exp_avg_sq": nu[k]} for k in mu}

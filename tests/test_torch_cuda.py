@@ -9,6 +9,8 @@ only ``torch`` and the port, so it runs where JAX is not installed:
 (``--noconftest`` skips ``tests/conftest.py``, which sets JAX up.)
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -19,13 +21,23 @@ from diffusioniqt_tpu_torch.diffusion.gaussian import gaussian_noise
 from diffusioniqt_tpu_torch.models.unet3d import NullUnet, UNet3D
 from diffusioniqt_tpu_torch.ops import kernels
 from diffusioniqt_tpu_torch.ops.kernels import fused_block as tfb
+from diffusioniqt_tpu_torch.ops.kernels.conv3d import pack_weight, pack_weight_small
 from diffusioniqt_tpu_torch.ops.stitch_device import DeviceVolumeStitcher, gather_windows
+from diffusioniqt_tpu_torch.train.ema import ema_update
+from diffusioniqt_tpu_torch.train.trainer import ImagenTrainer
 
 pytestmark = pytest.mark.cuda
 
 # |kernel - plain| <= BF16_TOL * max|plain|: both round fp32 sums to bf16
 # (2^-9 relative each) after summing in different orders
 BF16_TOL = 2.0 ** -7
+# gradients through the kernels against the plain path: the same plain VJPs
+# fed by forwards that round to bf16 in other orders. Readings on an H100
+# (torch 2.11) for the attention U-Net's train step below, which vary from
+# run to run: worst tensor 0.999974 (a q projection behind the flash
+# kernel) and 0.999865 (an SE gate's weight) in two runs; the limit leaves
+# about 15x room in 1 - cosine above the worse one.
+GRAD_TENSOR_COS_MIN = 0.998
 
 
 @pytest.fixture
@@ -295,3 +307,114 @@ def test_device_stitcher_on_the_card_matches_host(dev, mode):
         np.testing.assert_array_equal(got, want)
     else:
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+def _small_unet(dev, seed=0, **kw):
+    torch.manual_seed(seed)
+    return UNet3D(dim=16, init_dim=16, dim_mults=(1, 2), num_resnet_blocks=(1, 1),
+                  resnet_groups=4, dtype=torch.bfloat16, **kw).to(dev)
+
+
+def _inputs(dev, n=27, edge=16):
+    g = torch.Generator(device=dev).manual_seed(1)
+    x, lowres = (torch.randn((n, edge, edge, edge, 1), generator=g, device=dev) for _ in range(2))
+    t = torch.full((n,), 0.5, device=dev)
+    return x, lowres, t
+
+
+def _assert_packs_fresh(model):
+    """Every cached pack equals a fresh pack of its weight, and the kernel
+    forward agrees with the plain one."""
+    for m in model.modules():
+        if not hasattr(m, "_packed"):
+            continue
+        assert torch.equal(m._packed._packed, pack_weight(m.project.weight)), m
+    assert torch.equal(model._init_packed._packed, pack_weight_small(model.init_conv.weight))
+
+
+def _kernel_vs_plain(model, x, lowres, t):
+    with torch.no_grad():
+        got = model.use_ops(kernels.KERNELS)(x, t, t, lowres_cond_img=lowres)
+        _assert_packs_fresh(model)
+        want = model.use_ops(kernels.PLAIN)(x, t, t, lowres_cond_img=lowres)
+        model.use_ops(kernels.KERNELS)
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 5e-2
+    return got
+
+
+@pytest.mark.parametrize("impl", ["foreach", "fused", "trainer"])
+def test_no_stale_pack_after_optimizer_ema_and_load(dev, impl):
+    """The packed-weight caches follow an optimizer step (a foreach or a
+    fused Adam step followed by the version bump that
+    ImagenTrainer.train_step makes, or a whole train_step), an EMA lerp and
+    load_state_dict: after each, every cached pack equals a fresh pack of
+    its weight and the kernel forward equals the plain one. The steps are
+    large (lr 0.5) so that a stale pack would show."""
+    model = _small_unet(dev)
+    x, lowres, t = _inputs(dev)
+    before = _kernel_vs_plain(model, x, lowres, t)
+    if impl == "trainer":
+        imagen = ElucidatedImagen([NullUnet(), model], image_sizes=(16, 16), channels=1,
+                                  auto_normalize_img=False, dynamic_thresholding=False,
+                                  norm="z-score", min_bound=-0.72, lowres_noise_aug=False)
+        trainer = ImagenTrainer(None, imagen, lr=0.5, gradient_accumulation_steps=1)
+        trainer.train_step(unet_number=2, batch=(x, lowres))
+    else:
+        params = list(model.parameters())
+        opt = torch.optim.Adam(params, lr=0.5, foreach=impl == "foreach", fused=impl == "fused")
+        model(x, t, t, lowres_cond_img=lowres).square().mean().backward()
+        opt.step()
+        torch.autograd.graph.increment_version(params)
+    after = _kernel_vs_plain(model, x, lowres, t)
+    assert not torch.equal(after, before)
+
+    ema = copy.deepcopy(_small_unet(dev, seed=1)).eval()
+    assert ema._init_packed._packed is None  # a copied module packs anew
+    _kernel_vs_plain(ema, x, lowres, t)
+    assert ema_update(ema, model, step=2, update_after_step=0) > 0
+    _kernel_vs_plain(ema, x, lowres, t)
+
+    model.load_state_dict(_small_unet(dev, seed=2).state_dict())
+    _kernel_vs_plain(model, x, lowres, t)
+
+
+def test_small_attention_unet_train_step_through_the_kernels(dev):
+    """One training step (forward, backward, Adam) of a small softmax
+    attention U-Net through all four kernels against the plain path, with
+    the same dropout draws: exact launch counts, the loss within bf16
+    tolerance, and each parameter's gradient (the attention projections
+    behind the flash kernel's plain backward included) pointing the same
+    way as the plain path's: per-tensor cosine >= GRAD_TENSOR_COS_MIN."""
+    model = _small_unet(dev, img_size=48, att_type="softmax", attn_dim_head=32,
+                        attend_at_enc=(True, True), attend_at_enc_heads=2, deep_feature=True,
+                        attend_at_middle=True, attend_at_middle_heads=2).train()
+    x, lowres, t = _inputs(dev, n=54)
+
+    def step(ops):
+        model.use_ops(ops).zero_grad(set_to_none=True)
+        torch.manual_seed(3)  # the same dropout masks on both paths
+        kernels.reset_launch_counts()
+        loss = model(x, t, t, lowres_cond_img=lowres).float().square().mean()
+        loss.backward()
+        counts = kernels.launch_counts()
+        return loss.item(), {k: p.grad.double() for k, p in model.named_parameters()}, counts
+
+    loss_k, grads_k, counts = step(kernels.KERNELS)
+    loss_p, grads_p, _ = step(kernels.PLAIN)
+    n_res = 2 * 2 + 1 + 2 * 2 + 1
+    assert counts == {"halo": 2 * n_res + 1, "conv3d": 1, "fused_block": 2 * n_res,
+                      "flash_attention": 3}
+    assert abs(loss_k - loss_p) <= 5e-2 * abs(loss_p)
+    cos = {k: float((g.flatten() @ grads_p[k].flatten()) / (g.norm() * grads_p[k].norm()))
+           for k, g in grads_k.items()}
+    worst = sorted(cos.items(), key=lambda kv: kv[1])[:5]
+    print(f"per-tensor gradient cosine, worst {worst}")
+    projections = [k for k in cos if any(f".to_{n}." in k for n in "qkv")]
+    assert len(projections) == 3 * 2 * 3  # q, k, v (two convs each) of 3 flash slots
+    assert min(cos.values()) >= GRAD_TENSOR_COS_MIN, worst
+    assert all(torch.isfinite(g).all() for g in grads_k.values())
+    opt = torch.optim.Adam(model.parameters(), lr=1e-4)
+    model.use_ops(kernels.KERNELS)
+    step(kernels.KERNELS)
+    opt.step()
+    assert all(torch.isfinite(p).all() for p in model.parameters())

@@ -4,6 +4,7 @@ the JAX package's ``VolumeStitcher`` fed the same per-window outputs, and
 the port's host ``VolumeStitcher`` under the EDM sampler, and both
 ``main()``s run end to end with ``--device cpu``."""
 
+import argparse
 import os
 
 import numpy as np
@@ -96,16 +97,73 @@ def test_main_runs_on_cpu(tmp_path):
 
 
 def test_checkpoint_formats_load(tmp_path):
+    """A bare state dict and a model-only bundle load; a bundle without an
+    EMA entry serves its online weights only when asked for them, and
+    refuses otherwise (convert_reference_checkpoint's rule)."""
     cfg = _tiny(load_config("config/eval_config.yaml"))
     sd = infer.build_sampler(cfg, device="cpu", seed=3).unets[1].state_dict()
     bundle = tmp_path / "bundle.pt"
     torch.save({"model": {f"unets.1.{k}": v for k, v in sd.items()}}, bundle)
     raw = tmp_path / "raw.pt"
     torch.save(sd, raw)
-    for path in (bundle, raw):
-        loaded = infer.build_sampler(cfg, device="cpu", seed=0, checkpoint=str(path))
+    for path, use_ema in ((bundle, False), (raw, True)):
+        loaded = infer.build_sampler(cfg, device="cpu", seed=0, checkpoint=str(path),
+                                     use_ema=use_ema)
         for k, v in loaded.unets[1].state_dict().items():
             assert torch.equal(v, sd[k]), k
+    with pytest.raises(KeyError, match="no 'ema' entry"):
+        infer.build_sampler(cfg, device="cpu", checkpoint=str(bundle))
+
+
+def _reference_bundle(tmp_path, cfg):
+    """A trainer bundle in the reference's layout (trainer.py:813-878) whose
+    online and EMA weights differ."""
+    online = infer.build_sampler(cfg, device="cpu", seed=3).unets[1].state_dict()
+    ema = infer.build_sampler(cfg, device="cpu", seed=4).unets[1].state_dict()
+    bundle = {"model": {"unets.0.dummy": torch.zeros(1),
+                        **{f"unets.1.{k}": v for k, v in online.items()}},
+              "ema": {"0.ema_model.dummy": torch.zeros(1), "0.step": torch.tensor(0),
+                      **{f"1.ema_model.{k}": v for k, v in ema.items()},
+                      "1.step": torch.tensor(10)},
+              "steps": torch.tensor([0, 10])}
+    path = tmp_path / "trainer.pt"
+    torch.save(bundle, path)
+    return str(path), online, ema
+
+
+def test_bundle_serves_ema_weights_by_default(tmp_path):
+    """infer / evaluate serve a bundle's EMA weights, and the online ones
+    with --use-non-ema."""
+    cfg_path = _tiny_config_file(tmp_path, "config/eval_edm.yaml")
+    path, online, ema = _reference_bundle(tmp_path, _tiny_edm())
+    assert not torch.equal(online["init_conv.weight"], ema["init_conv.weight"])
+    for flags, want in (([], ema), (["--use-non-ema"], online)):
+        ap = argparse.ArgumentParser()
+        infer.add_serving_args(ap)
+        args = ap.parse_args(["--config", str(cfg_path), "--checkpoint", path,
+                              "--device", "cpu", *flags])
+        _, imagen, _, _ = infer.serve_from_args(args)
+        for k, v in imagen.unets[1].state_dict().items():
+            assert torch.equal(v, want[k]), k
+
+
+def test_fake_subjects_are_test_all_stream():
+    """evaluate --fake-data --fake-volumes N draws the N subjects in turn
+    from one default_rng(0) stream, as test_all.py:90-97 does."""
+    from diffusioniqt_tpu_torch import evaluate
+
+    cfg = load_config("config/eval_edm.yaml")
+    args = argparse.Namespace(fake_data=True, fake_edge=9, fake_volumes=3, seed=0)
+    subjects = evaluate.load_subjects(cfg, args)
+    rng = np.random.default_rng(0)  # the reference loop, verbatim
+    std = cfg.data.std
+    for i, (name, lr, hr) in enumerate(subjects):
+        want_hr = np.abs(rng.standard_normal((9,) * 3)).astype(np.float32) * std
+        want_lr = want_hr + rng.standard_normal(want_hr.shape).astype(np.float32) * 0.1 * std
+        assert name == f"fake{i}"
+        np.testing.assert_array_equal(hr, want_hr)
+        np.testing.assert_array_equal(lr, want_lr)
+    assert len(subjects) == 3
 
 
 def _tiny_edm():

@@ -192,6 +192,7 @@ def test_jax_params_round_trip_at_eval_config_width():
     dict(memory_efficient=True),
     dict(init_cross_embed=True),
     dict(pixel_shuffle_upsample=False),
+    dict(remat=True, remat_policy="conv"),
 ])
 def test_unported_options_raise(kwargs):
     with pytest.raises(NotImplementedError):
