@@ -71,11 +71,26 @@ Phases, each of which raises (and exits non-zero) on failure:
                 call over one window equals, bit for bit, the same call on
                 the trainer's EMA module with the same noise; then the
                 optimizer step + EMA update time
+  quality       the quality gate's code (``diffusioniqt_tpu_torch.quality_run``
+                and ``quality_eval``) at the gate's width and step shape, cut
+                in length only: the EDM flagship (sigma_data 1.0) on two seeded
+                128^3 phantoms, 8 patches of 96^3 per step in 2 microbatches
+                of 108 x 32^3 with remat, 4 steps (launches exactly 2 x (77,
+                1, 76, 0) per step; seconds per step, patches per second,
+                backward share, peak memory); the bundle loaded into a fresh
+                trainer equals the saving one bit for bit (parameters, EMA,
+                Adam moments, steps, generator), one more step on the same
+                batch gives both the same loss; ``quality_eval`` of the bundle
+                over one held-out 128^3 phantom (one 64-step Heun call of 8
+                windows, EMA weights) writes the report's keys
 
 ``python3 chip_smoke.py --profile`` also prints a ``torch.profiler``
 breakdown of one forward of each of the two configs at the serve batch,
 8 x 27 x 32^3 (device time by kernel, device busy share), and of one
-training microbatch's forward and backward (27 x 32^3).
+training microbatch's forward and backward (27 x 32^3). Without it too,
+train-step profiles one microbatch's forward and backward and fails if any
+``indexing_backward`` / ``index_put`` kernel runs: the Block's backward is
+the plain composition, which gathers nothing.
 ``python3 chip_smoke.py --kernels-only`` stops after the kernels phase and
 prints no result line: a copy of this script placed in another checkout of
 the repository times that checkout's kernels the same way.
@@ -95,6 +110,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -181,6 +197,16 @@ REMAT_COUNTS = {"halo": 1 + 2 * 38, "conv3d": 1, "fused_block": 2 * 38, "flash_a
 # (the EMA is applied every 10th), and the synthetic phantoms' edge and count
 TRAIN_PATCHES, TRAIN_ACCUM, TRAIN_STEPS = 4, 4, 10
 PHANTOM_EDGE, PHANTOMS = 128, 2
+# the quality gate's step (QUALITY.md:37-45): 8 patches in 2 microbatches
+# of 108 x 32^3 with remat, EDM sigma_data 1.0; this many steps
+QUALITY_PATCHES, QUALITY_ACCUM, QUALITY_STEPS, QUALITY_SIGMA_DATA = 8, 2, 4, 1.0
+# keys of tools/quality_eval.py's report and of each held-out volume's row
+QUALITY_EVAL_KEYS = {"ckpt", "steps", "stitch", "sampler", "edm_s_churn", "edm_sigma_data",
+                     "volumes", "pred_beats_lr_msssim", "pred_beats_lr_psnr"}
+QUALITY_ROW_KEYS = {"volume", "pred_msssim", "pred_psnr", "lr_msssim", "lr_psnr", "seconds",
+                    "stitch"}
+# device kernels of an accumulating scatter: the backward of a gather
+SCATTER_KERNELS = ("indexing_backward", "index_put")
 # device-kernel names of each hand-written kernel, for the profile's layers
 LAYERS = {"fused_block": ("igemm::conv_sm90<true",),
           "conv3d": ("small_cin_kernel", "igemm::conv_sm90<false"),
@@ -291,6 +317,21 @@ def profile_forward(label: str, fn) -> None:
     print(f"  layer plain torch ops: {other:.3f} ms ({100 * other / busy_ms:.1f}% of busy)")
     for key, ms, count in rows[:25]:
         print(f"  {ms:9.3f} ms {100 * ms / busy_ms:5.1f}% x{count:4d}  {key[:100]}")
+
+
+def scatter_ms(fn):
+    """Device ms of :data:`SCATTER_KERNELS` kernels in one ``fn()``, and
+    the device ms of all its kernels (so that an empty trace shows)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    hits = [(k, ms) for k, ms in rows if any(t in k for t in SCATTER_KERNELS)]
+    return sum(ms for _, ms in hits), sum(ms for _, ms in rows), hits
 
 
 def main() -> int:
@@ -747,6 +788,15 @@ def main() -> int:
         if remat_err > spread or loss_r != loss_k:
             raise AssertionError("train-step: remat changes the gradients beyond the run-to-run "
                                  "spread of the backward")
+        model.zero_grad(set_to_none=True)
+        hit_ms, busy_ms, hits = scatter_ms(
+            lambda: imagen.forward(hr, lowres, unet_number=2, **draws).backward())
+        print(f"  profile of one microbatch's forward + backward: {busy_ms:.3f} device ms, of "
+              f"which {hit_ms:.3f} ms in {SCATTER_KERNELS} kernels {hits}", flush=True)
+        if busy_ms <= 0.0:
+            raise AssertionError("train-step: the profiler recorded no device time")
+        if hits:
+            raise AssertionError("train-step: an accumulating scatter runs in the backward")
         del model, imagen, grads_k, grads_k2, grads_p, grads_r
         torch.cuda.empty_cache()
 
@@ -856,6 +906,136 @@ def main() -> int:
         print(f"optimizer step ms {' '.join(f'{a:.3f}' for a, _ in ms)}; EMA update ms "
               f"{' '.join(f'{b:.3f}' for _, b in ms)} ({n_params} parameters)", flush=True)
 
+    def quality_phase():
+        """The gate's training at its full step shape for QUALITY_STEPS steps,
+        the bundle round trip, one resumed step, quality_eval of the bundle."""
+        from diffusioniqt_tpu_torch import quality_eval, quality_run
+
+        cfg = quality_run.flagship_cfg(elucidated=True, device=dev)
+        cfg.train.edm_sigma_data = QUALITY_SIGMA_DATA
+        pairs = quality_run.training_pairs(PHANTOM_EDGE, PHANTOMS)
+        mean, std = population_stats([lr for _, lr in pairs])
+        cfg.data.mean, cfg.data.std = mean, std
+        cfg.data.mean_hr, cfg.data.std_hr = population_stats([hr for hr, _ in pairs])
+
+        def gate_trainer():
+            trainer = quality_run.build_trainer(cfg, accum=QUALITY_ACCUM, remat=True, device=dev)
+            dataset = SyntheticIQTDataset(cfg, seed=0, samples_per_volume=8, pairs=pairs)
+            trainer.add_train_dataset(dataset, batch_size=QUALITY_PATCHES)
+            return trainer
+
+        trainer = gate_trainer()
+        per_step = {k: QUALITY_ACCUM * n for k, n in REMAT_COUNTS.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_s, total = [], [], {k: 0 for k in per_step}
+        for _ in range(QUALITY_STEPS):
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            losses.append(trainer.train_step(unet_number=2, sync=False))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            counts = kernels.launch_counts()
+            if counts != per_step:
+                raise AssertionError(f"quality: launches per step {counts}, expected {per_step}")
+            total = {k: total[k] + counts[k] for k in total}
+        peak = torch.cuda.max_memory_allocated()
+        losses = [float(v) for v in losses]
+        med = sorted(step_s[1:])[len(step_s[1:]) // 2]
+        print(f"gate step: {QUALITY_PATCHES} patches of 96^3 in {QUALITY_ACCUM} microbatches of "
+              f"{QUALITY_PATCHES * GROUP // QUALITY_ACCUM} x 32^3, remat, sigma_data "
+              f"{cfg.train.edm_sigma_data}, dim={cfg.train.dim}")
+        print(f"gate losses {' '.join(f'{v:.4f}' for v in losses)}; step seconds "
+              f"{' '.join(f'{v:.3f}' for v in step_s)}; s per gate step (median of steps 2-"
+              f"{QUALITY_STEPS}) {med:.4f}, {QUALITY_PATCHES / med:.3f} patches/s of 96^3; peak "
+              f"memory {peak / 2 ** 30:.2f} GiB; launches per step {per_step}", flush=True)
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError("quality: a loss is not finite")
+
+        work = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+        try:
+            ckpt = os.path.join(work, "ckpt.pt")
+            quality_run.write_stats(work, mean, std, PHANTOM_EDGE, PHANTOMS,
+                                    cfg.train.edm_sigma_data)
+            trainer.save(ckpt)
+            fresh = gate_trainer()
+            fresh.load(ckpt)
+
+            def same(a, b):
+                return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+            def adam(trainer):
+                state = trainer.optimizers[1].state_dict()["state"]
+                return {f"{i}.{k}": v for i, st in state.items() for k, v in st.items()}
+
+            checks = {
+                "parameters": same(trainer.imagen.unets[1].state_dict(),
+                                   fresh.imagen.unets[1].state_dict()),
+                "EMA": same(trainer.ema_unets[1].state_dict(), fresh.ema_unets[1].state_dict()),
+                "Adam moments": same(adam(trainer), adam(fresh)),
+                "steps": (trainer.steps, trainer.ema_steps) == (fresh.steps, fresh.ema_steps),
+                "generator": torch.equal(trainer.generator.get_state(),
+                                         fresh.generator.get_state()),
+            }
+            print(f"bundle {os.path.getsize(ckpt) / 2 ** 20:.1f} MiB at step {trainer.steps[1]}; "
+                  f"loaded == saved: {checks}", flush=True)
+            if not all(checks.values()):
+                raise AssertionError(f"quality: the bundle round trip differs: {checks}")
+            batch = next(iter(trainer.train_dl))
+            resumed = []
+            for t in (trainer, fresh):
+                torch.manual_seed(0)
+                resumed.append(t.train_step(unet_number=2, batch=batch))
+            print(f"one more step on the same batch and draws: loss {resumed[0]:.6f} (saving "
+                  f"trainer), {resumed[1]:.6f} (loaded one)", flush=True)
+            if resumed[0] != resumed[1] or not math.isfinite(resumed[0]):
+                raise AssertionError("quality: the resumed trainer's step gives another loss")
+            # the backward's share of one gate microbatch (not counted above)
+            hr, lr = trainer._maybe_batch_sample_split(*trainer._device_batch(batch))
+            mb = hr.shape[0] // QUALITY_ACCUM
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            events[0].record()
+            loss = trainer._loss(1, hr[:mb], lr[:mb], {})
+            events[1].record()
+            loss.backward()
+            events[2].record()
+            torch.cuda.synchronize()
+            fwd, bwd = events[0].elapsed_time(events[1]), events[1].elapsed_time(events[2])
+            print(f"gate microbatch ({mb} x 32^3, remat): forward {fwd:.3f} ms, backward "
+                  f"{bwd:.3f} ms, backward share {bwd / (fwd + bwd):.3f}", flush=True)
+            del trainer, fresh, loss
+            torch.cuda.empty_cache()
+
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            report = quality_eval.main(["--ckpt", ckpt, "--elucidated", "--size",
+                                        str(PHANTOM_EDGE), "--eval-volumes", "1", "--out", work])
+            torch.cuda.synchronize()
+            eval_s = time.perf_counter() - t0
+            evaluated = kernels.launch_counts()
+            with open(os.path.join(work, "quality_eval.json")) as fh:
+                written = json.load(fh)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        forwards = evaluated["conv3d"]
+        rows = report["volumes"]
+        print(f"quality_eval: {eval_s:.1f} s, {forwards} U-Net forwards, launches {evaluated}, "
+              f"sampler {report['sampler']}, sigma_data {report['edm_sigma_data']}, steps "
+              f"{report['steps']}; rows {rows} (untrained: no measure of quality)", flush=True)
+        if not (QUALITY_EVAL_KEYS <= set(written) and len(rows) == 1
+                and set(rows[0]) == QUALITY_ROW_KEYS
+                and all(math.isfinite(rows[0][k]) for k in QUALITY_ROW_KEYS - {"stitch"})):
+            raise AssertionError(f"quality: quality_eval's report is not the schema: {written}")
+        if (report["steps"][1] != QUALITY_STEPS or report["edm_sigma_data"] != QUALITY_SIGMA_DATA
+                or report["sampler"] != "edm-heun-64"):
+            raise AssertionError("quality: quality_eval did not read the bundle and its stats")
+        if forwards % (2 * 64 - 1) or evaluated != {k: forwards * n
+                                                    for k, n in FLAGSHIP_COUNTS.items()}:
+            raise AssertionError(f"quality: quality_eval launches {evaluated} are not whole "
+                                 "64-step Heun calls through the kernels")
+        return total, evaluated
+
     cfg = load_config(os.path.join(ROOT, FLAGSHIP_CONFIG))
     cfg_attn = load_config(os.path.join(ROOT, ATTN_CONFIG))
     cfg_vit = load_config(os.path.join(ROOT, ATTN_CONFIG))
@@ -889,6 +1069,9 @@ def main() -> int:
     phase("train-serve")
     train_serve(trainer, load_config(os.path.join(ROOT, EDM_CONFIG)))
     del trainer
+    torch.cuda.empty_cache()
+    phase("quality")
+    gated, gate_evaluated = quality_phase()
 
     # ------------------------------------------------------------- report
     line = []
@@ -906,7 +1089,8 @@ def main() -> int:
             # sampler for the conv kernels, the attention config for flash
             "launches": (served_attn if name == "flash_attention" else served_edm)[name],
             "launches_by_path": {"serve": served[name], "serve-attn": served_attn[name],
-                                 "serve-edm": served_edm[name], "train": trained[name]},
+                                 "serve-edm": served_edm[name], "train": trained[name],
+                                 "quality": gated[name], "quality-eval": gate_evaluated[name]},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "tolerance": head["tol"],
             "ms": head["ms"], "ms_min": head["ms_min"], "ms_max": head["ms_max"],

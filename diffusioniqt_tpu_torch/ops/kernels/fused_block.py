@@ -30,6 +30,16 @@ memory one brick ahead of two consumer warpgroups, which gather their A
 fragments from the brick by ``ldmatrix`` (a tap is a row shift) and read B
 from the ring. The normalised activation never reaches device memory, and
 the Mish runs beside the products rather than between them.
+
+Autograd sees the Block as one Function over ``(x, norm_scale, norm_bias,
+scale, shift, w)``, as the JAX package puts one ``jax.custom_vjp`` over
+``fused_boundary_block`` (fused_block.py:271-306): the forward runs the
+steps above with autograd off and saves only its inputs; the backward
+differentiates :func:`block_reference_plain`, the JAX ``_reference_impl``
+order of operations, whose halo is the concatenation sweep and whose
+statistics and affine are broadcasts. No gather over the activation (and
+so no accumulating scatter) is on the backward path; the tables and the
+fused kernel are forward only.
 """
 
 from __future__ import annotations
@@ -48,6 +58,7 @@ from diffusioniqt_tpu_torch.ops.kernels.conv3d import (
     gemm_geometry,
     pack_weight,
 )
+from diffusioniqt_tpu_torch.ops.volume import halo_exchange
 
 # encoder, xh, a_tab, b_tab, w, out, B, s, Cin, Cout, BN, stream
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -68,8 +79,18 @@ def group_stats(x: torch.Tensor, groups: int, eps: float = 1e-5):
     sq = xv.float().square().mean(dim=(1, 3))
     var = torch.clamp(sq - mean.square(), min=0.0)
     rstd = torch.rsqrt(var + eps)
-    return (mean.repeat_interleave(cg, dim=-1),
-            rstd.repeat_interleave(cg, dim=-1))
+    # a broadcast, not repeat_interleave: its backward is a sum, not a scatter
+    return (mean[:, :, None].expand(b, groups, cg).reshape(b, c),
+            rstd[:, :, None].expand(b, groups, cg).reshape(b, c))
+
+
+def _per_sample(t: torch.Tensor, b: int) -> torch.Tensor:
+    """A time scale or shift ``(n, 1, 1, 1, C)`` as fp32 ``(b, 1, 1, 1, C)``:
+    a per-group embedding (n dividing b) is broadcast to the b // n
+    sub-volumes of its group, by expand (whose backward is a sum)."""
+    t = t.float().reshape(t.shape[0], 1, 1, 1, 1, -1)
+    n = t.shape[0]
+    return t.expand(n, b // n, 1, 1, 1, t.shape[-1]).reshape(b, 1, 1, 1, -1)
 
 
 def groupnorm_affine(x, norm_scale, norm_bias, groups: int,
@@ -81,12 +102,7 @@ def groupnorm_affine(x, norm_scale, norm_bias, groups: int,
     a = rstd * norm_scale.float()[None, :]
     bb = norm_bias.float()[None, :] - mean * a
     if scale_shift is not None:
-        scale, shift = scale_shift
-        scale = scale.reshape(scale.shape[0], -1).float()
-        shift = shift.reshape(shift.shape[0], -1).float()
-        if scale.shape[0] != b:  # broadcast a per-group embedding
-            scale = scale.repeat_interleave(b // scale.shape[0], dim=0)
-            shift = shift.repeat_interleave(b // shift.shape[0], dim=0)
+        scale, shift = (_per_sample(t, b).reshape(b, -1) for t in scale_shift)
         a = a * (scale + 1.0)
         bb = bb * (scale + 1.0) + shift
     return a, bb
@@ -165,27 +181,19 @@ def _launch(xh, a_tab, b_tab, w, packed):
     return out
 
 
-class _FusedConv(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, xh, a_tab, b_tab, w, packed):
-        ctx.save_for_backward(xh, a_tab, b_tab, w)
-        return _launch(xh, a_tab, b_tab, w, packed)
-
-    @staticmethod
-    def backward(ctx, grad):
-        grads = runtime.plain_vjp(fused_conv_plain, list(ctx.saved_tensors),
-                                  ctx.needs_input_grad[:4], grad)
-        return (*grads, None)
-
-
 def fused_conv(xh, a_tab, b_tab, w, cache: PackedWeight = None) -> torch.Tensor:
     """The fused kernel for a CUDA tensor (bf16 xh, fp32 contiguous tables),
-    the plain version for a CPU tensor."""
+    the plain version for a CPU tensor. The kernel has no backward of its
+    own: differentiate :func:`fused_boundary_block`, whose backward is the
+    plain composition."""
     if xh.device.type == "cpu":
         return fused_conv_plain(xh, a_tab, b_tab, w)
     if xh.device.type != "cuda":
         raise ValueError(f"fused_block kernel: unsupported device {xh.device}")
     name = "fused_block"
+    runtime.require(not (torch.is_grad_enabled() and any(
+        t.requires_grad for t in (xh, a_tab, b_tab, w))), name,
+        "no backward of its own; differentiate fused_boundary_block")
     check_igemm_args(name, xh, w)
     want = (xh.shape[0], 27, xh.shape[4])
     for tab in (a_tab, b_tab):
@@ -195,10 +203,57 @@ def fused_conv(xh, a_tab, b_tab, w, cache: PackedWeight = None) -> torch.Tensor:
                         name, f"tables must be contiguous, 16-byte aligned fp32 {want} "
                         f"on {xh.device}")
     packed = cache.get(w) if cache is not None else pack_weight(w)
-    return _FusedConv.apply(xh, a_tab, b_tab, w, packed)
+    return _launch(xh, a_tab, b_tab, w, packed)
 
 
 fused_conv.launches = 0
+
+
+def block_reference_plain(x, norm_scale, norm_bias, scale, shift, w,
+                          groups: int, factor: int, eps: float = 1e-5) -> torch.Tensor:
+    """The Block in the JAX ``_reference_impl`` order of operations
+    (fused_block.py:252-269), the function whose gradient the Block's
+    backward is: (1) single-pass fp32 GroupNorm statistics
+    (:func:`group_stats`), (2) ``x_norm * norm_scale + norm_bias``, (3) ``*
+    (scale + 1) + shift`` when given, (4) :func:`mish_one_exp`, (5) the
+    halo by the concatenation sweep of ``ops.volume.halo_exchange`` (its
+    backward is slicing), (6) the VALID conv (:func:`conv3d_valid_plain`).
+
+    Precision: steps 1-4 run in fp32, as the fused kernel computes its
+    affine and Mish; the activation is then rounded to ``x.dtype`` (the
+    compute dtype, bf16 on the card), which the halo and the conv run in,
+    as the kernel feeds its tensor cores. At fp32 this is the JAX
+    reference to rounding; in bf16 it differentiates what the kernel ran
+    rather than the JAX non-Pallas Block's bf16 affine."""
+    b, c = x.shape[0], x.shape[-1]
+    mean, rstd = group_stats(x, groups, eps)
+    xn = (x.float() - mean.reshape(b, 1, 1, 1, c)) * rstd.reshape(b, 1, 1, 1, c)
+    xn = xn * norm_scale.float() + norm_bias.float()
+    if scale is not None:
+        xn = xn * (_per_sample(scale, b) + 1.0) + _per_sample(shift, b)
+    act = mish_one_exp(xn).to(x.dtype)
+    return conv3d_valid_plain(halo_exchange(act, factor), w)
+
+
+class _Block(torch.autograd.Function):
+    """The whole Block unit: forward through ``ops`` (kernels or plain
+    versions) with autograd off, backward through
+    :func:`block_reference_plain`; saves only its inputs."""
+
+    @staticmethod
+    def forward(ctx, x, norm_scale, norm_bias, scale, shift, w, groups, factor, cache, ops):
+        ctx.consts = (groups, factor)
+        ctx.save_for_backward(x, norm_scale, norm_bias, scale, shift, w)
+        scale_shift = None if scale is None else (scale, shift)
+        a, bb = groupnorm_affine(x, norm_scale, norm_bias, groups, scale_shift=scale_shift)
+        a_tab, b_tab = neighbor_tables(a, bb, factor)
+        return ops.fused_conv(ops.halo(x, factor), a_tab, b_tab, w, cache)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grads = runtime.plain_vjp(block_reference_plain, list(ctx.saved_tensors),
+                                  ctx.needs_input_grad[:6], grad, *ctx.consts)
+        return (*grads, None, None, None, None)
 
 
 def fused_boundary_block(x, norm_scale, norm_bias, scale_shift, w,
@@ -210,12 +265,10 @@ def fused_boundary_block(x, norm_scale, norm_bias, scale_shift, w,
     of factor^3) in the compute dtype; w ``(Cout, C, 3, 3, 3)``;
     ``scale_shift`` optional ``((B,1,1,1,C), (B,1,1,1,C))``. Returns
     ``(B, s, s, s, Cout)`` in ``x.dtype``. ``ops`` picks the kernels
-    (default) or their plain versions (:data:`..PLAIN`)."""
+    (default) or their plain versions (:data:`..PLAIN`) for the forward;
+    the backward is :func:`block_reference_plain` either way."""
     from diffusioniqt_tpu_torch.ops.kernels import KERNELS
 
-    ops = ops or KERNELS
-    a, bb = groupnorm_affine(x, norm_scale, norm_bias, groups,
-                             scale_shift=scale_shift)
-    a_tab, b_tab = neighbor_tables(a, bb, factor)
-    xh = ops.halo(x, factor)
-    return ops.fused_conv(xh, a_tab, b_tab, w, cache)
+    scale, shift = (None, None) if scale_shift is None else scale_shift
+    return _Block.apply(x, norm_scale, norm_bias, scale, shift, w, groups, factor,
+                        cache, ops or KERNELS)

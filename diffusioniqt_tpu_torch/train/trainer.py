@@ -27,8 +27,8 @@ arguments of the wrapper's ``forward`` per microbatch. Dropout draws from
 torch's default generator.
 
 One device: a mesh, multi-host training and fsspec URLs raise
-``NotImplementedError`` (ROADMAP items 5 and 6), and so do the perceptual
-loss terms ``Train.lpips`` / ``Train.medlpips`` (ROADMAP item 4), which
+``NotImplementedError`` (ROADMAP items 4 and 5), and so do the perceptual
+loss terms ``Train.lpips`` / ``Train.medlpips`` (ROADMAP item 3), which
 must never be left out of a loss silently.
 """
 

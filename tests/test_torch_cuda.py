@@ -38,6 +38,9 @@ BF16_TOL = 2.0 ** -7
 # kernel) and 0.999865 (an SE gate's weight) in two runs; the limit leaves
 # about 15x room in 1 - cosine above the worse one.
 GRAD_TENSOR_COS_MIN = 0.998
+# one Block's gradients, its backward against autograd through the table
+# composition: the same function at fp32, with bf16 roundings at other places
+GRAD_BLOCK_COS_MIN = 0.999
 
 
 @pytest.fixture
@@ -418,3 +421,55 @@ def test_small_attention_unet_train_step_through_the_kernels(dev):
     step(kernels.KERNELS)
     opt.step()
     assert all(torch.isfinite(p).all() for p in model.parameters())
+
+
+def test_block_backward_matches_plain_composition_without_scatter(dev):
+    """One Block at the gate's microbatch, (108, 32^3, 64 -> 64) in bf16,
+    forward through the kernels: its gradients (the backward of the one
+    autograd Function, the JAX ``_reference_impl`` order) against autograd
+    through the independent table composition (GroupNorm affine folded
+    into per-region coefficients, the halo, ``fused_conv_plain``), each
+    tensor's cosine >= GRAD_BLOCK_COS_MIN. Under the profiler the Block's
+    backward runs no scatter kernel; the table composition's does (so the
+    profiler sees one when it runs)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    n, s, c, groups = 108, 32, 64, 8
+    x = torch.randn((n, s, s, s, c), generator=g, device=dev).to(torch.bfloat16)
+    ns = 1.0 + 0.1 * torch.randn(c, generator=g, device=dev)
+    nb = 0.1 * torch.randn(c, generator=g, device=dev)
+    scale, shift = (0.2 * torch.randn((n, 1, 1, 1, c), generator=g, device=dev)
+                    for _ in range(2))
+    w = torch.randn((c, c, 3, 3, 3), generator=g, device=dev) * (27 * c) ** -0.5
+    grad_out = torch.randn((n, s, s, s, c), generator=g, device=dev).to(torch.bfloat16)
+
+    def block(x_, ns_, nb_, sc_, sh_, w_):
+        return tfb.fused_boundary_block(x_, ns_, nb_, (sc_, sh_), w_, groups, 3)
+
+    def tables(x_, ns_, nb_, sc_, sh_, w_):
+        a, b = tfb.groupnorm_affine(x_, ns_, nb_, groups, scale_shift=(sc_, sh_))
+        a_tab, b_tab = tfb.neighbor_tables(a, b, 3)
+        return tfb.fused_conv_plain(kernels.halo_exchange_plain(x_, 3), a_tab, b_tab, w_)
+
+    def grads(fn):
+        leaves = [t.detach().clone().requires_grad_() for t in (x, ns, nb, scale, shift, w)]
+        out = fn(*leaves)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out.backward(grad_out)
+            torch.cuda.synchronize()
+        scatter = sum(e.self_device_time_total for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA
+                      and ("indexing_backward" in e.key or "index_put" in e.key))
+        return [t.grad.double() for t in leaves], scatter
+
+    kernels.reset_launch_counts()
+    got, got_scatter = grads(block)
+    assert kernels.launch_counts() == {"halo": 1, "conv3d": 0, "fused_block": 1,
+                                       "flash_attention": 0}
+    want, want_scatter = grads(tables)
+    assert got_scatter == 0 and want_scatter > 0, (got_scatter, want_scatter)
+    for name, a, b in zip(("x", "norm_scale", "norm_bias", "scale", "shift", "w"), got, want):
+        cos = float((a * b).sum() / (a.norm() * b.norm()))
+        assert cos >= GRAD_BLOCK_COS_MIN, (name, cos)

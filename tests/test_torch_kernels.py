@@ -356,3 +356,95 @@ def test_fused_kernel_tiles_match_plain_and_pallas(_interpret, s, cin, cout):
         np.testing.assert_allclose(conv.numpy(),
                                    tconv.conv3d_valid_plain(xh, _torch_w(w)).numpy(),
                                    rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------- the Block's backward (custom VJP)
+
+@pytest.mark.parametrize("with_scale_shift", [False, True])
+def test_block_gradients_match_jax_custom_vjp(_interpret, with_scale_shift):
+    """The port's Block backward (one autograd Function over the whole unit,
+    its backward the plain composition) against the JAX
+    ``fused_boundary_block`` custom_vjp (the Pallas forward in interpret
+    mode): gradients of x, norm_scale, norm_bias, scale, shift and w within
+    1e-4 of each tensor's largest entry, at fp32."""
+    import jax
+
+    b, s, c, groups = 27, 8, 16, 8
+    x = _rand((b, s, s, s, c), seed=20)
+    ns = 1.0 + _rand((c,), seed=21, scale=0.1)
+    nb = _rand((c,), seed=22, scale=0.1)
+    w = _rand((3, 3, 3, c, c), seed=23, scale=(27 * c) ** -0.5)
+    g = _rand((b, s, s, s, c), seed=24)
+    ss = None
+    if with_scale_shift:
+        ss = (_rand((b, 1, 1, 1, c), seed=25, scale=0.2),
+              _rand((b, 1, 1, 1, c), seed=26, scale=0.2))
+
+    def loss(x_, ns_, nb_, ss_, w_):
+        out = jfb.fused_boundary_block(x_, ns_, nb_, ss_, w_, groups, 3, jnp.float32)
+        return jnp.sum(out * jnp.asarray(g))
+
+    ss_j = None if ss is None else tuple(map(jnp.asarray, ss))
+    want = jax.grad(loss, argnums=(0, 1, 2, 3, 4))(
+        jnp.asarray(x), jnp.asarray(ns), jnp.asarray(nb), ss_j, jnp.asarray(w))
+
+    leaves = [_t(a).requires_grad_() for a in (x, ns, nb)]
+    ss_t = None if ss is None else tuple(_t(a).requires_grad_() for a in ss)
+    wt = _torch_w(w).requires_grad_()
+    out = tfb.fused_boundary_block(*leaves, ss_t, wt, groups=groups, factor=3,
+                                   ops=kernels.PLAIN)
+    (out * _t(g)).sum().backward()
+
+    pairs = [(leaves[0].grad, want[0], "x"), (leaves[1].grad, want[1], "norm_scale"),
+             (leaves[2].grad, want[2], "norm_bias"),
+             (wt.grad.permute(2, 3, 4, 1, 0), want[4], "w")]
+    if ss is not None:
+        pairs += [(ss_t[0].grad, want[3][0], "scale"), (ss_t[1].grad, want[3][1], "shift")]
+    for got, ref, name in pairs:
+        ref = np.asarray(ref)
+        np.testing.assert_allclose(got.detach().numpy(), ref, rtol=1e-4,
+                                   atol=1e-4 * np.abs(ref).max(), err_msg=name)
+
+
+def _aten_ops_of(fn) -> set:
+    """Names of the aten operators ``fn()`` dispatches."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    seen = set()
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            seen.add(func.name())
+            return func(*args, **(kwargs or {}))
+
+    with Record():
+        fn()
+    return seen
+
+
+@pytest.mark.parametrize("with_scale_shift", [False, True])
+def test_block_backward_has_no_gather_or_scatter(with_scale_shift):
+    """No operator of the Block's backward indexes by tensor: neither a
+    gather (``index``, ``index_select``) nor the accumulating scatter
+    (``index_put_``, ``index_add_``) that their backward would be. The
+    scale-shift comes per 27-sub-volume group, as the U-Net's time
+    embedding does, so its broadcast is on the path too."""
+    x, ns, nb, w = _fused_inputs(b=54, s=4, c=8, cout=8)
+    xt = _t(x).requires_grad_()
+    wt = _torch_w(w).requires_grad_()
+    ss = None
+    if with_scale_shift:
+        ss = tuple(_t(_rand((2, 1, 1, 1, 8), seed=k, scale=0.2)).requires_grad_()
+                   for k in (11, 12))
+    out = tfb.fused_boundary_block(xt, _t(ns).requires_grad_(), _t(nb).requires_grad_(),
+                                   ss, wt, groups=4, factor=3)
+    ops = _aten_ops_of(lambda: out.square().sum().backward())
+    assert xt.grad is not None and wt.grad is not None
+    assert "aten::convolution_backward" in ops  # the recorder sees the backward
+    assert not [op for op in ops if "index" in op], sorted(ops)
+    # the recorder sees the scatter where there is one: autograd through the
+    # kernel's coefficient tables, whose gathers the Block's backward avoids
+    a, bb = tfb.groupnorm_affine(xt, _t(ns), _t(nb), 4, scale_shift=ss)
+    a_tab, b_tab = tfb.neighbor_tables(a, bb, 3)
+    tabled = tfb.fused_conv_plain(kernels.halo_exchange_plain(xt, 3), a_tab, b_tab, wt)
+    assert "aten::index_put" in _aten_ops_of(lambda: tabled.square().sum().backward())
