@@ -17,7 +17,10 @@ Phases, each of which raises (and exits non-zero) on failure:
                 timed loop, as the model calls them, and conv3d at both of
                 its routes (small Cin on the path, the implicit GEMM at one
                 wide shape); each fused shape also times cuDNN's conv alone
-                on the already transformed input (conv_only_library_ms)
+                on the already transformed input (conv_only_library_ms);
+                and at factor 1, config/config.yaml's SAME convs on its 27
+                sub-volumes: the halo at C 64 against F.pad (which
+                computes it in one call) and the fused Block at 64->64
   forward       the full-width ``config/eval_config.yaml`` UNet3D (seeded
                 random weights, bf16) on one 27 x 32^3 group, through the
                 kernels and through the plain versions; launches per forward
@@ -83,11 +86,30 @@ Phases, each of which raises (and exits non-zero) on failure:
                 batch gives both the same loss; ``quality_eval`` of the bundle
                 over one held-out 128^3 phantom (one 64-step Heun call of 8
                 windows, EMA weights) writes the report's keys
+  train-base    ``config/config.yaml`` as ``python -m diffusioniqt_tpu_torch.train``
+                reads it (x_start loss, every 3^3 conv a SAME conv: the
+                halo kernel at factor 1), full width, cuDNN's TF32 on as the
+                entry point runs it: one microbatch of 27 independent 32^3
+                patches, its loss and gradients through the kernels against
+                the plain path (remat on there) under train-step's limits,
+                launches exactly 39 / 1 / 38 / 0; then 4 optimizer steps of
+                108 patches of 32^3 in 4 microbatches on two seeded 128^3
+                phantoms (launches exactly 4 x 4 x (39, 1, 38, 0)): seconds
+                per step (median of steps 2-4), patches per second, peak
+                memory, a microbatch's forward and backward
+  train-lpips   the same with ``Train.lpips`` (VGG16-LPIPS over 216 slices of
+                224^2 per microbatch, the fixed-seed proxy), and the term's
+                share of a step against train-base and its forward's ms
+  train-medlpips  the same with ``Train.medlpips`` (MedicalNet ResNet-10)
+  evaluate-lpips  ``evaluate --fake-data --lpips`` of one fake 96^3 subject
+                on the card; its LPIPS equals the CPU's on the same
+                prediction within 1e-4 relative (fp32 convs on both)
 
 ``python3 chip_smoke.py --profile`` also prints a ``torch.profiler``
 breakdown of one forward of each of the two configs at the serve batch,
 8 x 27 x 32^3 (device time by kernel, device busy share), and of one
-training microbatch's forward and backward (27 x 32^3). Without it too,
+training microbatch's forward and backward (27 x 32^3) in the train phase
+and in each of the three config.yaml cells. Without it too,
 train-step profiles one microbatch's forward and backward and fails if any
 ``indexing_backward`` / ``index_put`` kernel runs: the Block's backward is
 the plain composition, which gathers nothing.
@@ -101,7 +123,8 @@ flash attention, with every serve run's and the train run's count beside
 them, max abs error
 against the plain version, times
 in ms at the main path's heaviest shape for that kernel, the bound and what
-sets it); the last line is ``{"ok": true, "device": {...}}``. Imports
+sets it; for the halo and the fused Block also a ``factor1`` row with the
+train-base launches); the last line is ``{"ok": true, "device": {...}}``. Imports
 nothing of JAX or of ``diffusioniqt_tpu``. Exits non-zero without CUDA.
 """
 
@@ -182,7 +205,11 @@ REPLACES = {
 }
 HEADLINE = {"halo": (32, 64), "conv3d": (32, 2, 64), "fused_block": (32, 64, 64),
             "flash_attention": (1728, 64)}
+# factor 1 (config/config.yaml's SAME convs) at its 27-sub-volume microbatch:
+# the halo at the heaviest activation, and the heaviest fused Block
+HALO_F1_SHAPE, FUSED_F1_SHAPE = (32, 64), (32, 64, 64)
 FLAGSHIP_CONFIG = os.path.join("config", "eval_config.yaml")
+TRAIN_CONFIG = os.path.join("config", "config.yaml")
 EDM_CONFIG = os.path.join("config", "eval_edm.yaml")
 ATTN_CONFIG = os.path.join("diffusioniqt_tpu_torch", "configs", "eval_attn_softmax.yaml")
 # launches per forward of one 27-sub-volume group
@@ -200,6 +227,13 @@ PHANTOM_EDGE, PHANTOMS = 128, 2
 # the quality gate's step (QUALITY.md:37-45): 8 patches in 2 microbatches
 # of 108 x 32^3 with remat, EDM sigma_data 1.0; this many steps
 QUALITY_PATCHES, QUALITY_ACCUM, QUALITY_STEPS, QUALITY_SIGMA_DATA = 8, 2, 4, 1.0
+# config/config.yaml's training (x_start, SAME convs, 27 independent 32^3
+# patches per microbatch): patches per optimizer step, microbatches, steps
+BASE_PATCHES, BASE_ACCUM, BASE_STEPS = 4 * GROUP, 4, 4
+# LPIPS of evaluate on the card against the CPU: both run the VGG's convs
+# in fp32 (TF32 off), summed in other orders through 13 convs; the distance
+# is a sum of squared differences of unit-normalised features
+LPIPS_REL_TOL = 1e-4
 # keys of tools/quality_eval.py's report and of each held-out volume's row
 QUALITY_EVAL_KEYS = {"ckpt", "steps", "stitch", "sampler", "edm_s_churn", "edm_sigma_data",
                      "volumes", "pred_beats_lr_msssim", "pred_beats_lr_psnr"}
@@ -350,7 +384,12 @@ def main() -> int:
     from diffusioniqt_tpu_torch.diffusion.elucidated import elucidated_imagen_from_config
     from diffusioniqt_tpu_torch.diffusion.gaussian import gaussian_noise
     from diffusioniqt_tpu_torch.evaluate import evaluate
-    from diffusioniqt_tpu_torch.infer import build_sampler, fake_volumes, infer_volume
+    from diffusioniqt_tpu_torch.infer import (
+        build_sampler,
+        fake_subjects,
+        fake_volumes,
+        infer_volume,
+    )
     from diffusioniqt_tpu_torch.models.unet3d import NullUnet, iqt_unet_from_config
     from diffusioniqt_tpu_torch.train.__main__ import build_trainer
     from diffusioniqt_tpu_torch.train.ema import ema_update
@@ -493,6 +532,50 @@ def main() -> int:
                None, bound_ms(flops, nbytes(xh, a_tab, b_tab, w_bf, got)),
                conv_only_library_ms=timed(lambda: torch.nn.functional.conv3d(act_cf, w_bf)))
         del act_cf, xh, got, want
+
+    # factor 1, the SAME convs of config/config.yaml, at its microbatch of
+    # 27 independent sub-volumes: the halo is zero padding, which one F.pad
+    # call computes; the fused Block's tables hold the sub-volume's own
+    # coefficients only
+    s, c = HALO_F1_SHAPE
+    x = torch.randn((GROUP, s, s, s, c), generator=gen, device=dev).to(torch.bfloat16)
+    got, want = kernels.halo_exchange(x, 1), halo_plain(x, 1)
+    torch.cuda.synchronize()
+    stats = compare("halo factor 1", (GROUP, s, s, s, c), got, want, 0.0)
+    pad = lambda: torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1, 1, 1))  # noqa: E731
+    if not torch.equal(pad(), got):
+        raise AssertionError("halo factor 1: F.pad disagrees with the kernel")
+    record("halo_f1", (GROUP, s, c), stats, timed(lambda: kernels.halo_exchange(x, 1)),
+           cuda_time_ms(lambda: halo_plain(x, 1)), timed(pad), bound_ms(0.0, nbytes(x, got)))
+    del x, got, want
+
+    s, cin, cout = FUSED_F1_SHAPE
+    x = torch.randn((GROUP, s, s, s, cin), generator=gen, device=dev).to(torch.bfloat16)
+    ns = 1.0 + 0.1 * torch.randn(cin, generator=gen, device=dev)
+    nb = 0.1 * torch.randn(cin, generator=gen, device=dev)
+    ss = tuple(0.2 * torch.randn((GROUP, 1, 1, 1, cin), generator=gen, device=dev)
+               for _ in range(2))
+    w = torch.randn((cout, cin, 3, 3, 3), generator=gen, device=dev) * (cin * 27) ** -0.5
+    a, b = groupnorm_affine(x, ns, nb, 8, scale_shift=ss)
+    a_tab, b_tab = neighbor_tables(a, b, 1)
+    xh = kernels.halo_exchange(x, 1)
+    cache = PackedWeight()
+    got = kernels.fused_conv(xh, a_tab, b_tab, w, cache)
+    want = kernels.fused_conv_plain(xh, a_tab, b_tab, w)
+    torch.cuda.synchronize()
+    stats = compare("fused_block factor 1", (GROUP, s, cin, cout), got, want, BF16_TOL)
+    reg = fused_module._region_index(s + 2, dev)
+    act = fused_module.mish_one_exp(a_tab[:, reg] * xh.float() + b_tab[:, reg])
+    act_cf = act.to(torch.bfloat16).permute(0, 4, 1, 2, 3)
+    w_bf = w.to(torch.bfloat16)
+    del act
+    record("fused_block_f1", (GROUP, s, cin, cout), stats,
+           timed(lambda: kernels.fused_conv(xh, a_tab, b_tab, w, cache)),
+           cuda_time_ms(lambda: kernels.fused_conv_plain(xh, a_tab, b_tab, w), iters=3),
+           None, bound_ms(2.0 * GROUP * s ** 3 * 27 * cin * cout,
+                          nbytes(xh, a_tab, b_tab, w_bf, got)),
+           conv_only_library_ms=timed(lambda: torch.nn.functional.conv3d(act_cf, w_bf)))
+    del act_cf, xh, got, want
 
     for bh, n, d in FLASH_SHAPES:
         q, k, v = (torch.randn((bh, n, d), generator=gen, device=dev).to(torch.bfloat16)
@@ -702,10 +785,18 @@ def main() -> int:
 
     def grad_stats(got, want):
         """Per-tensor and whole-gradient cosine similarity and the whole
-        gradient's relative norm difference."""
+        gradient's relative norm difference. Two gradients that are both
+        exactly zero (a squeeze-excite gate whose ReLU is dead for every
+        sample of the microbatch, in both paths) agree: cosine 1; a zero
+        gradient beside a nonzero one has cosine 0."""
         def cos(a, b):
+            if not (a.any() or b.any()):
+                return 1.0
             return float((a * b).sum() / (a.norm() * b.norm()).clamp_min(1e-30))
         per = {k: cos(got[k].double(), want[k].double()) for k in want}
+        dead = sorted(k for k in want if not (got[k].any() or want[k].any()))
+        if dead:
+            print(f"  gradients exactly zero in both paths: {dead}")
         g = torch.cat([got[k].double().flatten() for k in want])
         w = torch.cat([want[k].double().flatten() for k in want])
         return per, cos(g, w), float((g.norm() - w.norm()).abs() / w.norm())
@@ -1036,6 +1127,158 @@ def main() -> int:
                                  "64-step Heun calls through the kernels")
         return total, evaluated
 
+    def base_config(flag, pairs):
+        """``config/config.yaml`` as ``python -m diffusioniqt_tpu_torch.train``
+        reads it, the perceptual term ``flag`` on (None: none), the z-score
+        stats of the phantoms."""
+        cfg = load_config(os.path.join(ROOT, TRAIN_CONFIG))
+        if flag is not None:
+            setattr(cfg.train, flag, True)
+        cfg.data.mean, cfg.data.std = population_stats([lr for _, lr in pairs])
+        return cfg
+
+    def train_cell(flag, pairs, base=None):
+        """``config/config.yaml``'s trainer with the perceptual term ``flag``:
+        one 27 x 32^3 microbatch's loss and gradients through the kernels
+        against the plain path (remat on, for its memory), launches exactly
+        FLAGSHIP_COUNTS; then BASE_STEPS optimizer steps of BASE_PATCHES 32^3
+        patches in BASE_ACCUM microbatches on the phantoms, launches exactly
+        BASE_STEPS x BASE_ACCUM x FLAGSHIP_COUNTS; s per step, patches/s, peak
+        memory, a microbatch's forward / backward and the term's forward
+        (CUDA events). ``base``: train-base's result, for the term's share."""
+        cfg = base_config(flag, pairs)
+        trainer = build_trainer(cfg, dev)
+        imagen, model = trainer.imagen, trainer.imagen.unets[1]
+        term = imagen.lpips_fn
+        if (term is None) != (flag is None):
+            raise AssertionError(f"{flag}: the config's perceptual term was not built")
+        hr = torch.randn((GROUP, SUB, SUB, SUB, 1), generator=gen, device=dev)
+        lowres = hr + 0.1 * torch.randn((GROUP, SUB, SUB, SUB, 1), generator=gen, device=dev)
+        draws = {"times": torch.rand((GROUP,), generator=gen, device=dev),
+                 "noise": torch.randn((GROUP, SUB, SUB, SUB, 1), generator=gen, device=dev)}
+
+        def run(ops, remat=False):
+            model.use_ops(ops)
+            model.remat = remat
+            model.train().zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            loss = imagen.forward(hr, lowres, unet_number=2, **draws)[0]
+            loss.backward()
+            torch.cuda.synchronize()
+            return (loss.item(), {k: p.grad.detach().clone() for k, p in model.named_parameters()},
+                    kernels.launch_counts())
+
+        loss_k, grads_k, counts = run(kernels.KERNELS)
+        loss_p, grads_p, _ = run(kernels.PLAIN, remat=True)
+        model.use_ops(kernels.KERNELS)
+        model.remat = False
+        model.zero_grad(set_to_none=True)
+        rel = abs(loss_k - loss_p) / abs(loss_p)
+        per, cos_all, norm_rel = grad_stats(grads_k, grads_p)
+        worst = sorted(per.items(), key=lambda kv: kv[1])[:3]
+        del grads_k, grads_p
+        print(f"microbatch 27 x 32^3 (x_start, SAME convs, term {flag}): loss kernels "
+              f"{loss_k:.6f} plain {loss_p:.6f} (rel {rel:.3e}, tol {FORWARD_REL_TOL}); "
+              f"launches {counts}; gradients: whole cos {cos_all:.6f} (min "
+              f"{GRAD_GLOBAL_COS_MIN}), norm rel {norm_rel:.3e} (tol {GRAD_GLOBAL_NORM_REL_TOL}), "
+              f"per-tensor cos min {worst[0][1]:.5f} (min {GRAD_TENSOR_COS_MIN}), worst "
+              f"{[(k, round(c, 5)) for k, c in worst]}", flush=True)
+        if counts != FLAGSHIP_COUNTS:
+            raise AssertionError(f"{flag}: launches per microbatch {counts}, expected "
+                                 f"{FLAGSHIP_COUNTS}")
+        if not (math.isfinite(loss_k) and rel <= FORWARD_REL_TOL):
+            raise AssertionError(f"{flag}: the loss through the kernels disagrees with the plain path")
+        if (cos_all < GRAD_GLOBAL_COS_MIN or norm_rel > GRAD_GLOBAL_NORM_REL_TOL
+                or worst[0][1] < GRAD_TENSOR_COS_MIN):
+            raise AssertionError(f"{flag}: gradients through the kernels disagree with the plain path")
+        torch.cuda.empty_cache()
+
+        dataset = SyntheticIQTDataset(cfg, seed=0, samples_per_volume=BASE_PATCHES // len(pairs),
+                                      pairs=pairs)
+        trainer.add_train_dataset(dataset, batch_size=BASE_PATCHES)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        losses, step_s = [], []
+        for _ in range(BASE_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(trainer.train_step(unet_number=2, sync=False))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        losses = [float(v) for v in losses]
+        want = {k: BASE_STEPS * BASE_ACCUM * n for k, n in FLAGSHIP_COUNTS.items()}
+        med = sorted(step_s[1:])[len(step_s[1:]) // 2]
+        # one more microbatch, for the split of its time (not counted above)
+        hr, lowres = trainer._device_batch(next(iter(trainer.train_dl)))
+        hr, lowres = hr[:GROUP], lowres[:GROUP]
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        term_ms = (slots_ms(lambda: trainer._loss(1, hr, lowres, {}), [term])
+                   if term is not None else 0.0)
+        events[0].record()
+        loss = trainer._loss(1, hr, lowres, {})
+        events[1].record()
+        loss.backward()
+        events[2].record()
+        torch.cuda.synchronize()
+        fwd, bwd = events[0].elapsed_time(events[1]), events[1].elapsed_time(events[2])
+        model.zero_grad(set_to_none=True)
+        if "--profile" in sys.argv[1:]:
+            profile_forward(f"config.yaml microbatch, term {flag} (forward + backward)",
+                            lambda: trainer._loss(1, hr, lowres, {}).backward())
+            model.zero_grad(set_to_none=True)
+        share = "" if base is None else (
+            f"; the term's share of a step {(med - base['s_per_step']) / med:.3f} (against "
+            f"train-base's {base['s_per_step']:.4f} s)")
+        print(f"{BASE_STEPS} steps of {BASE_PATCHES} patches of 32^3 in {BASE_ACCUM} "
+              f"microbatches: losses {' '.join(f'{v:.4f}' for v in losses)}; step seconds "
+              f"{' '.join(f'{v:.3f}' for v in step_s)}; median of steps 2-{BASE_STEPS} "
+              f"{med:.4f} s, {BASE_PATCHES / med:.2f} patches/s; peak memory "
+              f"{peak / 2 ** 30:.2f} GiB; launches {counts}{share}")
+        print(f"microbatch (27 x 32^3): forward {fwd:.3f} ms (the term's forward {term_ms:.3f} "
+              f"ms), backward {bwd:.3f} ms, backward share {bwd / (fwd + bwd):.3f}", flush=True)
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"{flag}: a loss is not finite")
+        if counts != want:
+            raise AssertionError(f"{flag}: launches {counts} over the steps, expected {want}")
+        del trainer, imagen, model, term, loss
+        torch.cuda.empty_cache()
+        return {"s_per_step": med, "launches": counts}
+
+    def evaluate_lpips():
+        """``evaluate --fake-data --lpips`` of one fake 96^3 subject (one
+        window, one 64-step Heun call) on the card; its LPIPS against the
+        CPU's on the same prediction and ground truth."""
+        from diffusioniqt_tpu_torch import evaluate as evaluate_module
+        from diffusioniqt_tpu_torch.metrics.lpips import LPIPS, lpips_volume_metric
+
+        work = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+        try:
+            t0 = time.perf_counter()
+            res = evaluate_module.main(["--config", os.path.join(ROOT, EDM_CONFIG),
+                                        "--fake-data", "--fake-edge", "96", "--lpips",
+                                        "--output-dir", work])
+            eval_s = time.perf_counter() - t0
+            pred = np.load(os.path.join(work, "fake0_inf.npy"))
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        cfg = load_config(os.path.join(ROOT, EDM_CONFIG))
+        _, highres = fake_subjects(cfg, 96, 1, seed=0)[0]
+        b = res["border"]
+        gt = ((highres - cfg.data.mean) / cfg.data.std)[b:-b, b:-b, b:-b]
+        on_cpu = lpips_volume_metric(gt, pred[b:-b, b:-b, b:-b], LPIPS())
+        on_card = res["lpips"][0]
+        rel = abs(on_card - on_cpu) / abs(on_cpu)
+        print(f"evaluate --lpips (1 fake 96^3 subject, border {b}): {eval_s:.1f} s; LPIPS"
+              f"(random-features) on the card {on_card:.7f}, on the CPU {on_cpu:.7f}, rel "
+              f"{rel:.3e} (tol {LPIPS_REL_TOL}); msssim {res['msssim'][0]:.4f} psnr "
+              f"{res['psnr'][0]:.3f} (random weights: no measure of quality)", flush=True)
+        if not (math.isfinite(on_card) and rel <= LPIPS_REL_TOL):
+            raise AssertionError("evaluate-lpips: the card's LPIPS disagrees with the CPU's")
+
     cfg = load_config(os.path.join(ROOT, FLAGSHIP_CONFIG))
     cfg_attn = load_config(os.path.join(ROOT, ATTN_CONFIG))
     cfg_vit = load_config(os.path.join(ROOT, ATTN_CONFIG))
@@ -1072,6 +1315,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase("quality")
     gated, gate_evaluated = quality_phase()
+    # config/config.yaml's training, with the cuDNN TF32 setting the
+    # training entry point runs with (torch's default; the kernel checks
+    # above hold fp32 references with it off)
+    torch.backends.cudnn.allow_tf32 = True
+    pairs = [generate_pair(PHANTOM_EDGE, seed=i) for i in range(PHANTOMS)]
+    phase("train-base")
+    cells = {"train-base": train_cell(None, pairs)}
+    phase("train-lpips")
+    cells["train-lpips"] = train_cell("lpips", pairs, base=cells["train-base"])
+    phase("train-medlpips")
+    cells["train-medlpips"] = train_cell("medlpips", pairs, base=cells["train-base"])
+    torch.backends.cudnn.allow_tf32 = False
+    phase("evaluate-lpips")
+    evaluate_lpips()
 
     # ------------------------------------------------------------- report
     line = []
@@ -1081,6 +1338,16 @@ def main() -> int:
         extra = {k: head[k] for k in ("kernel_route", "conv_only_library_ms",
                                       "conv_only_library_ms_min", "conv_only_library_ms_max")
                  if k in head}
+        f1 = results.get(f"{name}_f1")
+        if f1:  # the factor-1 row: config/config.yaml's SAME convs
+            extra["factor1"] = {
+                k: f1[0][k] for k in ("shape", "max_abs_err", "ms", "ms_min", "ms_max",
+                                      "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                      "library_ms_min", "library_ms_max",
+                                      "conv_only_library_ms") if k in f1[0]}
+            extra["factor1"]["launches_train_base"] = cells["train-base"]["launches"][name]
+            extra["factor1"]["library"] = ("F.pad (zero padding)" if name == "halo"
+                                           else LIBRARY[name])
         line.append({
             "name": name, "route": "cuda",
             "source": f"diffusioniqt_tpu_torch/csrc/{name}.cu",
@@ -1090,7 +1357,8 @@ def main() -> int:
             "launches": (served_attn if name == "flash_attention" else served_edm)[name],
             "launches_by_path": {"serve": served[name], "serve-attn": served_attn[name],
                                  "serve-edm": served_edm[name], "train": trained[name],
-                                 "quality": gated[name], "quality-eval": gate_evaluated[name]},
+                                 "quality": gated[name], "quality-eval": gate_evaluated[name],
+                                 **{k: c["launches"][name] for k, c in cells.items()}},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "tolerance": head["tol"],
             "ms": head["ms"], "ms_min": head["ms_min"], "ms_max": head["ms_max"],

@@ -6,6 +6,8 @@ imagen_pytorch3D.py:222-357, after @crowsonkb's v-diffusion).
   log_snr(t)         — noise schedule, cosine or linear
   alpha, sigma       — sqrt(sigmoid(+/- log_snr))
   sample_random_times — uniform training times from a ``torch.Generator``
+  get_sampling_timesteps[_non_uniform] — the sampler's (t, t_next) pairs,
+                       uniform or exponentially weighted towards t = 0
   q_sample           — diffuse x0 to time t (the training loss, the EDM
                        lowres noise aug)
   q_posterior        — DDPM ancestral posterior, continuous-time form
@@ -18,6 +20,7 @@ import math
 from dataclasses import dataclass
 from typing import Tuple
 
+import numpy as np
 import torch
 
 
@@ -91,6 +94,28 @@ class GaussianDiffusionContinuousTimes:
         t_cur = times[:-1, None].expand(self.timesteps, batch)
         t_next = times[1:, None].expand(self.timesteps, batch)
         return t_cur, t_next
+
+    def get_sampling_timesteps_non_uniform(self, batch: int, device="cpu", seed: int = 0,
+                                           gamma: float = 10.0, large_timesteps: int = 10000
+                                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Exponentially weighted non-uniform sampling times (reference
+        :268-288; JAX schedules.py:105-125): ``timesteps`` distinct times of
+        a ``large_timesteps`` grid, drawn on the host by
+        ``numpy.random.default_rng(seed)`` with probability proportional to
+        ``exp(-gamma * t)``, 1.0 and 0.0 always included, in descending
+        order; the same fencepost pairs, ``(T', batch)`` each."""
+        rng = np.random.default_rng(seed)
+        times = np.linspace(1.0, 0.0, large_timesteps)
+        probs = np.exp(-gamma * times).astype(np.float64)
+        probs /= probs.sum()
+        ts = rng.choice(times, self.timesteps, p=probs, replace=False)
+        if 1.0 not in ts:
+            ts = np.concatenate([ts, [1.0]])
+        if 0.0 not in ts:
+            ts = np.concatenate([ts, [0.0]])
+        ts = torch.tensor(np.sort(ts)[::-1].copy(), dtype=torch.float32, device=device)
+        n = ts.shape[0] - 1
+        return ts[:-1, None].expand(n, batch), ts[1:, None].expand(n, batch)
 
     def q_sample(self, x_start, t, noise):
         """Diffuse x0 to time ``t``: ``(x_t, log_snr, alpha, sigma)``

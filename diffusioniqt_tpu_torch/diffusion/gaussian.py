@@ -5,14 +5,17 @@ imagen_pytorch3D.py:1741-2443).
   * ``p_mean_variance`` with the noise / x_start / v objectives, dynamic
     thresholding and the z-score ``min_bound`` clamp (:1976-2030)
   * ancestral ``p_sample`` / ``p_sample_loop`` (:2032-2160) as a Python
-    loop over the steps
+    loop over the steps, on the uniform time grid or, with
+    ``non_uniform_times``, the exponentially weighted one (JAX
+    gaussian.py:322-327)
   * cascade ``sample`` with ``start_at_unet_number`` (:2162-2274): the IQT
     entry points sample unet 2 over a ``NullUnet`` first stage, starting
     from the lowres patches
   * the training loss ``p_losses`` (:2276-2387) with the three objectives,
-    the x_start ``min_bound`` clamp, p2 weighting and the loss table, and
-    ``forward`` (:2389-2443), which draws the diffusion times (one shared
-    by the whole microbatch under ``batch_sample``)
+    the x_start ``min_bound`` clamp, p2 weighting, the loss table and the
+    optional perceptual term ``0.1 * lpips_fn(pred, target)`` (:2372-2385),
+    and ``forward`` (:2389-2443), which draws the diffusion times (one
+    shared by the whole microbatch under ``batch_sample``)
 
 Randomness is injected: every sampler takes ``noise(shape) -> tensor``, so
 a test can feed the JAX loop and this one the same numpy noise (the JAX
@@ -30,6 +33,11 @@ import torch
 from diffusioniqt_tpu_torch.core.schedules import (
     GaussianDiffusionContinuousTimes,
     right_pad_dims_to,
+)
+from diffusioniqt_tpu_torch.metrics.lpips import make_lpips_fn
+from diffusioniqt_tpu_torch.metrics.medicalnet import (
+    MedicalNetPerceptual,
+    medicalnet_perceptual_from_checkpoint,
 )
 from diffusioniqt_tpu_torch.utils.misc import cast_tuple, pad_tuple_to_length
 
@@ -104,10 +112,19 @@ class Imagen:
         batch_sample: bool = False,
         loss_type: str = "l2",
         p2_loss_weight_gamma: Union[float, Sequence[float]] = 0.5,
+        lpips_fn: Optional[Callable[[torch.Tensor, torch.Tensor], torch.Tensor]] = None,
+        non_uniform_times: bool = False,
+        non_uniform_gamma: float = 10.0,
     ):
         unets = list(unets) if isinstance(unets, (list, tuple)) else [unets]
         num_unets = len(unets)
         self.channels = channels
+        # the perceptual loss term (metrics/lpips.py::make_lpips_fn or
+        # metrics/medicalnet.py::MedicalNetPerceptual): a frozen network
+        # outside the unets, so outside their optimizer, EMA and bundles
+        self.lpips_fn = lpips_fn
+        self.non_uniform_times = non_uniform_times
+        self.non_uniform_gamma = non_uniform_gamma
         self.norm = norm
         self.min_bound = float(min_bound)
         self.batch_sample = batch_sample
@@ -187,7 +204,11 @@ class Imagen:
         """Full ancestral sampling from pure noise (reference :2058-2160)."""
         batch = shape[0]
         img = noise(tuple(shape))
-        t_cur, t_next = noise_scheduler.get_sampling_timesteps(batch, img.device)
+        if self.non_uniform_times:
+            t_cur, t_next = noise_scheduler.get_sampling_timesteps_non_uniform(
+                batch, img.device, gamma=self.non_uniform_gamma)
+        else:
+            t_cur, t_next = noise_scheduler.get_sampling_timesteps(batch, img.device)
         for i in range(t_cur.shape[0]):
             img, _ = self.p_sample(
                 unet, img, t_cur[i], noise=noise,
@@ -247,7 +268,10 @@ class Imagen:
         conditioning is not noised (reference :2303-2304), and an x_start
         prediction is clamped at ``min_bound`` before the loss
         (:2361-2362). The p2 weight is ``(1 + exp(log_snr)) ** -gamma`` (the
-        JAX default ``p2_loss_weight_k`` 1, which no caller changes)."""
+        JAX default ``p2_loss_weight_k`` 1, which no caller changes). With
+        ``lpips_fn`` the loss gains ``0.1 * lpips_fn(pred, target)`` on the
+        clamped prediction (JAX gaussian.py:561-562); the term computes the
+        target's features without a graph."""
         if noise is None:
             noise = standard_normal(x_start.shape, generator)
         x_noisy, log_snr, alpha, sigma = noise_scheduler.q_sample(x_start, times, noise)
@@ -266,7 +290,10 @@ class Imagen:
         losses = losses.reshape(losses.shape[0], -1).mean(dim=-1)
         if p2_loss_weight_gamma > 0:
             losses = losses * (1.0 + torch.exp(log_snr)) ** -p2_loss_weight_gamma
-        return losses.mean(), pred, x_noisy, lowres_cond_img
+        loss = losses.mean()
+        if self.lpips_fn is not None:
+            loss = loss + 0.1 * self.lpips_fn(pred, target)
+        return loss, pred, x_noisy, lowres_cond_img
 
     def forward(self, images, lowres_img=None, *, unet_number: Optional[int] = None,
                 generator: Optional[torch.Generator] = None, times=None, noise=None):
@@ -297,18 +324,35 @@ class Imagen:
             p2_loss_weight_gamma=self.p2_loss_weight_gamma[index])
 
 
+def perceptual_loss_from_config(cfg, device="cpu"):
+    """The perceptual loss term that ``Train.medlpips`` / ``Train.lpips``
+    ask for (JAX gaussian.py:629-647), on ``device``, or None: MedicalNet
+    wins over VGG-LPIPS, and each reads its weights file when the config
+    names one (``Train.medlpips_weights`` / ``Train.lpips_weights``), else
+    builds its fixed-seed proxy."""
+    if getattr(cfg.train, "medlpips", False):
+        weights = getattr(cfg.train, "medlpips_weights", "") or None
+        term = (medicalnet_perceptual_from_checkpoint(weights) if weights
+                else MedicalNetPerceptual())
+        return term.to(device)
+    if getattr(cfg.train, "lpips", False):
+        return make_lpips_fn(weights_path=getattr(cfg.train, "lpips_weights", "") or None,
+                             device=device)
+    return None
+
+
 def imagen_from_config(cfg, unets) -> Imagen:
     """The Imagen wrapper as the reference entry scripts build it
-    (reference train.py:118-133 / test.py:110-125): no p2 weighting (and
-    no conditioning dropout, which the IQT U-Net ignores). The perceptual
-    loss terms are the trainer's concern (``train/trainer.py`` refuses
-    them). Refuses a ``Train.elucidated`` config, whose wrapper is
-    ``diffusion/elucidated.py::elucidated_imagen_from_config``."""
+    (reference train.py:118-133 / test.py:110-125; JAX gaussian.py:624-659):
+    no p2 weighting (and no conditioning dropout, which the IQT U-Net
+    ignores), the perceptual loss term of :func:`perceptual_loss_from_config`
+    on the last unet's device, and the non-uniform sampling times of
+    ``Train.non_uniform_sampling``. Refuses a ``Train.elucidated`` config,
+    whose wrapper is ``diffusion/elucidated.py::elucidated_imagen_from_config``."""
     if cfg.train.elucidated:
         raise ValueError("the config sets Train.elucidated: build the EDM sampler "
                          "with elucidated_imagen_from_config")
-    if getattr(cfg.train, "non_uniform_sampling", False):
-        raise NotImplementedError("non-uniform sampling times are not ported yet")
+    device = next(unets[-1].parameters()).device
     return Imagen(
         unets,
         image_sizes=(cfg.train.patch_size_sub, cfg.train.patch_size_sub),
@@ -320,4 +364,7 @@ def imagen_from_config(cfg, unets) -> Imagen:
         norm=cfg.data.norm,
         batch_sample=cfg.train.batch_sample,
         p2_loss_weight_gamma=0.0,
+        lpips_fn=perceptual_loss_from_config(cfg, device),
+        non_uniform_times=getattr(cfg.train, "non_uniform_sampling", False),
+        non_uniform_gamma=getattr(cfg.train, "non_uniform_gamma", 10.0),
     )

@@ -26,10 +26,15 @@ Randomness: the diffusion times, sigmas and noise come from the trainer's
 arguments of the wrapper's ``forward`` per microbatch. Dropout draws from
 torch's default generator.
 
+The perceptual loss terms ``Train.lpips`` / ``Train.medlpips`` belong to
+the Gaussian wrapper (``diffusion/gaussian.py::imagen_from_config`` builds
+them): frozen networks outside the unets, so outside the optimizer, the
+EMA and the bundle. The EDM loss has no such term (nor has the JAX
+package's), so an EDM config that sets one is refused rather than trained
+without it.
+
 One device: a mesh, multi-host training and fsspec URLs raise
-``NotImplementedError`` (ROADMAP items 4 and 5), and so do the perceptual
-loss terms ``Train.lpips`` / ``Train.medlpips`` (ROADMAP item 3), which
-must never be left out of a loss silently.
+``NotImplementedError`` (not ported yet).
 """
 
 from __future__ import annotations
@@ -123,10 +128,10 @@ class ImagenTrainer:
             raise TypeError("an Imagen or ElucidatedImagen instance is required")
         if mesh is not None:
             raise NotImplementedError("the mesh (data-parallel) trainer is not ported yet")
-        if configs is not None and (configs.train.lpips or configs.train.medlpips):
-            raise NotImplementedError(
-                "Train.lpips / Train.medlpips: the perceptual loss terms need "
-                "metrics/lpips.py and metrics/medicalnet.py, which are not ported yet")
+        if (configs is not None and isinstance(imagen, ElucidatedImagen)
+                and (configs.train.lpips or configs.train.medlpips)):
+            raise ValueError("Train.lpips / Train.medlpips: the EDM loss has no perceptual "
+                             "term; they train with the Gaussian wrapper only")
         if checkpoint_path is not None and re.match(r"^[a-z0-9]+://", checkpoint_path):
             raise NotImplementedError("fsspec checkpoint URLs are not ported yet")
         if (checkpoint_path is None) != (checkpoint_every is None):

@@ -11,8 +11,16 @@ it turns a flax ``UNet3D`` parameter tree (numpy arrays, or anything
 maps optax Adam's ``mu`` / ``nu`` trees, which have the parameters' names,
 the same way onto ``torch.optim.Adam``'s ``exp_avg`` / ``exp_avg_sq``.
 
+The perceptual networks (``metrics/``) have no reference checkpoint of
+their own layout in the repository: :func:`vgg16_state_dict_from_jax`,
+:func:`lin_heads_from_jax`, :func:`resnet10_features_state_dict_from_jax`
+and :func:`medicalnet_state_dict_from_jax` carry the JAX package's
+parameters (its proxies' fixed-seed draws, or weights it loaded) into the
+port's modules, so that both packages compute the same thing. The port's
+own proxies draw their own init and do not give the JAX proxies' numbers.
+
 Layout rules (the converter's, reversed): flax conv kernel
-``(k1, k2, k3, in, out)`` -> torch ``(out, in, k1, k2, k3)``; flax Dense
+``(k1, .., kn, in, out)`` -> torch ``(out, in, k1, .., kn)``; flax Dense
 kernel ``(in, out)`` -> torch Linear ``(out, in)``; flax LayerNorm
 ``scale``/``bias`` -> ``weight``/``bias``; ChanLayerNorm ``g`` as is.
 
@@ -38,7 +46,9 @@ def _t(a) -> torch.Tensor:
 
 
 def _conv(p: Dict[str, Any], key: str, out: Dict[str, torch.Tensor]) -> None:
-    out[f"{key}.weight"] = _t(np.asarray(p["kernel"]).transpose(4, 3, 0, 1, 2))
+    kernel = np.asarray(p["kernel"])
+    nd = kernel.ndim - 2
+    out[f"{key}.weight"] = _t(kernel.transpose(nd + 1, nd, *range(nd)))
     if "bias" in p:
         out[f"{key}.bias"] = _t(p["bias"])
 
@@ -223,3 +233,65 @@ def adam_state_from_optax(opt_state) -> Dict[str, Dict[str, torch.Tensor]]:
     mu, nu = state_dict_from_jax_params(adam.mu), state_dict_from_jax_params(adam.nu)
     step = torch.tensor(float(np.asarray(adam.count)))
     return {k: {"step": step, "exp_avg": mu[k], "exp_avg_sq": nu[k]} for k in mu}
+
+
+# ---------------------------------------------------------------------------
+# perceptual networks (metrics/lpips.py, perceptual.py, medicalnet.py)
+# ---------------------------------------------------------------------------
+
+def vgg16_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax ``VGG16Features`` variables (convs ``conv{block}_{i}``) -> port
+    ``VGG16Features`` state dict (torchvision's ``features.{idx}`` keys)."""
+    from diffusioniqt_tpu_torch.metrics.lpips import _TV_CONV_IDX
+
+    p = params.get("params", params)
+    out: Dict[str, torch.Tensor] = {}
+    for bi, idxs in enumerate(_TV_CONV_IDX):
+        for ci, idx in enumerate(idxs):
+            _conv(p[f"conv{bi}_{ci}"], f"features.{idx}", out)
+    return out
+
+
+def lin_heads_from_jax(lin_weights) -> list:
+    """The JAX ``LPIPS.lin_weights`` (five (C,) arrays) as fp32 tensors."""
+    return [_t(np.asarray(w).reshape(-1)) for w in lin_weights]
+
+
+def resnet10_features_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax ``ResNet10Features`` variables (``Conv_0``, ``GroupNorm_0``,
+    ``_BasicBlock3D_{i}``) -> port ``ResNet10Features`` state dict."""
+    p = params.get("params", params)
+    out: Dict[str, torch.Tensor] = {}
+    _conv(p["Conv_0"], "stem", out)
+    _layer_norm(p["GroupNorm_0"], "stem_norm", out)
+    for i in range(4):
+        blk = p[f"_BasicBlock3D_{i}"]
+        _conv(blk["Conv_0"], f"blocks.{i}.conv1", out)
+        _layer_norm(blk["GroupNorm_0"], f"blocks.{i}.norm1", out)
+        _conv(blk["Conv_1"], f"blocks.{i}.conv2", out)
+        _layer_norm(blk["GroupNorm_1"], f"blocks.{i}.norm2", out)
+        if "Conv_2" in blk:
+            _conv(blk["Conv_2"], f"blocks.{i}.downsample", out)
+    return out
+
+
+def medicalnet_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax ``MedicalNetResNet10`` variables (BN already folded to
+    ``scale`` / ``bias``) -> port ``MedicalNetResNet10`` state dict, which
+    has the same names."""
+    p = params.get("params", params)
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(tree, prefix):
+        for name, sub in tree.items():
+            key = f"{prefix}{name}"
+            if "kernel" in sub:
+                _conv(sub, key, out)
+            elif "scale" in sub:
+                out[f"{key}.scale"] = _t(sub["scale"])
+                out[f"{key}.bias"] = _t(sub["bias"])
+            else:
+                walk(sub, f"{key}.")
+
+    walk(p, "")
+    return out

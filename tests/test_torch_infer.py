@@ -7,6 +7,8 @@ the port's host ``VolumeStitcher`` under the EDM sampler, and both
 import argparse
 import os
 
+import jax
+
 import numpy as np
 import pytest
 import torch
@@ -212,5 +214,55 @@ def test_evaluate_main_runs_on_cpu(tmp_path, capsys):
         vol = np.load(out / f"{name}_inf.npy")
         assert vol.shape == (20, 20, 20) and np.isfinite(vol).all()
         assert os.path.exists(out / f"{name}_inf.nii.gz")
-    with pytest.raises(NotImplementedError, match="lpips"):
-        evaluate.main(["--config", str(cfg_path), "--fake-data", "--device", "cpu", "--lpips"])
+
+
+@pytest.mark.parametrize("weights", [True, False], ids=["weights", "proxy"])
+def test_evaluate_lpips_matches_test_all(tmp_path, capsys, weights):
+    """``evaluate --lpips`` on two fake 44^3 subjects (centre crops of 16^3,
+    two 16^2 slices each): the per-subject ``lpips=`` field and the mean ±
+    std line hold what ``test_all.py --lpips`` computes for the same
+    prediction and ground truth (its ``lpips_volume_metric`` on the same
+    crops) with the same VGG / lin state dict, 1e-5 relative; without
+    weights, the warning, the proxy label and the port's own fixed-seed
+    VGG."""
+    from diffusioniqt_tpu.metrics import lpips as jlpips
+    from diffusioniqt_tpu_torch import evaluate
+    from diffusioniqt_tpu_torch.metrics import lpips as tlpips
+    from diffusioniqt_tpu_torch.utils.convert import lin_heads_from_jax, vgg16_state_dict_from_jax
+
+    cfg_path = _tiny_config_file(tmp_path, "config/eval_config.yaml")
+    out = tmp_path / "out"
+    args = ["--config", str(cfg_path), "--fake-data", "--fake-volumes", "2", "--fake-edge",
+            "44", "--device", "cpu", "--output-dir", str(out), "--patch-batch", "8", "--lpips"]
+    if weights:
+        rng = np.random.default_rng(3)
+        jmodel = jlpips.LPIPS(lin_weights=[rng.uniform(0, 0.05, ch).astype(np.float32)
+                                           for ch, _ in jlpips._VGG16_BLOCKS], image_size=16)
+        sd = vgg16_state_dict_from_jax(jax.device_get(jmodel.vgg_params))
+        sd.update({f"lin{i}.model.1.weight": w.reshape(1, -1, 1, 1)
+                   for i, w in enumerate(lin_heads_from_jax(jmodel.lin_weights))})
+        path = str(tmp_path / "lpips.pt")
+        torch.save(sd, path)
+        args += ["--lpips-weights", path]
+        model = jlpips.lpips_from_torch_checkpoint(path)
+    res = evaluate.main(args)
+    lines = capsys.readouterr().out.splitlines()
+    label = "LPIPS" if weights else "LPIPS(random-features)"
+    assert any(ln.startswith("WARNING: no --lpips-weights") for ln in lines) != weights
+    b = res["border"]
+    assert b == 14 and len(res["lpips"]) == 2
+    for i, got in enumerate(res["lpips"]):
+        line = next(ln for ln in lines if ln.startswith(f"fake{i}: msssim="))
+        assert line.endswith(f" lpips={got:.4f}")
+        pred = np.load(out / f"fake{i}_inf.npy")
+        _, hr = infer.fake_subjects(load_config(str(cfg_path)), 44, 2, seed=0)[i]
+        cfg = load_config(str(cfg_path))
+        gt = ((hr - cfg.data.mean) / cfg.data.std)[b:-b, b:-b, b:-b]
+        p = pred[b:-b, b:-b, b:-b]
+        if weights:
+            want = jlpips.lpips_volume_metric(gt, p, model)
+        else:
+            want = tlpips.lpips_volume_metric(gt, p, tlpips.LPIPS())
+        assert np.isfinite(want) and got == pytest.approx(want, rel=1e-5)
+    mean, std = np.mean(res["lpips"]), np.std(res["lpips"])
+    assert f"{label}:   {mean:.4f} +/- {std:.4f}" in lines

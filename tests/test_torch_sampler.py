@@ -83,10 +83,12 @@ def _noise_from(arrays):
     return draw
 
 
-def test_p_sample_loop_matches_jax_loop():
-    """4 ancestral steps of the cascade's stage 2 (x_start objective,
-    z-score clamp) over a small boundary UNet3D with shared weights and the
-    same noise, against a loop built from the JAX p_mean_variance."""
+def _loop_against_jax(non_uniform: bool):
+    """4 ancestral steps (or, on the non-uniform grid, 4 drawn times plus
+    the ends) of the cascade's stage 2 (x_start objective, z-score clamp)
+    over a small boundary UNet3D with shared weights and the same noise,
+    against a loop built from the JAX p_mean_variance over the JAX
+    wrapper's own time grid."""
     steps, edge, b = 4, 4, 27
     unet_kw = dict(dim=8, init_dim=8, num_resnet_blocks=(1, 1), dim_mults=(1, 2),
                    channels=1, resnet_groups=4, lowres_cond=True, use_se_attn=True,
@@ -95,16 +97,23 @@ def test_p_sample_loop_matches_jax_loop():
     img_kw = dict(image_sizes=(edge, edge), min_bound=MIN_BOUND, channels=1,
                   timesteps=steps, pred_objectives="x_start", dynamic_thresholding=False,
                   batch_sample=True)
+    if non_uniform:
+        img_kw.update(non_uniform_times=True, non_uniform_gamma=3.0)
     jimagen = JImagen([JNullUnet(), JUNet3D(**unet_kw, att_type="linear",
                                             dtype=jnp.float32)], cond_drop_prob=0.0, **img_kw)
     junet, jsched = jimagen.unets[1], jimagen.noise_schedulers[1]
     lowres = _rand((b, edge, edge, edge, 1), 6)
     params = jimagen.init_params(jax.random.PRNGKey(0), batch_size=b)[1]
-    noise = [_rand((b, edge, edge, edge, 1), 100 + i) for i in range(steps + 1)]
+    if non_uniform:  # what the JAX p_sample_loop takes (gaussian.py:322-327)
+        t_cur, t_next = jsched.get_sampling_timesteps_non_uniform(
+            b, gamma=jimagen.non_uniform_gamma)
+    else:
+        t_cur, t_next = jsched.get_sampling_timesteps(b)
+    n_steps = int(t_cur.shape[0])
+    noise = [_rand((b, edge, edge, edge, 1), 100 + i) for i in range(n_steps + 1)]
 
     img = jnp.asarray(noise[0])
-    t_cur, t_next = jsched.get_sampling_timesteps(b)
-    for i in range(steps):
+    for i in range(n_steps):
         (mean, _, log_var), _ = jimagen.p_mean_variance(
             junet, params, img, t_cur[i], noise_scheduler=jsched, t_next=t_next[i],
             lowres_cond_img=jnp.asarray(lowres), pred_objective="x_start",
@@ -125,6 +134,32 @@ def test_p_sample_loop_matches_jax_loop():
     again = timagen.sample(batch_size=b, noise=_noise_from(noise), start_at_unet_number=2,
                            start_image_or_video=torch.from_numpy(lowres))
     torch.testing.assert_close(again, got, rtol=0, atol=0)
+    return n_steps
+
+
+def test_p_sample_loop_matches_jax_loop():
+    assert _loop_against_jax(non_uniform=False) == 4
+
+
+def test_p_sample_loop_non_uniform_matches_jax_loop():
+    """``Train.non_uniform_sampling``: the loop walks the exponentially
+    weighted grid (one more step here, for the end the draw missed)."""
+    assert _loop_against_jax(non_uniform=True) > 4
+
+
+@pytest.mark.parametrize("timesteps,gamma", [(20, 10.0), (64, 1.0), (3, 30.0)])
+def test_non_uniform_timesteps_match_jax(timesteps, gamma):
+    """The host numpy draw of ``default_rng(seed)``: the same times, in the
+    same order, both ends included, as fp32 fencepost pairs."""
+    js, ts = JSched("cosine", timesteps), TSched("cosine", timesteps)
+    for seed in (0, 5):
+        jc, jn = js.get_sampling_timesteps_non_uniform(3, seed=seed, gamma=gamma)
+        tc_, tn = ts.get_sampling_timesteps_non_uniform(3, seed=seed, gamma=gamma)
+        assert tc_.dtype == torch.float32 and tc_.shape == jc.shape
+        np.testing.assert_array_equal(tc_.numpy(), np.asarray(jc))
+        np.testing.assert_array_equal(tn.numpy(), np.asarray(jn))
+        assert float(tc_[0, 0]) == 1.0 and float(tn[-1, 0]) == 0.0
+        assert bool((tc_[:, 0] > tn[:, 0]).all())
 
 
 def test_sample_needs_start_image_for_stage_two():

@@ -467,12 +467,62 @@ def test_train_step_splits_patches_and_microbatches():
     assert tr.steps == [0, 1]
 
 
-def test_lpips_config_refuses_to_train():
+@pytest.mark.parametrize("flag", ["lpips", "medlpips"])
+def test_perceptual_config_trains(flag, tmp_path, monkeypatch):
+    """``config/config.yaml`` (x_start, SAME convs) at dim 8 with
+    ``Train.lpips`` / ``Train.medlpips``, built as the training entry point
+    builds it: the step's loss is the plain loss plus ``0.1 * term(pred,
+    x_start)`` (the VGG sees 32^2 slices here, 224^2 in training); the
+    frozen network stays out of the optimizer, the EMA and the bundle,
+    whose keys are those of a trainer without the term and which the JAX
+    converter reads. An EDM config with the flag is refused: its loss has
+    no perceptual term."""
+    from diffusioniqt_tpu_torch.diffusion import gaussian
+    from diffusioniqt_tpu_torch.metrics.lpips import SliceLPIPS
+    from diffusioniqt_tpu_torch.metrics.medicalnet import MedicalNetPerceptual
+    from diffusioniqt_tpu_torch.train.__main__ import build_trainer
+
+    make = gaussian.make_lpips_fn
+    monkeypatch.setattr(gaussian, "make_lpips_fn", lambda **kw: make(target_size=32, **kw))
+
+    def trainer(with_term):
+        cfg = load_config("config/config.yaml")
+        for k, v in dict(dim=8, init_dim=8, dim_mults=(1, 2), num_resnet_blocks=(1, 1),
+                         resnet_groups=4, patch_size_sub=8, compute_dtype="float32",
+                         att_enc=(False, False)).items():
+            setattr(cfg.train, k, v)
+        setattr(cfg.train, flag, with_term)
+        return build_trainer(cfg, "cpu")
+
+    tr, plain = trainer(True), trainer(False)
+    term = tr.imagen.lpips_fn
+    assert isinstance(term, SliceLPIPS if flag == "lpips" else MedicalNetPerceptual)
+    assert plain.imagen.lpips_fn is None
+    hr, lr = _rand((2, 8, 8, 8, 1), 50), _rand((2, 8, 8, 8, 1), 51)
+    draws = {"times": torch.tensor([0.2, 0.7]), "noise": _t(_rand((2, 8, 8, 8, 1), 52))}
+    _, pred, _, _ = plain.imagen.forward(_t(hr), _t(lr), unet_number=2, **draws)
+    want = plain.train_step(unet_number=2, batch=(hr, lr), draws=[draws])
+    got = tr.train_step(unet_number=2, batch=(hr, lr), draws=[draws])
+    expected = want + 0.1 * float(term(pred.detach(), _t(hr)))
+    assert got > want and got == pytest.approx(expected, rel=1e-5)
+    opt_params = {id(p) for g in tr.optimizers[1].param_groups for p in g["params"]}
+    assert opt_params == {id(p) for p in tr.imagen.unets[1].parameters()}
+    assert not any(p.requires_grad or p.grad is not None for p in term.parameters())
+    path_a, path_b = str(tmp_path / "a.pt"), str(tmp_path / "b.pt")
+    tr.save(path_a)
+    plain.save(path_b)
+    a, b = (torch.load(p, map_location="cpu", weights_only=True) for p in (path_a, path_b))
+    assert a.keys() == b.keys()
+    assert a["model"].keys() == b["model"].keys() and a["ema"].keys() == b["ema"].keys()
+    assert a["optim1"]["state"].keys() == b["optim1"]["state"].keys()
+    jvars = convert_reference_checkpoint(a, unet_number=2, use_ema=False)
+    back = state_dict_from_jax_params(jax.device_get(jvars))
+    assert all(torch.equal(back[k], v) for k, v in tr.imagen.unets[1].state_dict().items())
+
     cfg = load_config("config/eval_edm.yaml")
-    cfg.train.lpips = True
-    imagen = ElucidatedImagen([NullUnet(), UNet3D(**UNET_KW)], **E_KW)
-    with pytest.raises(NotImplementedError, match="lpips"):
-        ImagenTrainer(cfg, imagen)
+    setattr(cfg.train, flag, True)
+    with pytest.raises(ValueError, match="no perceptual term"):
+        ImagenTrainer(cfg, ElucidatedImagen([NullUnet(), UNet3D(**UNET_KW)], **E_KW))
 
 
 # ---------------------------------------------------------------------------
