@@ -104,6 +104,39 @@ Phases, each of which raises (and exits non-zero) on failure:
   evaluate-lpips  ``evaluate --fake-data --lpips`` of one fake 96^3 subject
                 on the card; its LPIPS equals the CPU's on the same
                 prediction within 1e-4 relative (fp32 convs on both)
+  ddp-train     data-parallel training (``parallel/``, the trainer's mesh
+                branch): the EDM flagship at train-edm-96's shape, 2 crops
+                of 96^3 per rank per step in 2 microbatches of 27 x 32^3,
+                3 steps, the EMA applied every step. Ranks: NCCL over
+                min(cards, 4) cards, or on one card 2 gloo ranks sharing it
+                (NCCL takes one card per rank; such a run measures
+                correctness and overhead, not scaling). Held against the
+                1-rank trainer on the same global batches and seed: the
+                first step's all-reduced gradient by train-step's criterion
+                (whole cosine, per-tensor cosine; the norm within
+                DDP_GRAD_NORM_REL_TOL), every loss within
+                DDP_LOSS_REL_TOL (beside it, how far a rank's own rows'
+                loss is off: what a loss left out of the all-reduce would
+                read); the ranks' parameters and EMA bitwise equal
+                after the steps; launches exactly 3 x 2 x (39, 1, 38, 0) per
+                rank. Prints backend, world, s per step at W and at 1 rank,
+                the all-reduce's ms (CUDA events and host clock) and bytes
+                per step, peak memory per rank. Then ``torchrun
+                --nproc-per-node 1 -m diffusioniqt_tpu_torch.train`` (a
+                1-rank NCCL world through the entry point, 2 steps of the
+                full-width EDM config on fake data)
+  ddp-serve     the serve phase's run (``config/eval_config.yaml``, 8
+                windows of the fake 128^3 volume, 20 ancestral steps) with
+                ``infer_volume(mesh=...)`` over the same ranks: 4 windows
+                per rank (on one card, 2 gloo ranks), gathered and stitched
+                on rank 0; launches exactly 20 x (39, 1, 38, 0) per rank;
+                the volume within DDP_SERVE_REL_TOL of the serve phase's
+                1-rank volume; seconds at W ranks beside the serve phase's;
+                then one ``sharded_sample`` call over the same 8 windows:
+                the rows gathered from the ranks equal, bit for bit, one
+                process sampling each rank's rows alone with the rows of
+                the same global noise (and the difference one process
+                shows between 108 and 216 rows per call is printed)
 
 ``python3 chip_smoke.py --profile`` also prints a ``torch.profiler``
 breakdown of one forward of each of the two configs at the serve batch,
@@ -113,6 +146,10 @@ and in each of the three config.yaml cells. Without it too,
 train-step profiles one microbatch's forward and backward and fails if any
 ``indexing_backward`` / ``index_put`` kernel runs: the Block's backward is
 the plain composition, which gathers nothing.
+``python3 chip_smoke.py --ddp-only`` runs, after the kernels phase, only
+serve, ddp-train and ddp-serve, and prints no result line: the data-parallel
+path and what it is held against, for a run on a machine with several
+cards.
 ``python3 chip_smoke.py --kernels-only`` stops after the kernels phase and
 prints no result line: a copy of this script placed in another checkout of
 the repository times that checkout's kernels the same way.
@@ -239,6 +276,38 @@ QUALITY_EVAL_KEYS = {"ckpt", "steps", "stitch", "sampler", "edm_s_churn", "edm_s
                      "volumes", "pred_beats_lr_msssim", "pred_beats_lr_psnr"}
 QUALITY_ROW_KEYS = {"volume", "pred_msssim", "pred_psnr", "lr_msssim", "lr_psnr", "seconds",
                     "stitch"}
+# ddp-train: crops of 96^3 per rank per step, microbatches per step, steps
+DDP_CROPS_PER_RANK, DDP_ACCUM, DDP_STEPS = 2, 2, 3
+# ddp-train's all-reduced gradient against the 1-rank one: the whole
+# gradient's relative norm difference. The two gradients differ by bf16
+# noise of forwards at other batch sizes, about 1.5e-3 of the gradient's
+# norm at whole cosine 0.999999, which moves the norm by up to that much
+# (readings on H100s, torch 2.11: 6.6e-4 at 2 ranks on one card, 1.9e-3 at
+# 4 ranks on 4 cards); a sum over the ranks in place of the mean is off by
+# W - 1
+DDP_GRAD_NORM_REL_TOL = 1e-2
+# ddp-train's losses (the all-reduced mean over the ranks) against the
+# 1-rank trainer's, relative: sound readings 5.2e-5 (2 ranks on one card)
+# and 2.5e-5 (4 ranks on 4 cards) on H100s, torch 2.11; ten times the
+# larger. The phase also prints what a rank would have returned with the
+# loss left out of the all-reduce (its own rows' mean, read before the
+# reduction) against the same 1-rank losses: the reading this limit has to
+# stay below
+DDP_LOSS_REL_TOL = 5e-4
+# ddp-serve's volume against the serve phase's 1-rank volume, relative to
+# its largest entry. Each rank's sampler calls run at 4 windows (108 rows)
+# where the 1-rank call runs at 8 (216): the kernels compute each
+# sub-volume alone, but cuDNN / cuBLAS and the reductions of the plain ops
+# between them may pick other algorithms at another batch size, and their
+# last-bit differences, rounded to bf16 and compounded over 20 sampler
+# steps, moved the volume by 3.2e-2 (2 ranks) and 3.4e-2 (4 ranks) of its
+# largest entry on H100s (torch 2.11), as far as one process moves at 108
+# or 54 rows against 216; held to the bound of one forward through the
+# kernels against the plain versions. The rows check beside it holds the distributed sampler
+# bit for bit against one process sampling each rank's rows alone.
+DDP_SERVE_REL_TOL = FORWARD_REL_TOL
+# a rank that has not finished by then fails the phase
+DDP_RANK_TIMEOUT_S = 600
 # device kernels of an accumulating scatter: the backward of a gather
 SCATTER_KERNELS = ("indexing_backward", "index_put")
 # device-kernel names of each hand-written kernel, for the profile's layers
@@ -368,6 +437,118 @@ def scatter_ms(fn):
     return sum(ms for _, ms in hits), sum(ms for _, ms in rows), hits
 
 
+def card_settings() -> None:
+    """The fp32 settings every phase runs with (TF32 off)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+
+
+def ddp_train_rank(device, cfg, batches):
+    """One rank of ddp-train: the trainer over a data mesh of every rank,
+    one optimizer step per global batch; the all-reduce timed by CUDA
+    events and the host clock around it (synchronised: measurement only)."""
+    import torch.distributed as dist
+
+    from diffusioniqt_tpu_torch.ops import kernels
+    from diffusioniqt_tpu_torch.parallel import sharding
+    from diffusioniqt_tpu_torch.parallel.mesh import create_mesh
+    from diffusioniqt_tpu_torch.train.__main__ import build_trainer
+
+    card_settings()
+    trainer = build_trainer(cfg, device, mesh=create_mesh(("data",)))
+    trainer.prepare()
+    reductions, local_losses = [], []
+    all_reduce_mean_ = sharding.all_reduce_mean_
+
+    def timed(tensors, mesh):
+        local_losses.append(float(tensors[-1]) / DDP_ACCUM)  # this rank's rows
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        events[0].record()
+        all_reduce_mean_(tensors, mesh)
+        events[1].record()
+        torch.cuda.synchronize()
+        reductions.append((events[0].elapsed_time(events[1]),
+                           (time.perf_counter() - t0) * 1e3, nbytes(*tensors)))
+
+    sharding.all_reduce_mean_ = timed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    kernels.reset_launch_counts()
+    losses, step_s, grads = [], [], None
+    for i, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(trainer.train_step(unet_number=2, batch=batch))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        if i == 0 and dist.get_rank() == 0:
+            grads = {k: p.grad.detach().cpu() for k, p in
+                     trainer.imagen.unets[1].named_parameters()}
+    counts = kernels.launch_counts()
+    sharding.all_reduce_mean_ = all_reduce_mean_
+    return {"backend": dist.get_backend(), "world": dist.get_world_size(),
+            "device": str(device), "losses": losses, "local_losses": local_losses,
+            "step_s": step_s,
+            "reductions": reductions, "peak": torch.cuda.max_memory_allocated(device),
+            "launches": counts, "grads": grads,
+            "params": {k: v.detach().cpu() for k, v in
+                       trainer.imagen.unets[1].state_dict().items()},
+            "ema": {k: v.detach().cpu() for k, v in trainer.ema_unets[1].state_dict().items()}}
+
+
+def serve_windows(cfg, lowres_vol, windows, device):
+    """The first ``windows`` windows of ``infer_volume``'s grid over
+    ``lowres_vol``, split into sub-volumes, on ``device``."""
+    from diffusioniqt_tpu_torch.data.datasets import SupervisedIQTInference
+    from diffusioniqt_tpu_torch.ops.stitch_device import gather_windows
+    from diffusioniqt_tpu_torch.ops.volume import volume_to_subvolumes
+
+    dataset = SupervisedIQTInference(cfg, lr_file=None, volume=lowres_vol)
+    volume = torch.from_numpy(dataset.normalize(lowres_vol.astype(np.float32))).to(device)
+    x = gather_windows(volume, dataset.valid_indices()[:windows], cfg.train.patch_size)
+    return volume_to_subvolumes(x, cfg.train.batch_sample_factor)
+
+
+def ddp_serve_rank(device, cfg, edge, windows):
+    """One rank of ddp-serve: the serve phase's ``infer_volume`` call with
+    its windows spread over a data mesh of every rank; then one
+    ``sharded_sample`` call over the same windows, its gathered rows
+    returned by rank 0."""
+    import torch.distributed as dist
+
+    from diffusioniqt_tpu_torch.diffusion.gaussian import gaussian_noise
+    from diffusioniqt_tpu_torch.infer import build_sampler, fake_volumes, infer_volume
+    from diffusioniqt_tpu_torch.ops import kernels
+    from diffusioniqt_tpu_torch.parallel.mesh import create_mesh
+    from diffusioniqt_tpu_torch.parallel.sharding import sharded_sample
+
+    card_settings()
+    imagen = build_sampler(cfg, device=device, seed=0)
+    lowres_vol, _ = fake_volumes(cfg, edge, seed=0)
+    noise = gaussian_noise(torch.Generator(device=device).manual_seed(0))
+    mesh = create_mesh(("data",))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    pred = infer_volume(cfg, imagen, lowres_vol, noise=noise, patch_batch=windows,
+                        verbose=False, mesh=mesh)
+    torch.cuda.synchronize()
+    out = {"seconds": time.perf_counter() - t0, "launches": kernels.launch_counts(),
+           "pred": pred, "peak": torch.cuda.max_memory_allocated(device)}
+    x = serve_windows(cfg, lowres_vol, windows, device)
+    rows = sharded_sample(imagen.sample, mesh, batch_size=x.shape[0], group=GROUP,
+                          noise=gaussian_noise(torch.Generator(device=device).manual_seed(1)),
+                          start_image_or_video=x, start_at_unet_number=2)
+    out["rows"] = rows.cpu() if dist.get_rank() == 0 else None
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs "
@@ -412,9 +593,7 @@ def main() -> int:
 
     t_all = time.perf_counter()
     dev = torch.device("cuda", 0)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
+    card_settings()
 
     # ---------------------------------------------------------------- env
     phase("env")
@@ -649,7 +828,8 @@ def main() -> int:
         """infer_volume on the seeded fake 128^3 volume; the launches must be
         ``per_forward`` times the forwards the sampler ran (one per step for
         the ancestral sampler, two per Heun step but the last one for EDM).
-        Returns the launches, the prediction and the fake highres volume."""
+        Returns the launches, the prediction, the fake highres volume and
+        the seconds of the run."""
         edge, windows_per_batch = 128, WINDOWS
         if cfg.train.elucidated:
             steps = cfg.train.edm_num_sample_steps
@@ -696,7 +876,7 @@ def main() -> int:
             raise AssertionError("serve output is not a finite volume of the input's shape")
         if served != want_counts:
             raise AssertionError(f"serve launches {served}, expected {want_counts}")
-        return served, pred, highres_vol
+        return served, pred, highres_vol, serve_s
 
     def edm_step(cfg):
         """Two EDM steps (3 forwards) over one 27 x 32^3 group through the
@@ -1279,6 +1459,187 @@ def main() -> int:
         if not (math.isfinite(on_card) and rel <= LPIPS_REL_TOL):
             raise AssertionError("evaluate-lpips: the card's LPIPS disagrees with the CPU's")
 
+    def ddp_ranks():
+        """(world, backend for launch): NCCL over min(cards, 4) cards, or 2
+        gloo ranks sharing the one card."""
+        count = torch.cuda.device_count()
+        return (min(count, 4), None) if count >= 2 else (2, "gloo")
+
+    def ddp_train(pairs):
+        """The mesh trainer over the ranks against the 1-rank trainer on the
+        same global batches and seed; then a 1-rank NCCL world through the
+        training entry point."""
+        from diffusioniqt_tpu_torch.parallel.multihost import launch
+
+        world, backend = ddp_ranks()
+        crops = DDP_CROPS_PER_RANK * world
+        cfg = load_config(os.path.join(ROOT, EDM_CONFIG))
+        cfg.data.mean, cfg.data.std = population_stats([lr for _, lr in pairs])
+        cfg.train.gradient_accumulation_steps = DDP_ACCUM
+        cfg.train.ema_update_every, cfg.train.ema_update_after_step = 1, 0
+        dataset = SyntheticIQTDataset(cfg, seed=0, samples_per_volume=8, pairs=pairs)
+        items = [dataset[j] for j in range(DDP_STEPS * crops)]
+        batches = [tuple(np.stack(a) for a in zip(*items[i * crops:(i + 1) * crops]))
+                   for i in range(DDP_STEPS)]
+        print(f"{DDP_STEPS} global batches of {crops} crops of {cfg.train.patch_size}^3; "
+              f"{world} ranks ({backend or 'nccl'}) of {DDP_CROPS_PER_RANK} crops, accum "
+              f"{DDP_ACCUM}", flush=True)
+
+        ref = build_trainer(cfg, dev)
+        ref.imagen.unets[1].remat = world > 2  # a microbatch of 27 x world rows
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses1, step_s1, grads1 = [], [], None
+        for i, batch in enumerate(batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses1.append(ref.train_step(unet_number=2, batch=batch))
+            torch.cuda.synchronize()
+            step_s1.append(time.perf_counter() - t0)
+            if i == 0:
+                grads1 = {k: p.grad.detach().cpu() for k, p in
+                          ref.imagen.unets[1].named_parameters()}
+        peak1 = torch.cuda.max_memory_allocated()
+        del ref
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        ranks = launch(ddp_train_rank, (cfg, batches), nprocs=world, device="cuda",
+                       backend=backend, timeout_s=DDP_RANK_TIMEOUT_S)
+        launch_s = time.perf_counter() - t0
+        r0 = ranks[0]
+        want = {k: DDP_STEPS * DDP_ACCUM * n for k, n in FLAGSHIP_COUNTS.items()}
+        print(f"backend {r0['backend']} world {r0['world']} devices "
+              f"{[r['device'] for r in ranks]}"
+              + (" (ranks sharing one card: correctness and overhead, not scaling)"
+                 if backend == "gloo" else ""))
+        print(f"losses W={world} {' '.join(f'{v:.6f}' for v in r0['losses'])}; 1 rank "
+              f"{' '.join(f'{v:.6f}' for v in losses1)}")
+        print(f"s per step W={world} {' '.join(f'{v:.3f}' for v in r0['step_s'])} (rank 0), "
+              f"1 rank {' '.join(f'{v:.3f}' for v in step_s1)}; launch of the ranks "
+              f"{launch_s:.1f} s")
+        for r, rank in enumerate(ranks):
+            print(f"  rank {r}: all-reduce per step ms (events) "
+                  f"{' '.join(f'{e:.3f}' for e, _, _ in rank['reductions'])}, ms (host) "
+                  f"{' '.join(f'{h:.3f}' for _, h, _ in rank['reductions'])}, bytes "
+                  f"{rank['reductions'][0][2]}; peak memory {rank['peak'] / 2 ** 30:.2f} GiB; "
+                  f"launches {rank['launches']}")
+        print(f"  1 rank: peak memory {peak1 / 2 ** 30:.2f} GiB", flush=True)
+        unequal = [f"{what} {k}" for rank in ranks[1:] for what in ("params", "ema")
+                   for k, v in r0[what].items() if not torch.equal(v, rank[what][k])]
+        per, cos_all, norm_rel = grad_stats(r0["grads"], grads1)
+        worst = sorted(per.items(), key=lambda kv: kv[1])[:3]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], losses1))
+        local_rel = [max(abs(a - b) / abs(b) for a, b in zip(rank["local_losses"], losses1))
+                     for rank in ranks]
+        print(f"  ranks bitwise equal after {DDP_STEPS} steps: {not unequal}; step-1 gradient "
+              f"W={world} vs 1 rank: whole cos {cos_all:.7f} (min {GRAD_GLOBAL_COS_MIN}), norm "
+              f"rel {norm_rel:.3e} (tol {DDP_GRAD_NORM_REL_TOL}), per-tensor cos min "
+              f"{worst[0][1]:.6f} (min {GRAD_TENSOR_COS_MIN}) {worst}; losses max rel diff "
+              f"{rel:.3e} (tol {DDP_LOSS_REL_TOL}); a rank's own rows' loss (no all-reduce) "
+              f"vs 1 rank: max rel diff per rank "
+              f"{' '.join(f'{v:.3e}' for v in local_rel)}"
+              + ("" if min(local_rel) > DDP_LOSS_REL_TOL else
+                 " (at or under the limit: this run's loss check could not tell a "
+                 "rank's own loss from the mean)"), flush=True)
+        if unequal:
+            raise AssertionError(f"ddp-train: the ranks' weights differ: {unequal[:5]}")
+        if any(rank["launches"] != want for rank in ranks):
+            raise AssertionError(f"ddp-train launches {[r['launches'] for r in ranks]}, "
+                                 f"expected {want} per rank")
+        if not (all(math.isfinite(v) for v in r0["losses"]) and rel <= DDP_LOSS_REL_TOL):
+            raise AssertionError("ddp-train: the losses disagree with the 1-rank trainer's")
+        if (cos_all < GRAD_GLOBAL_COS_MIN or norm_rel > DDP_GRAD_NORM_REL_TOL
+                or worst[0][1] < GRAD_TENSOR_COS_MIN):
+            raise AssertionError("ddp-train: the all-reduced gradient disagrees with the "
+                                 "1-rank trainer's")
+
+        # a 1-rank NCCL world through the entry point, as torchrun starts it
+        import yaml
+
+        work = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+        try:
+            raw = yaml.safe_load(open(os.path.join(ROOT, EDM_CONFIG)))
+            raw["Train"]["pretrain"] = False
+            raw["Eval"]["repeat"] = 1
+            raw["Results"] = os.path.join(work, "results")
+            path = os.path.join(work, "edm.yaml")
+            with open(path, "w") as fh:
+                yaml.safe_dump(raw, fh)
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                 "--nproc-per-node", "1", "-m", "diffusioniqt_tpu_torch.train", "--config",
+                 path, "--fake-data", "--steps", "2", "--eval-every", "100"],
+                cwd=ROOT, env={**os.environ, "PYTHONPATH": ROOT}, capture_output=True,
+                text=True, timeout=DDP_RANK_TIMEOUT_S)
+            entry_s = time.perf_counter() - t0
+            lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+            print(f"torchrun --nproc-per-node 1 -m diffusioniqt_tpu_torch.train: rc "
+                  f"{proc.returncode} in {entry_s:.1f} s; {lines[-4:]}", flush=True)
+            if proc.returncode != 0 or "process group nccl, 1 rank" not in proc.stdout:
+                raise AssertionError("ddp-train: the training entry point under torchrun "
+                                     "failed:\n" + proc.stdout[-3000:] + proc.stderr[-3000:])
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        return r0["launches"]
+
+    def ddp_serve(cfg, want_pred, serve_s):
+        """The serve phase's run over the ranks; rank 0's volume against the
+        1-rank one."""
+        from diffusioniqt_tpu_torch.parallel.multihost import launch
+
+        world, backend = ddp_ranks()
+        edge = want_pred.shape[0]
+        ranks = launch(ddp_serve_rank, (cfg, edge, WINDOWS), nprocs=world, device="cuda",
+                       backend=backend, timeout_s=DDP_RANK_TIMEOUT_S)
+        pred = ranks[0]["pred"]
+        want = {k: cfg.train.timesteps * n for k, n in FLAGSHIP_COUNTS.items()}
+        err = float(np.abs(pred - want_pred).max())
+        tol = DDP_SERVE_REL_TOL * float(np.abs(want_pred).max())
+        # one process: the same windows' rows sampled whole, and each rank's
+        # rows alone with the rows of the same global noise
+        imagen = build_sampler(cfg, device=dev, seed=0)
+        x = serve_windows(cfg, fake_volumes(cfg, edge, seed=0)[0], WINDOWS, dev)
+        n, share = x.shape[0], x.shape[0] // world
+
+        def sample(lo, hi):
+            gen = torch.Generator(device=dev).manual_seed(1)
+            return imagen.sample(
+                batch_size=hi - lo, start_image_or_video=x[lo:hi], start_at_unet_number=2,
+                noise=lambda shape: torch.randn((n,) + tuple(shape[1:]), generator=gen,
+                                                device=dev)[lo:hi])
+
+        whole = sample(0, n).cpu()
+        alone = torch.cat([sample(r * share, (r + 1) * share).cpu() for r in range(world)])
+        rows = ranks[0]["rows"]
+        rows_equal = torch.equal(rows, alone)
+        print(f"  rows of the {WINDOWS} windows: gathered from the ranks vs one process "
+              f"sampling each rank's {share} rows alone: equal {rows_equal}, max abs diff "
+              f"{(rows - alone).abs().max().item():.3e}; one process at {share} rows vs "
+              f"at {n}: max abs diff {(alone - whole).abs().max().item():.3e} (max|x| "
+              f"{whole.abs().max().item():.3e})", flush=True)
+        secs = " ".join(f"{r['seconds']:.3f}" for r in ranks)
+        print(f"{world} ranks ({backend or 'nccl'}), {WINDOWS // world} windows each: "
+              f"seconds per 128^3 volume W={world} {secs} (per rank), 1 rank {serve_s:.3f}"
+              + (" (ranks sharing one card: correctness and overhead, not scaling)"
+                 if backend == "gloo" else ""))
+        print(f"  launches per rank {[r['launches'] for r in ranks]}; peak memory per rank "
+              f"{[round(r['peak'] / 2 ** 30, 2) for r in ranks]} GiB; others returned "
+              f"{[type(r['pred']).__name__ for r in ranks[1:]]}")
+        print(f"  volume {pred.shape} vs 1 rank: max abs diff {err:.3e}, equal "
+              f"{bool(np.array_equal(pred, want_pred))} (tol {tol:.3e} = {DDP_SERVE_REL_TOL} x "
+              f"max|1-rank|)", flush=True)
+        if any(r["launches"] != want for r in ranks):
+            raise AssertionError(f"ddp-serve launches {[r['launches'] for r in ranks]}, "
+                                 f"expected {want} per rank")
+        if not (pred.shape == want_pred.shape and np.isfinite(pred).all() and err <= tol):
+            raise AssertionError("ddp-serve: the sharded volume disagrees with the 1-rank one")
+        if not rows_equal:
+            raise AssertionError("ddp-serve: the gathered rows differ from one process "
+                                 "sampling each rank's rows alone")
+        return ranks[0]["launches"]
+
     cfg = load_config(os.path.join(ROOT, FLAGSHIP_CONFIG))
     cfg_attn = load_config(os.path.join(ROOT, ATTN_CONFIG))
     cfg_vit = load_config(os.path.join(ROOT, ATTN_CONFIG))
@@ -1287,6 +1648,16 @@ def main() -> int:
     cfg_edm_step = load_config(os.path.join(ROOT, EDM_CONFIG))
     cfg_edm_step.train.edm_num_sample_steps = 2
 
+    if "--ddp-only" in sys.argv[1:]:
+        phase("serve")
+        _, pred_serve, _, serve_s = serve(cfg, FLAGSHIP_COUNTS)
+        phase("ddp-train")
+        ddp_train([generate_pair(PHANTOM_EDGE, seed=i) for i in range(PHANTOMS)])
+        phase("ddp-serve")
+        ddp_serve(cfg, pred_serve, serve_s)
+        print(f"total seconds {time.perf_counter() - t_all:.1f}")
+        return 0
+
     phase("forward")
     held_forward("flagship", cfg, FLAGSHIP_COUNTS, profile=True)
     phase("forward-attn")
@@ -1294,13 +1665,13 @@ def main() -> int:
     phase("forward-vit")
     held_forward("vit", cfg_vit, ATTN_COUNTS, profile=False)
     phase("serve")
-    served, _, _ = serve(cfg, FLAGSHIP_COUNTS)
+    served, pred_serve, _, serve_s = serve(cfg, FLAGSHIP_COUNTS)
     phase("serve-attn")
-    served_attn, _, _ = serve(cfg_attn, ATTN_COUNTS)
+    served_attn, _, _, _ = serve(cfg_attn, ATTN_COUNTS)
     phase("edm-step")
     edm_step(cfg_edm_step)
     phase("serve-edm")
-    served_edm, pred_edm, highres_edm = serve(cfg_edm, FLAGSHIP_COUNTS)
+    served_edm, pred_edm, highres_edm, _ = serve(cfg_edm, FLAGSHIP_COUNTS)
     phase("stitch")
     stitch()
     phase("metrics")
@@ -1329,6 +1700,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     phase("evaluate-lpips")
     evaluate_lpips()
+    phase("ddp-train")
+    ddp_trained = ddp_train(pairs)
+    phase("ddp-serve")
+    ddp_served = ddp_serve(cfg, pred_serve, serve_s)
 
     # ------------------------------------------------------------- report
     line = []
@@ -1358,7 +1733,9 @@ def main() -> int:
             "launches_by_path": {"serve": served[name], "serve-attn": served_attn[name],
                                  "serve-edm": served_edm[name], "train": trained[name],
                                  "quality": gated[name], "quality-eval": gate_evaluated[name],
-                                 **{k: c["launches"][name] for k, c in cells.items()}},
+                                 **{k: c["launches"][name] for k, c in cells.items()},
+                                 "ddp-train (rank 0)": ddp_trained[name],
+                                 "ddp-serve (rank 0)": ddp_served[name]},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "tolerance": head["tol"],
             "ms": head["ms"], "ms_min": head["ms_min"], "ms_max": head["ms_max"],

@@ -319,16 +319,14 @@ class ElucidatedImagen:
         :779-782). The conditioning stays clean when ``lowres_noise_aug`` is
         off (the IQT path, at noise time 0), else it is noised at one time
         per call or, with ``per_sample_random_aug_noise_level``, per sample.
-        Draws not given come from ``generator`` in the order augmentation
-        times, augmentation noise, sigmas ``(B,)`` (one per sub-volume, not
-        shared), noise."""
+        Draws not given come from ``generator`` in the order of
+        :meth:`training_draws`."""
         if self.num_unets > 1 and unet_number is None:
             raise ValueError("unet_number is required with more than one unet")
         index = (unet_number or 1) - 1
         unet, hp = self.unets[index], self.hparams[index]
         target_size = self.image_sizes[index]
         batch = images.shape[0]
-        device = images.device
 
         lowres_cond_img = lowres_img
         if lowres_cond_img is None and index > 0:
@@ -336,34 +334,18 @@ class ElucidatedImagen:
                                             clamp_range=self.input_image_range)
             lowres_cond_img = resize_volume(lowres_cond_img, target_size,
                                             clamp_range=self.input_image_range)
-        if lowres_cond_img is not None and aug_times is None:
-            if not self.lowres_noise_aug:
-                aug_times = torch.zeros((batch,), dtype=torch.float32, device=device)
-            else:
-                if generator is None:
-                    raise ValueError("pass a torch.Generator, or every draw of the loss")
-                sched = self.lowres_noise_schedule
-                if self.per_sample_random_aug_noise_level:
-                    aug_times = sched.sample_random_times(generator, batch)
-                else:
-                    aug_times = sched.sample_random_times(generator, 1).expand(batch)
-
         images = self.normalize_img(resize_volume(images, target_size))
+        draws = self.training_draws(
+            generator, images.shape, None if lowres_cond_img is None else lowres_cond_img.shape,
+            unet_number=unet_number, sigmas=sigmas, noise=noise, aug_times=aug_times,
+            aug_noise=aug_noise)
         lowres_noisy = None
         if lowres_cond_img is not None:
             lowres_noisy = self.normalize_img(lowres_cond_img)
             if self.lowres_noise_aug:
-                if aug_noise is None:
-                    aug_noise = standard_normal(lowres_noisy.shape, generator)
                 lowres_noisy = self.lowres_noise_schedule.q_sample(
-                    lowres_noisy, aug_times, aug_noise)[0]
-
-        if sigmas is None:
-            if generator is None:
-                raise ValueError("pass a torch.Generator, or every draw of the loss")
-            sigmas = hp.noise_distribution(generator, batch)
-        if noise is None:
-            noise = standard_normal(images.shape, generator)
+                    lowres_noisy, draws["aug_times"], draws["aug_noise"])[0]
+        sigmas, noise = draws["sigmas"], draws["noise"]
         noised_images = images + right_pad_dims_to(images, sigmas) * noise
         denoised = self.preconditioned_network_forward(
             unet, noised_images, sigmas, hp, lowres_cond_img=lowres_noisy)
@@ -372,6 +354,45 @@ class ElucidatedImagen:
         if return_outputs:
             return loss, denoised, noised_images, lowres_noisy
         return loss
+
+
+    def training_draws(self, generator: Optional[torch.Generator], shape: Tuple[int, ...],
+                       lowres_shape: Optional[Tuple[int, ...]] = None, *,
+                       unet_number: Optional[int] = None, sigmas=None, noise=None,
+                       aug_times=None, aug_noise=None) -> dict:
+        """The draws :meth:`forward` makes for (resized) images of ``shape``
+        and lowres conditioning of ``lowres_shape`` (None: unconditioned),
+        in its order: with ``lowres_noise_aug`` the augmentation times (one
+        per call, or per sample with ``per_sample_random_aug_noise_level``)
+        and noise, then ``sigmas`` ``(B,)`` (one per sub-volume), then
+        ``noise``. Those given are kept, the rest come from ``generator``.
+        The data-parallel trainer draws a global microbatch's and keeps its
+        rows."""
+        index = (unet_number or 1) - 1
+        batch = shape[0]
+
+        def need():
+            if generator is None:
+                raise ValueError("pass a torch.Generator, or every draw of the loss")
+
+        draws = {}
+        if lowres_shape is not None and self.lowres_noise_aug:
+            if aug_times is None:
+                need()
+                sched = self.lowres_noise_schedule
+                aug_times = (sched.sample_random_times(generator, batch)
+                             if self.per_sample_random_aug_noise_level
+                             else sched.sample_random_times(generator, 1).expand(batch))
+            if aug_noise is None:
+                aug_noise = standard_normal(lowres_shape, generator)
+            draws.update(aug_times=aug_times, aug_noise=aug_noise)
+        if sigmas is None:
+            need()
+            sigmas = self.hparams[index].noise_distribution(generator, batch)
+        if noise is None:
+            noise = standard_normal(shape, generator)
+        draws.update(sigmas=sigmas, noise=noise)
+        return draws
 
 
 def elucidated_imagen_from_config(cfg, unets) -> ElucidatedImagen:

@@ -312,16 +312,33 @@ class Imagen:
                              f"unet's {self.image_sizes[index]}")
         if lowres_img is None:
             raise ValueError("lowres image must be provided")
+        draws = self.training_draws(generator, images.shape, unet_number=unet_number,
+                                    times=times, noise=noise)
+        return self.p_losses(
+            self.unets[index], images, draws["times"], noise_scheduler=scheduler,
+            lowres_cond_img=lowres_img, noise=draws["noise"],
+            pred_objective=self.pred_objectives[index],
+            p2_loss_weight_gamma=self.p2_loss_weight_gamma[index])
+
+    def training_draws(self, generator: Optional[torch.Generator], shape: Tuple[int, ...],
+                       lowres_shape: Optional[Tuple[int, ...]] = None, *,
+                       unet_number: Optional[int] = None, times=None, noise=None) -> dict:
+        """The draws :meth:`forward` makes for images of ``shape``, in its
+        order: ``times`` ``(B,)`` (one expanded over the batch under
+        ``batch_sample``), then ``noise``; the lowres conditioning is not
+        noised, so ``lowres_shape`` draws nothing. Those given are kept, the
+        rest come from ``generator``. The data-parallel trainer draws a global
+        microbatch's and keeps its rows."""
+        b = shape[0]
         if times is None:
             if generator is None:
                 raise ValueError("pass a torch.Generator, or every draw of the loss")
+            scheduler = self.noise_schedulers[(unet_number or 1) - 1]
             times = scheduler.sample_random_times(generator, 1 if self.batch_sample else b)
             times = times.expand(b) if self.batch_sample else times
-        return self.p_losses(
-            self.unets[index], images, times, noise_scheduler=scheduler,
-            lowres_cond_img=lowres_img, noise=noise, generator=generator,
-            pred_objective=self.pred_objectives[index],
-            p2_loss_weight_gamma=self.p2_loss_weight_gamma[index])
+        if noise is None:
+            noise = standard_normal(shape, generator)
+        return {"times": times, "noise": noise}
 
 
 def perceptual_loss_from_config(cfg, device="cpu"):

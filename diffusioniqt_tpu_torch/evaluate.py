@@ -15,7 +15,9 @@ not comparable with published LPIPS values.
 
 Subjects come from ``Data.lowres_path_test`` (ground truth beside each, as
 the reference names it), or ``--fake-data --fake-volumes N`` synthetic
-pairs. Runs on ``cuda`` unless ``--device cpu`` is given.
+pairs. Runs on ``cuda`` unless ``--device cpu`` is given. ``--mesh N``
+spreads each subject's windows over N ranks, as ``infer --mesh N`` does
+(``test_all.py --mesh N``); rank 0 stitches, scores, writes and reports.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from diffusioniqt_tpu_torch.metrics.lpips import (
     lpips_from_torch_checkpoint,
     lpips_volume_metric,
 )
+from diffusioniqt_tpu_torch.parallel.multihost import is_main_process, run_ranks
 from diffusioniqt_tpu_torch.utils.misc import resolve_device
 
 
@@ -86,11 +89,17 @@ def main(argv=None):
     ap.add_argument("--lpips-weights", default=None,
                     help="torch VGG16/LPIPS checkpoint for trained features")
     args = ap.parse_args(argv)
+    return run_ranks(_evaluate_rank, (args,), nprocs=args.mesh, device=args.device)
 
-    cfg, imagen, noise, kwargs = serve_from_args(args)
+
+def _evaluate_rank(device, args):
+    """One rank of ``main`` (the only one without ``--mesh``); rank 0
+    returns the scores, the others None."""
+    cfg, imagen, noise, kwargs = serve_from_args(args, device)
     device = next(imagen.unets[-1].parameters()).device
+    main = is_main_process()
     lpips_model = None
-    if args.lpips:
+    if args.lpips and main:
         if args.lpips_weights:
             lpips_model = lpips_from_torch_checkpoint(args.lpips_weights)
             lpips_label = "LPIPS"
@@ -104,7 +113,8 @@ def main(argv=None):
     if not subjects:
         raise FileNotFoundError(f"no test subjects match {cfg.data.lowres_path_test}")
     mean, std = cfg.data.mean, cfg.data.std
-    os.makedirs(args.output_dir, exist_ok=True)
+    if main:
+        os.makedirs(args.output_dir, exist_ok=True)
 
     msssims, psnrs, lpipss, times = [], [], [], []
     border = min(32, (subjects[0][1].shape[0] - 1) // 3)
@@ -113,6 +123,8 @@ def main(argv=None):
         pred = infer_volume(cfg, imagen, lowres, noise=noise, verbose=False, **kwargs)
         elapsed = time.time() - start
         times.append(elapsed)
+        if not main:
+            continue
 
         lowres_n = (lowres - mean) / std
         highres_n = (highres - mean) / std
@@ -135,6 +147,8 @@ def main(argv=None):
         np.save(os.path.join(args.output_dir, f"{name}_inf.npy"), pred)
         save_volume(os.path.join(args.output_dir, f"{name}_inf.nii.gz"), pred)
 
+    if not main:
+        return None
     print(f"MS-SSIM: {np.mean(msssims):.4f} +/- {np.std(msssims):.4f}")
     print(f"PSNR:    {np.mean(psnrs):.3f} +/- {np.std(psnrs):.3f}")
     if lpipss:

@@ -19,7 +19,19 @@ weights unless ``--use-non-ema`` is given, as ``test.py`` samples.
     python -m diffusioniqt_tpu_torch.infer --config config/eval_config.yaml --fake-data
     python -m diffusioniqt_tpu_torch.infer --config config/eval_edm.yaml --fake-data
 
-Runs on ``cuda`` unless ``--device cpu`` is given.
+Runs on ``cuda`` unless ``--device cpu`` is given. ``--mesh N`` spreads
+each batch of windows over N ranks (``test.py --mesh N``), one spawned
+process and one card each (gloo processes with ``--device cpu``), or the
+ranks of a ``torchrun --nproc-per-node N`` world: the batch is padded by
+whole windows to split evenly, each rank samples its windows with its rows
+of the one-process noise, and rank 0 gathers them in order, stitches and
+writes. On the CPU the result equals the one-process result (within 1e-5
+of its largest entry, ``tests/test_torch_parallel.py``); on the card each
+rank's rows are bit for bit those of one process sampling them alone, but
+the volume moves with the batch size each sampler call runs at (3.2e-2
+and 3.4e-2 of its largest entry at 2 and 4 ranks on H100s, as far as one
+process moves at that batch size: ``chip_smoke.py`` ddp-serve). More ranks
+than cards raise.
 """
 
 from __future__ import annotations
@@ -52,6 +64,9 @@ from diffusioniqt_tpu_torch.diffusion.gaussian import (
 from diffusioniqt_tpu_torch.models.unet3d import NullUnet, iqt_unet_from_config
 from diffusioniqt_tpu_torch.ops.stitch_device import DeviceVolumeStitcher, gather_windows
 from diffusioniqt_tpu_torch.ops.volume import subvolumes_to_volume, volume_to_subvolumes
+from diffusioniqt_tpu_torch.parallel.mesh import create_mesh
+from diffusioniqt_tpu_torch.parallel.multihost import is_main_process, process_count, run_ranks
+from diffusioniqt_tpu_torch.parallel.sharding import data_rank, sharded_sample
 from diffusioniqt_tpu_torch.utils.misc import resolve_device
 
 Sampler = Union[Imagen, ElucidatedImagen]
@@ -118,18 +133,26 @@ def describe_sampler(imagen: Sampler) -> str:
 
 def infer_volume(cfg, imagen: Sampler, lowres_raw: np.ndarray, *,
                  noise: NoiseFn, stitch_mode: str = "trim",
-                 patch_batch: int = 8, verbose: bool = True) -> np.ndarray:
+                 patch_batch: int = 8, verbose: bool = True,
+                 mesh=None) -> Optional[np.ndarray]:
     """Sliding-window sampling + stitching over one raw LR volume, on the
     model's device. Returns the prediction in normalised (z-score) space,
-    shaped like ``lowres_raw``."""
+    shaped like ``lowres_raw``.
+
+    With ``mesh`` (a ``data`` mesh over the ranks, every rank calling with
+    the same volume, weights and seeded noise) each batch of windows is
+    spread over the ranks (``parallel/sharding.py::sharded_sample``: the
+    last, short batch is padded by whole windows) and gathered in order;
+    rank 0 stitches and returns the volume, the other ranks None."""
     device = next(imagen.unets[-1].parameters()).device
+    main = data_rank(mesh) == 0
     dataset = SupervisedIQTInference(cfg, lr_file=None, volume=lowres_raw)
     starts = dataset.valid_indices()
     patch = cfg.train.patch_size
     volume = torch.from_numpy(dataset.normalize(lowres_raw.astype(np.float32))).to(device)
     stitcher = DeviceVolumeStitcher(lowres_raw.shape, patch, cfg.eval.overlap,
                                     mode=stitch_mode, fill_value=cfg.data.min_bound,
-                                    device=device)
+                                    device=device) if main else None
     f = cfg.train.batch_sample_factor
     split = cfg.train.batch_sample and patch != cfg.train.patch_size_sub
     for start in range(0, len(starts), patch_batch):
@@ -137,14 +160,17 @@ def infer_volume(cfg, imagen: Sampler, lowres_raw: np.ndarray, *,
         x = gather_windows(volume, chunk, patch)
         if split:
             x = volume_to_subvolumes(x, f)
-        out = imagen.sample(batch_size=x.shape[0], noise=noise,
-                            start_image_or_video=x, start_at_unet_number=2)
+        kwargs = dict(batch_size=x.shape[0], noise=noise, start_image_or_video=x,
+                      start_at_unet_number=2)
+        out = sharded_sample(imagen.sample, mesh, group=f ** 3 if split else 1, **kwargs)
+        if not main:
+            continue
         if split:
             out = subvolumes_to_volume(out, f)
         stitcher.add_batch(out[..., 0], chunk)
         if verbose:
             print(f"patches {start + len(chunk)}/{len(starts)}")
-    return stitcher.result()
+    return stitcher.result() if main else None
 
 
 def fake_subjects(cfg, edge: int, count: int, seed: int = 0):
@@ -181,19 +207,27 @@ def add_serving_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--fake-edge", type=int, default=None)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mesh", type=int, default=0,
+                    help="spread each batch of windows over N ranks (one card each)")
 
 
-def serve_from_args(args):
-    """(cfg, sampler, noise, infer kwargs) from parsed :func:`add_serving_args`."""
+def serve_from_args(args, device=None):
+    """(cfg, sampler, noise, infer kwargs) from parsed :func:`add_serving_args`,
+    on ``device`` (default ``--device``); with more than one rank in the
+    process group, a ``data`` mesh over them in the kwargs. Only the main
+    process prints."""
     cfg = load_config(args.config)
-    imagen = build_sampler(cfg, device=args.device, checkpoint=args.checkpoint,
+    imagen = build_sampler(cfg, device=device or args.device, checkpoint=args.checkpoint,
                            seed=args.seed, use_ema=not args.use_non_ema)
-    print(describe_sampler(imagen))
-    if not args.checkpoint:
-        print("WARNING: no checkpoint given — sampling with random weights")
+    mesh = create_mesh(("data",)) if process_count() > 1 else None
+    if is_main_process():
+        print(describe_sampler(imagen)
+              + (f", windows spread over {process_count()} ranks" if mesh else ""))
+        if not args.checkpoint:
+            print("WARNING: no checkpoint given — sampling with random weights")
     device = next(imagen.unets[-1].parameters()).device
     noise = gaussian_noise(torch.Generator(device=device).manual_seed(args.seed))
-    kwargs = dict(stitch_mode=args.stitch, patch_batch=args.patch_batch)
+    kwargs = dict(stitch_mode=args.stitch, patch_batch=args.patch_batch, mesh=mesh)
     return cfg, imagen, noise, kwargs
 
 
@@ -204,15 +238,20 @@ def main(argv=None):
     ap.add_argument("--highres", default=None, help="HR NIfTI/.npy path")
     ap.add_argument("--output-dir", default=".")
     args = ap.parse_args(argv)
+    if not args.fake_data and not (args.lowres and args.highres):
+        ap.error("--lowres and --highres are required without --fake-data")
+    run_ranks(_infer_rank, (args,), nprocs=args.mesh, device=args.device)
 
-    cfg, imagen, noise, kwargs = serve_from_args(args)
+
+def _infer_rank(device, args):
+    """One rank of ``main`` (the only one without ``--mesh``)."""
+    cfg, imagen, noise, kwargs = serve_from_args(args, device)
+    main = is_main_process()
     if args.fake_data:
         edge = args.fake_edge or cfg.train.patch_size + cfg.eval.overlap
         lowres, highres = fake_volumes(cfg, edge, args.seed)
         affine = np.eye(4)
     else:
-        if not (args.lowres and args.highres):
-            ap.error("--lowres and --highres are required without --fake-data")
         lowres = load_volume(args.lowres)
         highres = load_volume(args.highres)
         affine = load_affine(args.highres)
@@ -220,10 +259,13 @@ def main(argv=None):
             low, high = 8, 248  # reference test.py:151-153
             lowres = lowres[low:high, low:high, low:high]
             highres = highres[low:high, low:high, low:high]
-    print(f"lowres: {lowres.shape} highres: {highres.shape}")
+    if main:
+        print(f"lowres: {lowres.shape} highres: {highres.shape}")
 
     start = time.time()
-    pred = infer_volume(cfg, imagen, lowres, noise=noise, **kwargs)
+    pred = infer_volume(cfg, imagen, lowres, noise=noise, verbose=main, **kwargs)
+    if not main:
+        return
     print(f"TIME: {time.time() - start}")
 
     mean, std = cfg.data.mean, cfg.data.std

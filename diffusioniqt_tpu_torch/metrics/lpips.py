@@ -185,17 +185,21 @@ def lpips_from_torch_checkpoint(path: str) -> LPIPS:
 
 class SliceLPIPS(nn.Module):
     """The training loss term over volumes: :func:`volume_to_slices` of
-    ``pred`` and of ``target`` (no gradient), then the mean LPIPS."""
+    ``pred`` and of ``target`` (no gradient), then the mean LPIPS.
+    ``group``: the data ranks' process group when each rank holds a share
+    of the batch (the mesh trainer sets it), so that the slices are
+    normalised over the whole batch."""
 
     def __init__(self, model: LPIPS, target_size: int = 224):
         super().__init__()
         self.model = model
         self.target_size = target_size
+        self.group = None
 
     def forward(self, pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-        pred_rgb = volume_to_slices(pred, self.target_size)
+        pred_rgb = volume_to_slices(pred, self.target_size, self.group)
         with torch.no_grad():
-            target_rgb = volume_to_slices(target, self.target_size)
+            target_rgb = volume_to_slices(target, self.target_size, self.group)
         return self.model(pred_rgb, target_rgb)
 
 

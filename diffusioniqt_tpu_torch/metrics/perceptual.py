@@ -29,13 +29,14 @@ computed without a graph (JAX's ``stop_gradient``).
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from diffusioniqt_tpu_torch.ops.volume import resize_volume
+from diffusioniqt_tpu_torch.parallel.sharding import global_extremes
 
 # flax's GroupNorm epsilon (torch's default is 1e-5)
 _GN_EPS = 1e-6
@@ -152,19 +153,27 @@ class MedPerceptualLoss(nn.Module):
         return loss / len(f_pred)
 
 
-def volume_to_slices(volume: torch.Tensor, target_size: int = 224) -> torch.Tensor:
+def volume_to_slices(volume: torch.Tensor, target_size: int = 224,
+                     group=None) -> torch.Tensor:
     """3D volume -> stacked 3-channel 2D slices for 2D LPIPS (JAX
     perceptual.py:105-124; reference ``volume_to_slices``,
     utils_mine.py:69-101). Input (B, X, Y, Z, C); output (N, target,
     target, 3), for each depth ``d`` in ``0, 9, 18, ...`` the coronal stack
     of ``d..d+2`` and then the sagittal one, each min-max normalised over
-    the whole stack and resized bilinearly."""
-    slices: Sequence[torch.Tensor] = []
+    the whole stack and resized bilinearly. With ``group`` (a process group
+    whose ranks each hold a share of the batch's rows) a stack's min and max
+    are those over every rank's share, as the one-process call over the
+    whole batch takes them (``parallel/sharding.py::global_extremes``)."""
+    stacks: List[torch.Tensor] = []
     depth = volume.shape[3]
     for d in range(0, depth - 2, 9):
-        coronal = torch.cat([volume[:, :, :, d + i, :] for i in range(3)], dim=-1)
-        sagittal = torch.cat([volume[:, :, d + i, :, 0:1] for i in range(3)], dim=-1)
-        for s in (coronal, sagittal):
-            s = (s - s.min()) / (s.max() - s.min() + 1e-8)
-            slices.append(resize_volume(s, target_size, "linear"))
+        stacks.append(torch.cat([volume[:, :, :, d + i, :] for i in range(3)], dim=-1))
+        stacks.append(torch.cat([volume[:, :, d + i, :, 0:1] for i in range(3)], dim=-1))
+    if group is None:
+        lo = [s.min() for s in stacks]
+        hi = [s.max() for s in stacks]
+    else:
+        lo, hi = global_extremes(stacks, group)
+    slices = [resize_volume((s - lo[i]) / (hi[i] - lo[i] + 1e-8), target_size, "linear")
+              for i, s in enumerate(stacks)]
     return torch.cat(slices, dim=0)

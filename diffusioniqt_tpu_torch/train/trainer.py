@@ -33,7 +33,39 @@ EMA and the bundle. The EDM loss has no such term (nor has the JAX
 package's), so an EDM config that sets one is refused rather than trained
 without it.
 
-One device: a mesh, multi-host training and fsspec URLs raise
+Data parallelism (``mesh``: a ``DeviceMesh`` with a ``data`` axis over
+the ranks of a process group, ``parallel/``): a W-rank run computes what
+the one-process run computes on the same seed, as the JAX mesh trainer's
+SPMD program does with one key for the global batch.
+
+  * every rank builds the same weights and takes rank 0's anyway
+    (``prepare``), and every rank sees the same global batch
+  * the microbatch count is the JAX mesh trainer's (:meth:`microbatches`
+    with the data size); each rank keeps, of every global microbatch, its
+    contiguous share of rows, selected patch-major before the 27-way
+    ``batch_sample`` split. A share is always whole 27-sub-volume groups:
+    the halo and the per-sub-volume GroupNorm need the whole group on one
+    rank. JAX's SPMD partitioner may split a group across devices; here
+    the count drops further until no microbatch does, and a batch whose
+    share cuts a group even whole (or whose rows do not divide over the
+    ranks) raises
+  * every rank draws the global microbatch's times / sigmas / noise from
+    its generator and keeps its rows, so the generators stay in step and
+    every rank's objective is the one-process objective (dropout masks,
+    from torch's default generator, are drawn per rank)
+  * after the microbatches the gradients (and the loss) are averaged over
+    the ranks in one flat all-reduce, before the clip, as optax clips the
+    global mean gradient: one collective per optimizer step rather than
+    DDP's bucketed reduction under ``no_sync``, because the step sums its
+    microbatches' gradients locally first and needs the reduced gradient
+    whole for the clip (overlapping the reduction with the backward is
+    later work); every rank then takes the same Adam and EMA update, so the
+    ranks' weights stay bitwise equal
+  * ``valid_step`` shards its batch by whole groups when it divides, and
+    ``sample`` spreads its patch batch (``parallel/sharding.py::sharded_sample``)
+  * only the main process writes bundles; every rank loads them
+
+A ``model`` mesh axis (tensor parallelism) and fsspec URLs raise
 ``NotImplementedError`` (not ported yet).
 """
 
@@ -52,7 +84,9 @@ from diffusioniqt_tpu_torch.data.loader import DataLoader, device_transfer_map
 from diffusioniqt_tpu_torch.diffusion.elucidated import ElucidatedImagen
 from diffusioniqt_tpu_torch.diffusion.gaussian import Imagen, gaussian_noise
 from diffusioniqt_tpu_torch.metrics.image import PSNR, SSIM
+from diffusioniqt_tpu_torch.metrics.lpips import SliceLPIPS
 from diffusioniqt_tpu_torch.ops.volume import subvolumes_to_volume, volume_to_subvolumes
+from diffusioniqt_tpu_torch.parallel import multihost, sharding
 from diffusioniqt_tpu_torch.train.ema import ema_update
 from diffusioniqt_tpu_torch.utils.checkpoints import restore_parts
 from diffusioniqt_tpu_torch.utils.misc import cast_tuple
@@ -126,8 +160,6 @@ class ImagenTrainer:
                  seed: int = 42, mesh=None):
         if not isinstance(imagen, (Imagen, ElucidatedImagen)):
             raise TypeError("an Imagen or ElucidatedImagen instance is required")
-        if mesh is not None:
-            raise NotImplementedError("the mesh (data-parallel) trainer is not ported yet")
         if (configs is not None and isinstance(imagen, ElucidatedImagen)
                 and (configs.train.lpips or configs.train.medlpips)):
             raise ValueError("Train.lpips / Train.medlpips: the EDM loss has no perceptual "
@@ -139,6 +171,11 @@ class ImagenTrainer:
         self.imagen = imagen
         self.is_elucidated = isinstance(imagen, ElucidatedImagen)
         self.configs = configs
+        self.mesh = mesh
+        if mesh is not None and isinstance(getattr(imagen, "lpips_fn", None), SliceLPIPS):
+            # its slices are normalised over the batch: over every rank's rows
+            imagen.lpips_fn.group = mesh.get_group("data")
+        self.data_size, self.data_rank = sharding.data_size(mesh), sharding.data_rank(mesh)
         self.num_unets = imagen.num_unets
         self.device = next(imagen.unets[-1].parameters()).device
 
@@ -176,9 +213,14 @@ class ImagenTrainer:
     # ------------------------------------------------------------------
     def prepare(self):
         """Per-unet Adam with zero moments (so a bundle always holds every
-        leaf, as the JAX ``tx.init`` tree does) and the EMA copies."""
+        leaf, as the JAX ``tx.init`` tree does) and the EMA copies. With a
+        mesh, rank 0's weights go to every rank first (version counters
+        bumped, so no rank keeps a stale packed weight)."""
         if self.prepared:
             return
+        if self.mesh is not None:
+            for unet in self.imagen.unets:
+                sharding.broadcast_params(unet, self.mesh)
         self.optimizers = []
         for index, unet in enumerate(self.imagen.unets):
             params = list(unet.parameters())
@@ -230,40 +272,102 @@ class ImagenTrainer:
         hr, lr_img = self._transfer(batch[:2])
         return hr.float(), lr_img.float()
 
-    def _maybe_batch_sample_split(self, hr, lr_img):
-        """96^3 -> 27 x 32^3 (reference trainer :724-728)."""
+    def _split_factor(self, hr) -> int:
+        """``batch_sample_factor`` when the batch still needs the 96^3 ->
+        27 x 32^3 split (reference trainer :724-728), else 1."""
         cfg = self.configs
         if cfg is not None and cfg.train.batch_sample and hr.shape[1] != cfg.train.patch_size_sub:
-            f = cfg.train.batch_sample_factor
+            return cfg.train.batch_sample_factor
+        return 1
+
+    def _maybe_batch_sample_split(self, hr, lr_img):
+        """96^3 -> 27 x 32^3 (reference trainer :724-728)."""
+        f = self._split_factor(hr)
+        if f > 1:
             hr, lr_img = volume_to_subvolumes(hr, f), volume_to_subvolumes(lr_img, f)
         return hr, lr_img
 
     # ------------------------------------------------------------------
+    def _stage_lowres(self, index: int, lr_img):
+        """The lowres batch, or None for a base (unconditioned) cascade
+        stage, which never sees it (JAX trainer.py:297-304)."""
+        return lr_img if getattr(self.imagen.unets[index], "lowres_cond", True) else None
+
     def _loss(self, index: int, hr, lr_img, draws: Dict[str, Any]) -> torch.Tensor:
-        # a base (unconditioned) cascade stage never sees the lowres batch
-        # (JAX trainer.py:297-304)
-        if not getattr(self.imagen.unets[index], "lowres_cond", True):
-            lr_img = None
-        out = self.imagen.forward(hr, lr_img, unet_number=index + 1,
+        out = self.imagen.forward(hr, self._stage_lowres(index, lr_img), unet_number=index + 1,
                                   generator=self.generator, **draws)
         return out if self.is_elucidated else out[0]
 
+    def _global_draws(self, index: int, rows: int, hr, lr_img, generator,
+                      given: Dict[str, Any]) -> Dict[str, Any]:
+        """The draws of a ``rows``-row global batch shaped like ``hr`` /
+        ``lr_img`` (None: no lowres input) past their first axis, as the
+        one-process forward draws them; those ``given`` are kept."""
+        return self.imagen.training_draws(
+            generator, (rows,) + tuple(hr.shape[1:]),
+            None if lr_img is None else (rows,) + tuple(lr_img.shape[1:]),
+            unet_number=index + 1, **given)
+
+    def _my_rows(self, draws: Dict[str, Any]) -> Dict[str, Any]:
+        """This rank's rows of a global batch's draws."""
+        return {k: sharding.shard_rows(v, self.mesh) for k, v in draws.items()}
+
     @staticmethod
-    def microbatches(b: int, accum: int, max_batch_size: Optional[int] = None) -> int:
-        """The number of microbatches a batch of ``b`` runs in (JAX
-        trainer.py:410-416)."""
+    def microbatches(b: int, accum: int, max_batch_size: Optional[int] = None,
+                     data_size: int = 1, group: int = 1) -> int:
+        """The number of microbatches a batch of ``b`` rows runs in (JAX
+        trainer.py:410-428): with a mesh, fewer until each microbatch splits
+        evenly over the ``data_size`` ranks, in whole groups of ``group``
+        rows per rank. With ``group`` 1 this is the JAX mesh trainer's
+        count; where that count would give a rank part of a 27-sub-volume
+        group (which JAX's SPMD program would split across devices), the
+        next smaller count that does not."""
         if max_batch_size is not None:
             accum = max(accum, -(-b // max_batch_size))
-        return accum if b % accum == 0 else 1
+        accum = accum if b % accum == 0 else 1
+        while accum > 1 and (b // accum) % (data_size * group):
+            accum -= 1
+        return accum
+
+    def _plan(self, units: int, rows_per_unit: int, max_batch_size: Optional[int]):
+        """``(accum, share)``: the microbatch count of a global batch of
+        ``units`` patches of ``rows_per_unit`` rows each, and the rows of
+        each microbatch that one rank takes. With a mesh, raises where the
+        JAX mesh trainer would drop rows or where a rank's share would cut a
+        27-group (the halo and the per-sub-volume GroupNorm need the whole
+        group on one rank)."""
+        b, n = units * rows_per_unit, self.data_size
+        if self.mesh is None:
+            accum = self.microbatches(b, self.gradient_accumulation_steps, max_batch_size)
+            return accum, b // accum
+        unit = max(self._sample_group_size(), rows_per_unit)
+        accum = self.microbatches(b, self.gradient_accumulation_steps, max_batch_size, n, unit)
+        if b % accum or b % n:
+            raise ValueError(f"a batch of {b} rows does not split into {accum} microbatches "
+                             f"over {n} data ranks")
+        share = b // accum // n
+        if share % unit:
+            raise ValueError(
+                f"each of {n} data ranks would take {share} rows of every {b // accum}-row "
+                f"microbatch, which cuts a group of {unit} sub-volumes: the halo and the "
+                f"per-sub-volume GroupNorm need the whole group on one rank")
+        return accum, share
+
+    def _local_batch(self, x: torch.Tensor, accum: int, share_units: int) -> torch.Tensor:
+        """This rank's patches of every microbatch, in microbatch order."""
+        per_mb = x.shape[0] // accum
+        lo = self.data_rank * share_units
+        return torch.cat([x[i * per_mb + lo:i * per_mb + lo + share_units]
+                          for i in range(accum)])
 
     def train_step(self, unet_number: Optional[int] = None,
                    max_batch_size: Optional[int] = None, batch=None, sync: bool = True,
                    draws: Optional[Sequence[Dict[str, Any]]] = None):
         """One optimizer step over ``batch=(hr, lr)`` (channels-last), else
         the next batch of the training loader. ``draws``: one dict of the
-        wrapper's ``forward`` draws per microbatch. Returns the mean
-        microbatch loss, a float, or with ``sync=False`` a device scalar
-        (no host sync)."""
+        wrapper's ``forward`` draws per microbatch (of the global microbatch
+        with a mesh). Returns the mean microbatch loss (over every rank), a
+        float, or with ``sync=False`` a device scalar (no host sync)."""
         unet_number = self.validate_unet_number(unet_number)
         index = unet_number - 1
         if batch is None:
@@ -272,21 +376,29 @@ class ImagenTrainer:
             if self._train_iter is None:
                 self._train_iter = _cycle(self.train_dl)
             batch = next(self._train_iter)
-        hr, lr_img = self._maybe_batch_sample_split(*self._device_batch(batch))
+        hr, lr_img = self._device_batch(batch)
         self.prepare()
 
-        b = hr.shape[0]
-        accum = self.microbatches(b, self.gradient_accumulation_steps, max_batch_size)
+        rows_per_unit = self._split_factor(hr) ** 3
+        accum, share = self._plan(hr.shape[0], rows_per_unit, max_batch_size)
         if draws is not None and len(draws) != accum:
             raise ValueError(f"{len(draws)} sets of draws for {accum} microbatches")
-        mb = b // accum
+        if self.mesh is not None:
+            hr, lr_img = (self._local_batch(t, accum, share // rows_per_unit)
+                          for t in (hr, lr_img))
+        hr, lr_img = self._maybe_batch_sample_split(hr, lr_img)
         unet, opt = self.imagen.unets[index], self.optimizers[index]
         unet.train()
         opt.zero_grad(set_to_none=True)
         loss_sum = torch.zeros((), device=self.device)
         for i in range(accum):
-            sl = slice(i * mb, (i + 1) * mb)
-            loss = self._loss(index, hr[sl], lr_img[sl], draws[i] if draws else {})
+            sl = slice(i * share, (i + 1) * share)
+            d = draws[i] if draws else {}
+            if self.mesh is not None:
+                d = self._my_rows(self._global_draws(
+                    index, share * self.data_size, hr, self._stage_lowres(index, lr_img),
+                    self.generator, d))
+            loss = self._loss(index, hr[sl], lr_img[sl], d)
             loss.backward()
             loss_sum += loss.detach()
 
@@ -298,6 +410,8 @@ class ImagenTrainer:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in params]
         torch._foreach_div_(grads, float(accum))
+        if self.mesh is not None:
+            sharding.all_reduce_mean_(grads + [loss_sum], self.mesh)
         if self.max_grad_norm is not None:
             clip_by_global_norm_(grads, self.max_grad_norm)
         for group in opt.param_groups:
@@ -331,7 +445,11 @@ class ImagenTrainer:
         """Validation sweep (reference :685-765; JAX trainer.py:509-594),
         reseeded to 42 on every call. Returns ``(loss, preds, x_noisy,
         [hrs, lowres_noisy], ssim, psnr)``, arrays on the host; SSIM and
-        PSNR of the merged volumes when the prediction is an x0 estimate."""
+        PSNR of the merged volumes when the prediction is an x0 estimate.
+        With a mesh, a batch of whole groups for every rank is sharded
+        (the global draws, each rank's rows, the outputs gathered: JAX
+        ``_put_valid_batch``), any other is computed whole on every rank;
+        every rank returns what the one-process sweep returns."""
         index = self.validate_unet_number(unet_number) - 1
         if self.valid_dl is None:
             raise RuntimeError("validation dataloader has not been registered")
@@ -343,17 +461,25 @@ class ImagenTrainer:
         unet = self.imagen.unets[index]
         unet.eval()
         generator = torch.Generator(device=self.device).manual_seed(42)
+        group = self._sample_group_size()
+        extra = {"return_outputs": True} if self.is_elucidated else {}
         losses, preds, noisy, hrs, lowres_list, ssims, psnrs = [], [], [], [], [], [], []
         for r in range(repeat):
             for batch in self.valid_dl:
                 hr, lr_img = self._maybe_batch_sample_split(*self._device_batch(batch))
-                if self.is_elucidated:
-                    loss, pred, x_noisy, lowres_noisy = self.imagen.forward(
-                        hr, lr_img, unet_number=index + 1, generator=generator,
-                        return_outputs=True)
+                b, n = hr.shape[0], self.data_size
+                if n > 1 and b % (n * group) == 0:
+                    d = self._my_rows(self._global_draws(index, b, hr, lr_img, generator, {}))
+                    loss, *outs = self.imagen.forward(
+                        sharding.shard_rows(hr, self.mesh), sharding.shard_rows(lr_img, self.mesh),
+                        unet_number=index + 1, **d, **extra)
+                    sharding.all_reduce_mean_([loss], self.mesh)
+                    pred, x_noisy, lowres_noisy = (
+                        None if o is None else sharding.all_gather_rows(o, self.mesh)
+                        for o in outs)
                 else:
                     loss, pred, x_noisy, lowres_noisy = self.imagen.forward(
-                        hr, lr_img, unet_number=index + 1, generator=generator)
+                        hr, lr_img, unet_number=index + 1, generator=generator, **extra)
                 losses.append(float(loss))
                 if pred_is_x_start:
                     pred_m = subvolumes_to_volume(pred, f) if split else pred
@@ -427,21 +553,28 @@ class ImagenTrainer:
         """Sampling with the EMA unets by default (reference trainer.sample,
         :1083-1097), chunked by ``max_batch_size`` rounded down to whole
         sub-volume groups; ``start_image_or_video`` is sliced per chunk.
-        ``noise`` defaults to the trainer's generator."""
+        ``noise`` defaults to the trainer's generator. With a mesh, each
+        chunk is spread over the data ranks and gathered back to every rank
+        (``parallel/sharding.py::sharded_sample``), equal to the one-process
+        result."""
         imagen = self._sampling_imagen(use_ema=not use_non_ema)
         noise = noise or gaussian_noise(self.generator)
         group = self._sample_group_size()
+
+        def run(n, **kw):
+            return sharding.sharded_sample(imagen.sample, self.mesh, batch_size=n,
+                                           noise=noise, group=group, **kw)
+
         if max_batch_size is not None and group > 1:
             max_batch_size = max(max_batch_size // group, 1) * group
         if max_batch_size is None or batch_size <= max_batch_size:
-            return imagen.sample(batch_size=batch_size, noise=noise, **kwargs)
+            return run(batch_size, **kwargs)
         start = kwargs.pop("start_image_or_video", None)
         outs = []
         for lo in range(0, batch_size, max_batch_size):
             hi = min(lo + max_batch_size, batch_size)
             chunk = None if start is None else start[lo:hi]
-            outs.append(imagen.sample(batch_size=hi - lo, noise=noise,
-                                      start_image_or_video=chunk, **kwargs))
+            outs.append(run(hi - lo, start_image_or_video=chunk, **kwargs))
         return torch.cat(outs, dim=0)
 
     # ------------------------------------------------------------------
@@ -465,20 +598,30 @@ class ImagenTrainer:
         return bundle
 
     def save(self, path: str):
-        """Write the bundle to ``path`` (a ``.pt`` file), atomically."""
+        """Write the bundle to ``path`` (a ``.pt`` file), atomically. With a
+        mesh, every rank calls it: the main process writes, and the others
+        wait for it (JAX trainer.py:977)."""
         if not self.prepared:
             raise RuntimeError("nothing to save: the trainer is not prepared")
-        path = os.path.abspath(path)
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        tmp = f"{path}.tmp{os.getpid()}"
-        torch.save(self.state_bundle(), tmp)
-        os.replace(tmp, path)
+        if self._writes():
+            path = os.path.abspath(path)
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            tmp = f"{path}.tmp{os.getpid()}"
+            torch.save(self.state_bundle(), tmp)
+            os.replace(tmp, path)
+        if self.mesh is not None:
+            multihost.barrier()
+
+    def _writes(self) -> bool:
+        """Whether this process writes files: always without a mesh, the
+        main process with one."""
+        return self.mesh is None or multihost.is_main_process()
 
     def load(self, path: str, strict: bool = True, noop_if_not_exist: bool = False):
-        """Restore a bundle written by :meth:`save`. ``strict=False`` keeps
-        every current part the bundle lacks or holds at another shape
-        (``utils/checkpoints.py::restore_parts``), as the ``pretrain`` path
-        of ``train.py`` loads."""
+        """Restore a bundle written by :meth:`save` (on every rank, with a
+        mesh). ``strict=False`` keeps every current part the bundle
+        lacks or holds at another shape (``utils/checkpoints.py::restore_parts``),
+        as the ``pretrain`` path of ``train.py`` loads."""
         if not os.path.exists(path):
             if noop_if_not_exist:
                 return
@@ -501,6 +644,10 @@ class ImagenTrainer:
                     {k[len(prefix):]: v for k, v in raw["ema"].items() if k.startswith(prefix)},
                     strict=strict)
                 self.ema_steps[i] = int(raw["ema"].get(f"{i}.step", 0))
+        # the packed-weight caches key on version counters: bump them after
+        # the in-place load, whatever the copy did
+        for module in list(self.imagen.unets) + list(self.ema_unets or []):
+            torch.autograd.graph.increment_version(list(module.parameters()))
         self.steps = [int(s) for s in raw["steps"]]
         # a generator of another device type has a state of another size:
         # its stream cannot be continued here
@@ -520,9 +667,10 @@ class ImagenTrainer:
 
     def save_to_checkpoint_folder(self):
         """``checkpoint.{total steps}.pt``, keeping the newest
-        ``max_checkpoints_keep`` (all with 0)."""
+        ``max_checkpoints_keep`` (all with 0); the main process writes and
+        prunes (JAX trainer.py:1148)."""
         self.save(os.path.join(self.checkpoint_path, f"checkpoint.{sum(self.steps)}.pt"))
-        if self.max_checkpoints_keep > 0:
+        if self.max_checkpoints_keep > 0 and self._writes():
             for stale in self.all_checkpoints_sorted[self.max_checkpoints_keep:]:
                 os.remove(stale)
 

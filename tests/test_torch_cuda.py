@@ -23,6 +23,8 @@ from diffusioniqt_tpu_torch.ops import kernels
 from diffusioniqt_tpu_torch.ops.kernels import fused_block as tfb
 from diffusioniqt_tpu_torch.ops.kernels.conv3d import pack_weight, pack_weight_small
 from diffusioniqt_tpu_torch.ops.stitch_device import DeviceVolumeStitcher, gather_windows
+from diffusioniqt_tpu_torch.parallel import multihost, sharding
+from diffusioniqt_tpu_torch.parallel.mesh import create_mesh
 from diffusioniqt_tpu_torch.train.ema import ema_update
 from diffusioniqt_tpu_torch.train.trainer import ImagenTrainer
 
@@ -379,6 +381,48 @@ def test_no_stale_pack_after_optimizer_ema_and_load(dev, impl):
 
     model.load_state_dict(_small_unet(dev, seed=2).state_dict())
     _kernel_vs_plain(model, x, lowres, t)
+
+
+def _broadcast_load_rank(device, path):
+    """One of two gloo ranks (sharing a card where there is one): its own
+    weights, packed by a kernel forward; then rank 0's, broadcast into the
+    parameters, and a bundle's, loaded into a mesh trainer. After each the
+    packs are fresh and the kernel forward agrees with the plain one."""
+    rank = multihost.process_index()
+    model = _small_unet(device, seed=10 + rank)
+    x, lowres, t = _inputs(device)
+    _kernel_vs_plain(model, x, lowres, t)
+    mesh = create_mesh(("data",))
+    sharding.broadcast_params(model, mesh)
+    _kernel_vs_plain(model, x, lowres, t)
+    want = _small_unet(device, seed=10).state_dict()
+    assert all(torch.equal(v, want[k]) for k, v in model.state_dict().items())
+
+    imagen = ElucidatedImagen([NullUnet(), model], image_sizes=(16, 16), channels=1,
+                              auto_normalize_img=False, dynamic_thresholding=False,
+                              norm="z-score", min_bound=-0.72, lowres_noise_aug=False)
+    trainer = ImagenTrainer(None, imagen, mesh=mesh, gradient_accumulation_steps=1)
+    other = ImagenTrainer(None, ElucidatedImagen(
+        [NullUnet(), _small_unet(device, seed=12)], image_sizes=(16, 16), channels=1,
+        auto_normalize_img=False, dynamic_thresholding=False, norm="z-score",
+        min_bound=-0.72, lowres_noise_aug=False), mesh=mesh)
+    other.prepare()
+    other.save(path)
+    trainer.load(path)
+    _kernel_vs_plain(model, x, lowres, t)
+    _kernel_vs_plain(trainer.ema_unets[1], x, lowres, t)
+    return True
+
+
+def test_no_stale_pack_after_broadcast_and_load(dev, tmp_path):
+    """After ``broadcast_params`` (rank 1's own weights packed first, then
+    rank 0's written over them) and after a mesh trainer's ``load``, the
+    fused Block's and conv3d's packed weights are repacked: the kernel
+    forward equals the plain one. Two gloo ranks, which may share one card
+    (NCCL takes one card per rank)."""
+    done = multihost.launch(_broadcast_load_rank, (str(tmp_path / "bundle.pt"),), nprocs=2,
+                            device="cuda", backend="gloo", timeout_s=300)
+    assert done == [True, True]
 
 
 def test_small_attention_unet_train_step_through_the_kernels(dev):
