@@ -5,14 +5,15 @@
 Phases, each of which raises (and exits non-zero) on failure:
 
   env           torch / CUDA versions, the card's name and power limit
-  build         nvcc builds the four kernels from ``diffusioniqt_tpu_torch/csrc``,
+  build         nvcc builds the four kernels' sources from ``diffusioniqt_tpu_torch/csrc``,
                 one process per source, all started together
   kernels       each kernel against its plain PyTorch version at every shape
                 the serve phases give it (bf16, batch 8 windows x 27
                 sub-volumes; attention over 8 windows x 8 heads), with
                 kernel, plain, library and bound times; kernel and library
                 times are the median of 5 timings (min and max beside
-                them), the plain version's one timing; the conv kernels
+                them; device time: the device sleeps while the host enqueues
+                the timed calls), the plain version's one timing; the conv kernels
                 are timed with a packed-weight cache filled before the
                 timed loop, as the model calls them, and conv3d at both of
                 its routes (small Cin on the path, the implicit GEMM at one
@@ -20,7 +21,11 @@ Phases, each of which raises (and exits non-zero) on failure:
                 on the already transformed input (conv_only_library_ms);
                 and at factor 1, config/config.yaml's SAME convs on its 27
                 sub-volumes: the halo at C 64 against F.pad (which
-                computes it in one call) and the fused Block at 64->64
+                computes it in one call) and the fused Block at 64->64;
+                and the fused Block's small-edge route (with the halo) at
+                its heaviest shape on each path: (216, 4^3, 256->256) at
+                factor 3 (forward-efficient) and (27, 2^3, 1024->1024) at
+                factor 1 (preset-srunet256)
   forward       the full-width ``config/eval_config.yaml`` UNet3D (seeded
                 random weights, bf16) on one 27 x 32^3 group, through the
                 kernels and through the plain versions; launches per forward
@@ -138,6 +143,43 @@ Phases, each of which raises (and exits non-zero) on failure:
                 the same global noise (and the difference one process
                 shows between 108 and 216 rows per call is printed)
 
+  forward-efficient  ``config/eval_config.yaml`` with ``Train.efficient: True``
+                (a pixel-unshuffle before every level, levels at 16^3, 8^3
+                and 4^3; every up level upsamples) at full width: one
+                27 x 32^3 window through the kernels and the plain versions
+                within FORWARD_REL_TOL; launches exactly EFFICIENT_COUNTS
+                (the fused Block's small-edge route at 4^3); the Blocks'
+                conv GFLOP beside the flagship's
+  serve-efficient  the serve phase's ``infer_volume`` call (8 windows, 20
+                ancestral steps) with that config; seconds and ms per
+                forward beside the serve phase's
+  edm-merged    edm-step's call with ``merged_boundary=True`` (the same
+                weights and noise) against the split model: bit for bit,
+                as merged mode runs on the split kernels
+  train-remat-conv  the gate's step (EDM, sigma_data 1.0, 8 patches of
+                96^3 in 2 microbatches of 108 x 32^3) under full remat and
+                under ``remat_policy='conv'``, 3 steps each from the same
+                weights, batch and draws: step-1 gradients within
+                train-step's GRAD_* bounds of each other; per policy s per
+                step, backward share, peak memory, launches per
+                microbatch (full: REMAT_COUNTS; 'conv': FLAGSHIP_COUNTS,
+                its backward launches nothing); then none / full / 'conv'
+                on one 27 x 32^3 microbatch: forward and backward ms, peak
+                memory, launches, 'conv' gradients equal to none's
+  preset-srunet256  ``SRUnet256(channels=1, lowres_cond=True)`` at its
+                full width (dim 128, mults (1, 2, 4, 8), ResnetBlocks (2,
+                4, 8, 8), memory_efficient, the cross-embed stem, ViT at
+                the middle), seeded weights on the card: one forward of a
+                96^3 window (27 x 32^3) through the kernels and the plain
+                versions within FORWARD_REL_TOL, launches exactly
+                SRUNET_COUNTS (the small-edge route at 4^3 and 2^3, up to
+                1024 channels); one 20-step ancestral sampler call of the
+                window; ms per forward, parameters, peak memory
+  cli           ``python -m diffusioniqt_tpu_torch.cli config``, then
+                ``train --steps 2`` and ``sample`` of the JAX CLI test's
+                small config, as subprocesses on the card: finite samples
+                of shape (2, 8, 8, 8, 1)
+
 ``python3 chip_smoke.py --profile`` also prints a ``torch.profiler``
 breakdown of one forward of each of the two configs at the serve batch,
 8 x 27 x 32^3 (device time by kernel, device busy share), and of one
@@ -161,7 +203,10 @@ them, max abs error
 against the plain version, times
 in ms at the main path's heaviest shape for that kernel, the bound and what
 sets it; for the halo and the fused Block also a ``factor1`` row with the
-train-base launches); the last line is ``{"ok": true, "device": {...}}``. Imports
+train-base launches; the halo's ``small_edge`` rows; the fused Block's
+small-edge route as its own row, ``fused_block_small``, launched in
+serve-efficient, with the SRUnet256 shape as its ``factor1`` row); the
+last line is ``{"ok": true, "device": {...}}``. Imports
 nothing of JAX or of ``diffusioniqt_tpu``. Exits non-zero without CUDA.
 """
 
@@ -184,6 +229,9 @@ sys.path.insert(0, ROOT)
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_HBM_BYTES = 3.35e12   # H100 SXM HBM3
+# torch.cuda._sleep cycles per ms at the H100 SXM's 1.98 GHz boost clock
+# (at a lower clock the sleep only lasts longer)
+SLEEP_CYCLES_PER_MS = 1.98e6
 # |kernel - plain| <= BF16_TOL * max|plain|: both sides round fp32 sums to
 # bf16 (half an ulp each, 2^-9 relative) after summing in different orders,
 # and the fused kernel's bf16 activations may round one ulp apart where
@@ -238,6 +286,7 @@ REPLACES = {
     "halo": "diffusioniqt_tpu/ops/pallas/halo.py:103",
     "conv3d": "diffusioniqt_tpu/ops/pallas/conv3d.py:83",
     "fused_block": "diffusioniqt_tpu/ops/pallas/fused_block.py:272",
+    "fused_block_small": "diffusioniqt_tpu/ops/pallas/fused_block.py:272",
     "flash_attention": "diffusioniqt_tpu/ops/pallas/flash_attention.py:90",
 }
 HEADLINE = {"halo": (32, 64), "conv3d": (32, 2, 64), "fused_block": (32, 64, 64),
@@ -249,13 +298,30 @@ FLAGSHIP_CONFIG = os.path.join("config", "eval_config.yaml")
 TRAIN_CONFIG = os.path.join("config", "config.yaml")
 EDM_CONFIG = os.path.join("config", "eval_edm.yaml")
 ATTN_CONFIG = os.path.join("diffusioniqt_tpu_torch", "configs", "eval_attn_softmax.yaml")
-# launches per forward of one 27-sub-volume group
-FLAGSHIP_COUNTS = {"halo": 39, "conv3d": 1, "fused_block": 38, "flash_attention": 0}
-ATTN_COUNTS = {"halo": 41, "conv3d": 1, "fused_block": 40, "flash_attention": 4}
+# launches per forward of one 27-sub-volume group (fused_block_small: the
+# fused Block's small-edge route, sub-volume edges 4 and 2)
+FLAGSHIP_COUNTS = {"halo": 39, "conv3d": 1, "fused_block": 38, "fused_block_small": 0,
+                   "flash_attention": 0}
+ATTN_COUNTS = {"halo": 41, "conv3d": 1, "fused_block": 40, "fused_block_small": 0,
+               "flash_attention": 4}
 # launches per microbatch forward + backward with Train.remat: each of the
 # 19 ResnetBlocks is recomputed in the backward, its 2 halos and 2 fused
 # blocks launched again; the init conv and its halo are not in a block
-REMAT_COUNTS = {"halo": 1 + 2 * 38, "conv3d": 1, "fused_block": 2 * 38, "flash_attention": 0}
+REMAT_COUNTS = {"halo": 1 + 2 * 38, "conv3d": 1, "fused_block": 2 * 38, "fused_block_small": 0,
+                "flash_attention": 0}
+# Train.efficient: levels at 16^3, 8^3, 4^3, up levels at 8^3, 16^3, 32^3;
+# the 3 ResnetBlocks at 4^3 take the small-edge route, the 16 others the
+# implicit GEMM
+EFFICIENT_COUNTS = {"halo": 39, "conv3d": 1, "fused_block": 32, "fused_block_small": 6,
+                    "flash_attention": 0}
+# SRUnet256 at 27 x 32^3: 54 ResnetBlocks (26 down, the mid one, 26 up, the
+# final one), 28 of them at 4^3 or 2^3; the cross-embed stem is cuDNN (no
+# conv3d); the mid ViT's one attention layer goes through flash
+SRUNET_COUNTS = {"halo": 108, "conv3d": 0, "fused_block": 52, "fused_block_small": 56,
+                 "flash_attention": 1}
+# the small-edge route's rows in the kernels phase: (batch, s, Cin, Cout,
+# factor) at its heaviest shape on each path
+SMALL_EDGE_SHAPES = [(BATCH, 4, 256, 256, 3), (GROUP, 2, 1024, 1024, 1)]
 # the train phase, as tools/quality_run.py trains the EDM flagship: 96^3
 # patches per optimizer step, microbatches per step (27 x 32^3 each), steps
 # (the EMA is applied every 10th), and the synthetic phantoms' edge and count
@@ -306,12 +372,35 @@ DDP_LOSS_REL_TOL = 5e-4
 # kernels against the plain versions. The rows check beside it holds the distributed sampler
 # bit for bit against one process sampling each rank's rows alone.
 DDP_SERVE_REL_TOL = FORWARD_REL_TOL
+# train-remat-conv: gate steps per policy
+REMAT_CONV_STEPS = 3
+# the cli phase's model: the JAX CLI test's small config
+# (tests/test_cli_entry.py:29-58)
+CLI_TINY_CONFIG = {
+    "elucidated": False,
+    "imagen": {
+        "unets": [
+            {"kind": "null"},
+            {"kind": "unet3d", "dim": 8, "dim_mults": [1, 2], "channels": 1,
+             "kwargs": {"num_resnet_blocks": 1, "init_dim": 8, "resnet_groups": 4,
+                        "init_cross_embed": False, "att_type": "linear",
+                        "attend_at_middle": False, "attend_at_enc": [False, False],
+                        "use_se_attn": True, "batch_sample": False, "boundary": False,
+                        "deep_feature": False, "img_size": 8}},
+        ],
+        "image_sizes": [8, 8], "channels": 1, "timesteps": 8, "pred_objectives": "x_start",
+        "cond_drop_prob": 0.0, "dynamic_thresholding": False, "norm": "z-score",
+    },
+}
 # a rank that has not finished by then fails the phase
 DDP_RANK_TIMEOUT_S = 600
 # device kernels of an accumulating scatter: the backward of a gather
 SCATTER_KERNELS = ("indexing_backward", "index_put")
 # device-kernel names of each hand-written kernel, for the profile's layers
-LAYERS = {"fused_block": ("igemm::conv_sm90<true",),
+LAYERS = {"fused_block": tuple(f"igemm::conv_sm90<true, {a}, {bn}, 0>"
+                               for a in ("true", "false") for bn in (64, 128)),
+          "fused_block_small": tuple(f"igemm::conv_sm90<true, true, {bn}, {e}>"
+                                     for bn in (64, 128) for e in (4, 2)),
           "conv3d": ("small_cin_kernel", "igemm::conv_sm90<false"),
           "halo": ("halo_row_kernel",), "flash_attention": ("flash_kernel",)}
 # the one PyTorch call timed beside each kernel as its library yardstick
@@ -320,6 +409,8 @@ LIBRARY = {"halo": "index_select gather from a precomputed source table",
            "fused_block": "none: no single PyTorch call computes GroupNorm-affine + "
                           "Mish + halo'd conv (conv_only_library_ms: F.conv3d, cuDNN, on "
                           "the transformed input materialised beforehand)",
+           "fused_block_small": "none, as for fused_block (conv_only_library_ms: "
+                                "F.conv3d, cuDNN, on the transformed input)",
            "flash_attention": "F.scaled_dot_product_attention"}
 
 
@@ -341,9 +432,32 @@ def cuda_time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """Device ms per ``fn()``: CUDA events around ``iters`` calls, after the
+    device has slept for longer than the host takes to enqueue them, so
+    that a call whose host side (checks, TMA descriptors, ctypes) takes
+    longer than its kernels is timed by its kernels, back to back, and not
+    by the host's launch rate."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(min(2.0 * iters * host_ms + 0.5, 200.0) * SLEEP_CYCLES_PER_MS))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def timed(fn, repeats: int = 5, **kw):
-    """(median, min, max) of ``repeats`` timings of :func:`cuda_time_ms`."""
-    runs = sorted(cuda_time_ms(fn, **kw) for _ in range(repeats))
+    """(median, min, max) of ``repeats`` timings of :func:`device_time_ms`."""
+    runs = sorted(device_time_ms(fn, **kw) for _ in range(repeats))
     return runs[len(runs) // 2], runs[0], runs[-1]
 
 
@@ -563,7 +677,7 @@ def main() -> int:
         population_stats,
     )
     from diffusioniqt_tpu_torch.diffusion.elucidated import elucidated_imagen_from_config
-    from diffusioniqt_tpu_torch.diffusion.gaussian import gaussian_noise
+    from diffusioniqt_tpu_torch.diffusion.gaussian import gaussian_noise, imagen_from_config
     from diffusioniqt_tpu_torch.evaluate import evaluate
     from diffusioniqt_tpu_torch.infer import (
         build_sampler,
@@ -571,7 +685,8 @@ def main() -> int:
         fake_volumes,
         infer_volume,
     )
-    from diffusioniqt_tpu_torch.models.unet3d import NullUnet, iqt_unet_from_config
+    from diffusioniqt_tpu_torch.models.blocks import Block
+    from diffusioniqt_tpu_torch.models.unet3d import NullUnet, SRUnet256, iqt_unet_from_config
     from diffusioniqt_tpu_torch.train.__main__ import build_trainer
     from diffusioniqt_tpu_torch.train.ema import ema_update
     from diffusioniqt_tpu_torch.ops import kernels
@@ -756,6 +871,57 @@ def main() -> int:
            conv_only_library_ms=timed(lambda: torch.nn.functional.conv3d(act_cf, w_bf)))
     del act_cf, xh, got, want
 
+    # the fused Block's small-edge route and the halo at its input, at the
+    # route's heaviest shape on each path: the efficient flagship's 4^3
+    # level (factor 3) and SRUnet256's 2^3 level (factor 1)
+    for n, s, cin, cout, f in SMALL_EDGE_SHAPES:
+        x = torch.randn((n, s, s, s, cin), generator=gen, device=dev).to(torch.bfloat16)
+        xh = kernels.halo_exchange(x, f)
+        want = halo_plain(x, f)
+        torch.cuda.synchronize()
+        stats = compare("halo small edge", (n, s, s, s, cin), xh, want, 0.0)
+        if f == 1:
+            lib = lambda: torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1, 1, 1))  # noqa: E731
+        else:  # the gather yardstick of the halo rows above
+            ids = torch.arange(1, n * s ** 3 + 1, device=dev).view(n, s, s, s, 1)
+            src_ids = halo_plain(ids, f).flatten()
+            idx = torch.where(src_ids == 0, n * s ** 3, src_ids - 1)
+            src = torch.cat([x.reshape(-1, cin), x.new_zeros((1, cin))])
+            lib = lambda: torch.index_select(src, 0, idx)  # noqa: E731
+        if not torch.equal(lib().view_as(xh), xh):
+            raise AssertionError("halo small edge: the library yardstick disagrees with the kernel")
+        record("halo_small", (n, s, cin), stats, timed(lambda: kernels.halo_exchange(x, f)),
+               cuda_time_ms(lambda: halo_plain(x, f)), timed(lib), bound_ms(0.0, nbytes(x, xh)))
+        results["halo_small"][-1]["factor"] = f
+        ns = 1.0 + 0.1 * torch.randn(cin, generator=gen, device=dev)
+        nb = 0.1 * torch.randn(cin, generator=gen, device=dev)
+        ss = tuple(0.2 * torch.randn((n, 1, 1, 1, cin), generator=gen, device=dev)
+                   for _ in range(2))
+        w = torch.randn((cout, cin, 3, 3, 3), generator=gen, device=dev) * (cin * 27) ** -0.5
+        a, b = groupnorm_affine(x, ns, nb, 8, scale_shift=ss)
+        a_tab, b_tab = neighbor_tables(a, b, f)
+        cache = PackedWeight()
+        before = kernels.launch_counts()["fused_block_small"]
+        got = kernels.fused_conv(xh, a_tab, b_tab, w, cache)
+        if kernels.launch_counts()["fused_block_small"] != before + 1:
+            raise AssertionError(f"fused_block at s={s} did not take the small-edge route")
+        want = kernels.fused_conv_plain(xh, a_tab, b_tab, w)
+        torch.cuda.synchronize()
+        stats = compare("fused_block small edge", (n, s, cin, cout), got, want, BF16_TOL)
+        reg = fused_module._region_index(s + 2, dev)
+        act = fused_module.mish_one_exp(a_tab[:, reg] * xh.float() + b_tab[:, reg])
+        act_cf = act.to(torch.bfloat16).permute(0, 4, 1, 2, 3)
+        w_bf = w.to(torch.bfloat16)
+        del act
+        record("fused_block_small", (n, s, cin, cout), stats,
+               timed(lambda: kernels.fused_conv(xh, a_tab, b_tab, w, cache)),
+               cuda_time_ms(lambda: kernels.fused_conv_plain(xh, a_tab, b_tab, w), iters=3),
+               None, bound_ms(2.0 * n * s ** 3 * 27 * cin * cout,
+                              nbytes(xh, a_tab, b_tab, w_bf, got)),
+               conv_only_library_ms=timed(lambda: torch.nn.functional.conv3d(act_cf, w_bf)))
+        results["fused_block_small"][-1]["factor"] = f
+        del act_cf, xh, got, want, x
+
     for bh, n, d in FLASH_SHAPES:
         q, k, v = (torch.randn((bh, n, d), generator=gen, device=dev).to(torch.bfloat16)
                    for _ in range(3))
@@ -777,12 +943,14 @@ def main() -> int:
         print(json.dumps({"kernel_rows": results}))
         return 0
 
-    def held_forward(label, cfg, want_counts, profile):
+    def held_forward(label, cfg, want_counts, profile, build=None):
         """One 27 x 32^3 window through the kernels and through the plain
-        versions: exact launch counts, agreement within FORWARD_REL_TOL."""
+        versions: exact launch counts, agreement within FORWARD_REL_TOL.
+        ``build`` makes the model (default: ``iqt_unet_from_config(cfg)``),
+        seeded. Returns ms per forward and the Blocks' conv GFLOP."""
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(0)
-            model = iqt_unet_from_config(cfg, device=dev).eval()
+            model = (build() if build else iqt_unet_from_config(cfg, device=dev)).eval()
         x, lowres = (torch.randn((BATCH, SUB, SUB, SUB, 1), generator=gen, device=dev)
                      for _ in range(2))
         t = torch.full((BATCH,), 0.5, device=dev)
@@ -798,11 +966,18 @@ def main() -> int:
                           f"of one forward, {len(slots)} slots", flush=True)
         # the held forward: one window's 27 sub-volumes
         x, lowres, t, log_snr = x[:GROUP], lowres[:GROUP], t[:GROUP], log_snr[:GROUP]
+        flops = []  # the Blocks' 3^3 convs: 2 * voxels * 27 * Cin * Cout each
+        hooks = [m.register_forward_pre_hook(
+            lambda mod, a: flops.append(2.0 * a[0][..., 0].numel() * 27 * a[0].shape[-1]
+                                        * mod.project.out_channels))
+            for m in model.modules() if isinstance(m, Block)]
         with torch.no_grad():
             kernels.reset_launch_counts()
             out_k = model(x, t, log_snr, lowres_cond_img=lowres)
             torch.cuda.synchronize()
             per_forward = kernels.launch_counts()
+            for h in hooks:
+                h.remove()
             print(f"launches per forward {per_forward}")
             if per_forward != want_counts:
                 raise AssertionError(f"launches per forward {per_forward}, "
@@ -818,11 +993,13 @@ def main() -> int:
         print(f"forward out {tuple(out_k.shape)} {out_k.dtype} finite "
               f"{bool(torch.isfinite(out_k).all())} max_rel_err_vs_plain {rel:.3e} "
               f"(tol {FORWARD_REL_TOL})")
-        print(f"ms per forward (27x32^3, bf16): kernels {fwd_ms:.3f} plain {plain_fwd_ms:.3f}",
-              flush=True)
+        print(f"ms per forward (27x32^3, bf16): kernels {fwd_ms:.3f} plain {plain_fwd_ms:.3f}; "
+              f"the Blocks' 3^3 convs {sum(flops) / 1e9:.1f} GFLOP ({len(flops)} Blocks); "
+              f"parameters {sum(p.numel() for p in model.parameters())}", flush=True)
         if not (torch.isfinite(out_k).all() and rel <= FORWARD_REL_TOL):
             raise AssertionError(f"{label}: forward through the kernels disagrees with "
                                  "the plain path")
+        return {"ms": fwd_ms, "gflop": sum(flops) / 1e9, "model": model}
 
     def serve(cfg, per_forward):
         """infer_volume on the seeded fake 128^3 volume; the launches must be
@@ -907,6 +1084,243 @@ def main() -> int:
         if not (torch.isfinite(out_k).all() and rel <= FORWARD_REL_TOL):
             raise AssertionError("edm-step: the sampler through the kernels disagrees "
                                  "with the plain path")
+
+    def edm_merged(cfg):
+        """edm-step's call with ``merged_boundary=True`` (the same weights
+        and noise) against the split model: merged mode runs on the split
+        kernels, so the two must agree bit for bit."""
+        split = build_sampler(cfg, device=dev, seed=0)
+        merged_unet = iqt_unet_from_config(cfg, device=dev, merged_boundary=True).eval()
+        merged_unet.load_state_dict(split.unets[-1].state_dict())
+        merged = elucidated_imagen_from_config(cfg, (NullUnet().to(dev), merged_unet))
+        lowres = torch.randn((GROUP, SUB, SUB, SUB, 1), generator=gen, device=dev)
+
+        def run(imagen):
+            noise = gaussian_noise(torch.Generator(device=dev).manual_seed(0))
+            return imagen.sample(batch_size=GROUP, noise=noise, start_at_unet_number=2,
+                                 start_image_or_video=lowres)
+
+        kernels.reset_launch_counts()
+        out_m = run(merged)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        out_s = run(split)
+        equal = torch.equal(out_m, out_s)
+        print(f"edm 2 steps, merged_boundary vs split: out {tuple(out_m.shape)} finite "
+              f"{bool(torch.isfinite(out_m).all())} equal {equal} max abs diff "
+              f"{(out_m - out_s).abs().max().item():.3e}; launches {counts}", flush=True)
+        if counts != {k: 3 * n for k, n in FLAGSHIP_COUNTS.items()}:
+            raise AssertionError(f"edm-merged launches {counts}")
+        if not (torch.isfinite(out_m).all() and equal):
+            raise AssertionError("edm-merged: merged mode differs from the split layout")
+
+    def train_remat_conv():
+        """The gate's step under full remat and under remat_policy 'conv' from
+        the same weights, batches and draws; then none / full / 'conv' on one
+        27 x 32^3 microbatch."""
+        from diffusioniqt_tpu_torch import quality_run
+
+        cfg = quality_run.flagship_cfg(elucidated=True, device=dev)
+        cfg.train.edm_sigma_data = QUALITY_SIGMA_DATA
+        pairs = quality_run.training_pairs(PHANTOM_EDGE, PHANTOMS)
+        cfg.data.mean, cfg.data.std = population_stats([lr for _, lr in pairs])
+        cfg.data.mean_hr, cfg.data.std_hr = population_stats([hr for hr, _ in pairs])
+        dataset = SyntheticIQTDataset(cfg, seed=0, samples_per_volume=8, pairs=pairs)
+        items = [dataset[j] for j in range(REMAT_CONV_STEPS * QUALITY_PATCHES)]
+        batches = [tuple(np.stack(a) for a in zip(*items[i * QUALITY_PATCHES:
+                                                         (i + 1) * QUALITY_PATCHES]))
+                   for i in range(REMAT_CONV_STEPS)]
+        rows = QUALITY_PATCHES * GROUP // QUALITY_ACCUM
+        state, out = None, {}
+        for policy in (None, "conv"):
+            trainer = quality_run.build_trainer(cfg, accum=QUALITY_ACCUM, remat=True,
+                                                device=dev, remat_policy=policy)
+            unet = trainer.imagen.unets[1]
+            if state is None:
+                state = {k: v.detach().clone() for k, v in unet.state_dict().items()}
+            else:
+                unet.load_state_dict(state)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            step_s, counts, losses = [], [], []
+            for i, batch in enumerate(batches):
+                kernels.reset_launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses.append(trainer.train_step(unet_number=2, batch=batch))
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                counts.append(kernels.launch_counts())
+                if i == 0:
+                    grads = {k: p.grad.detach().cpu() for k, p in unet.named_parameters()}
+            peak = torch.cuda.max_memory_allocated()
+            hr, lr = trainer._maybe_batch_sample_split(*trainer._device_batch(batches[0]))
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            events[0].record()
+            loss = trainer._loss(1, hr[:rows], lr[:rows], {})
+            events[1].record()
+            loss.backward()
+            events[2].record()
+            torch.cuda.synchronize()
+            fwd, bwd = events[0].elapsed_time(events[1]), events[1].elapsed_time(events[2])
+            want = {k: QUALITY_ACCUM * n for k, n in
+                    (REMAT_COUNTS if policy is None else FLAGSHIP_COUNTS).items()}
+            name = "full" if policy is None else "conv"
+            med = sorted(step_s[1:])[len(step_s[1:]) // 2]
+            print(f"remat {name}: gate step ({QUALITY_ACCUM} microbatches of {rows} x 32^3) "
+                  f"losses {' '.join(f'{v:.5f}' for v in losses)}; step seconds "
+                  f"{' '.join(f'{v:.3f}' for v in step_s)}, median of steps 2-"
+                  f"{REMAT_CONV_STEPS} {med:.4f}; microbatch forward {fwd:.3f} ms backward "
+                  f"{bwd:.3f} ms, backward share {bwd / (fwd + bwd):.3f}; peak memory "
+                  f"{peak / 2 ** 30:.2f} GiB; launches per step {counts[0]}, per microbatch "
+                  f"{ {k: v // QUALITY_ACCUM for k, v in counts[0].items()} }", flush=True)
+            if any(c != want for c in counts):
+                raise AssertionError(f"train-remat-conv {name}: launches {counts}, expected "
+                                     f"{want} per step")
+            if not all(math.isfinite(v) for v in losses):
+                raise AssertionError(f"train-remat-conv {name}: a loss is not finite")
+            out[name] = {"s_per_step": med, "peak": peak, "grads": grads, "losses": losses,
+                         "share": bwd / (fwd + bwd)}
+            if policy == "conv":
+                break
+            del trainer, unet, loss, grads
+            torch.cuda.empty_cache()
+        per, cos_all, norm_rel = grad_stats(out["conv"]["grads"], out["full"]["grads"])
+        worst = sorted(per.items(), key=lambda kv: kv[1])[:3]
+        print(f"  step-1 gradient 'conv' vs full remat: whole cos {cos_all:.7f} (min "
+              f"{GRAD_GLOBAL_COS_MIN}), norm rel {norm_rel:.3e} (tol {GRAD_GLOBAL_NORM_REL_TOL}), "
+              f"per-tensor cos min {worst[0][1]:.6f} (min {GRAD_TENSOR_COS_MIN}); s per gate step "
+              f"full {out['full']['s_per_step']:.4f} 'conv' {out['conv']['s_per_step']:.4f}; "
+              f"peak full {out['full']['peak'] / 2 ** 30:.2f} 'conv' "
+              f"{out['conv']['peak'] / 2 ** 30:.2f} GiB", flush=True)
+        if (cos_all < GRAD_GLOBAL_COS_MIN or norm_rel > GRAD_GLOBAL_NORM_REL_TOL
+                or worst[0][1] < GRAD_TENSOR_COS_MIN):
+            raise AssertionError("train-remat-conv: 'conv' gradients disagree with full remat's")
+
+        # none / full / 'conv' on one 27 x 32^3 microbatch, cuDNN deterministic
+        imagen, model = trainer.imagen, unet
+        hr27, lr27 = hr[:GROUP], lr[:GROUP]
+        draws = {"sigmas": imagen.hparams[1].noise_distribution(gen, GROUP),
+                 "noise": torch.randn((GROUP, SUB, SUB, SUB, 1), generator=gen, device=dev)}
+        torch.backends.cudnn.deterministic = True
+        three = {}
+        for name, remat, policy in (("none", False, None), ("full", True, None),
+                                    ("conv", True, "conv")):
+            model.remat, model.remat_policy = remat, policy
+            model.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            kernels.reset_launch_counts()
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            events[0].record()
+            loss = imagen.forward(hr27, lr27, unet_number=2, **draws)
+            events[1].record()
+            loss.backward()
+            events[2].record()
+            torch.cuda.synchronize()
+            three[name] = {"fwd": events[0].elapsed_time(events[1]),
+                           "bwd": events[1].elapsed_time(events[2]),
+                           "peak": torch.cuda.max_memory_allocated() - base,
+                           "counts": kernels.launch_counts(),
+                           "grads": {k: p.grad.detach().cpu() for k, p in model.named_parameters()}}
+            print(f"  27 x 32^3 microbatch, remat {name}: forward {three[name]['fwd']:.3f} ms, "
+                  f"backward {three[name]['bwd']:.3f} ms, peak memory above the "
+                  f"{base / 2 ** 30:.2f} GiB before it {three[name]['peak'] / 2 ** 30:.3f} GiB, "
+                  f"launches {three[name]['counts']}", flush=True)
+        torch.backends.cudnn.deterministic = False
+        model.remat, model.remat_policy = True, "conv"
+        diff = {n: max((three[n]["grads"][k] - three["none"]["grads"][k]).abs().max().item()
+                       for k in three["none"]["grads"]) for n in ("full", "conv")}
+        print(f"  gradients against none: full remat max abs diff {diff['full']:.3e}, 'conv' "
+              f"{diff['conv']:.3e}", flush=True)
+        if three["conv"]["counts"] != FLAGSHIP_COUNTS or three["full"]["counts"] != REMAT_COUNTS:
+            raise AssertionError("train-remat-conv: launches per microbatch differ")
+        if diff["conv"] != 0.0:
+            raise AssertionError("train-remat-conv: 'conv' gradients differ from no remat's")
+        if not three["full"]["peak"] < three["conv"]["peak"] <= three["none"]["peak"]:
+            raise AssertionError("train-remat-conv: 'conv' peak memory is not between full "
+                                 "remat's and no remat's")
+        del trainer, model, imagen, three, out
+        torch.cuda.empty_cache()
+
+    def preset_srunet256(cfg):
+        """SRUnet256 at full width on one 96^3 window: the held forward, then
+        one 20-step ancestral sampler call (``cfg``'s Gaussian wrapper)."""
+        def build():
+            with torch.device(dev):
+                return SRUnet256(channels=1, lowres_cond=True, dtype=torch.bfloat16)
+
+        torch.cuda.reset_peak_memory_stats()
+        held = held_forward("SRUnet256", None, SRUNET_COUNTS, profile=False, build=build)
+        model = held["model"]
+        imagen = imagen_from_config(cfg, (NullUnet().to(dev), model))
+        lowres = torch.randn((GROUP, SUB, SUB, SUB, 1), generator=gen, device=dev)
+        steps = cfg.train.timesteps
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = imagen.sample(batch_size=GROUP,
+                                noise=gaussian_noise(torch.Generator(device=dev).manual_seed(0)),
+                                start_at_unet_number=2, start_image_or_video=lowres)
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        print(f"SRUnet256 {sum(p.numel() for p in model.parameters())} parameters; one "
+              f"{steps}-step ancestral call of a 96^3 window: {call_s:.3f} s, "
+              f"{call_s * 1e3 / steps:.3f} ms per step; held forward {held['ms']:.3f} ms, "
+              f"{held['gflop']:.1f} GFLOP in the Blocks' convs; peak memory "
+              f"{peak / 2 ** 30:.2f} GiB; out {tuple(out.shape)} finite "
+              f"{bool(torch.isfinite(out).all())}; launches {counts}", flush=True)
+        if counts != {k: steps * n for k, n in SRUNET_COUNTS.items()}:
+            raise AssertionError(f"preset-srunet256: launches {counts}")
+        if out.shape != (GROUP, SUB, SUB, SUB, 1) or not torch.isfinite(out).all():
+            raise AssertionError("preset-srunet256: the sample is not finite or of the shape")
+        del model, imagen, held
+        torch.cuda.empty_cache()
+        return counts
+
+    def cli_phase():
+        """``python -m diffusioniqt_tpu_torch.cli`` config, train, sample as
+        subprocesses on the card."""
+        work = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+        try:
+            def run(*argv):
+                t0 = time.perf_counter()
+                proc = subprocess.run(
+                    [sys.executable, "-m", "diffusioniqt_tpu_torch.cli", *argv], cwd=ROOT,
+                    env={**os.environ, "PYTHONPATH": ROOT}, capture_output=True, text=True,
+                    timeout=600)
+                lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+                print(f"cli {argv[0]}: rc {proc.returncode} in {time.perf_counter() - t0:.1f} "
+                      f"s; {lines[-2:]}", flush=True)
+                if proc.returncode != 0:
+                    raise AssertionError(f"cli {argv[0]} failed:\n" + proc.stdout[-3000:]
+                                         + proc.stderr[-3000:])
+
+            starter = os.path.join(work, "starter.json")
+            run("config", "--path", starter)
+            with open(starter) as fh:
+                if set(json.load(fh)) != {"elucidated", "imagen"}:
+                    raise AssertionError("cli config: not a model config")
+            tiny, ckpt = os.path.join(work, "tiny.json"), os.path.join(work, "ckpt.pt")
+            samples = os.path.join(work, "samples.npy")
+            with open(tiny, "w") as fh:
+                json.dump(CLI_TINY_CONFIG, fh)
+            run("train", "--config", tiny, "--checkpoint", ckpt, "--steps", "2",
+                "--batch-size", "2")
+            run("sample", "--config", tiny, "--checkpoint", ckpt, "--batch-size", "2",
+                "--output", samples)
+            arr = np.load(samples)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        print(f"cli samples {arr.shape} finite {bool(np.isfinite(arr).all())}", flush=True)
+        if arr.shape != (2, 8, 8, 8, 1) or not np.isfinite(arr).all():
+            raise AssertionError("cli: the samples are not finite or of the shape")
 
     def stitch():
         """The users' 240^3 volume at overlap 32: 125 seeded window
@@ -1647,6 +2061,8 @@ def main() -> int:
     cfg_edm = load_config(os.path.join(ROOT, EDM_CONFIG))
     cfg_edm_step = load_config(os.path.join(ROOT, EDM_CONFIG))
     cfg_edm_step.train.edm_num_sample_steps = 2
+    cfg_eff = load_config(os.path.join(ROOT, FLAGSHIP_CONFIG))
+    cfg_eff.train.efficient = True
 
     if "--ddp-only" in sys.argv[1:]:
         phase("serve")
@@ -1659,17 +2075,31 @@ def main() -> int:
         return 0
 
     phase("forward")
-    held_forward("flagship", cfg, FLAGSHIP_COUNTS, profile=True)
+    flagship_fwd = held_forward("flagship", cfg, FLAGSHIP_COUNTS, profile=True)
     phase("forward-attn")
     held_forward("attention", cfg_attn, ATTN_COUNTS, profile=True)
     phase("forward-vit")
     held_forward("vit", cfg_vit, ATTN_COUNTS, profile=False)
+    phase("forward-efficient")
+    efficient_fwd = held_forward("efficient", cfg_eff, EFFICIENT_COUNTS, profile=True)
+    print(f"efficient vs flagship forward (27 x 32^3): {efficient_fwd['ms']:.3f} vs "
+          f"{flagship_fwd['ms']:.3f} ms, the Blocks' convs {efficient_fwd['gflop']:.1f} vs "
+          f"{flagship_fwd['gflop']:.1f} GFLOP", flush=True)
+    del flagship_fwd["model"], efficient_fwd["model"]
+    phase("preset-srunet256")
+    served_srunet = preset_srunet256(cfg)
     phase("serve")
     served, pred_serve, _, serve_s = serve(cfg, FLAGSHIP_COUNTS)
     phase("serve-attn")
     served_attn, _, _, _ = serve(cfg_attn, ATTN_COUNTS)
+    phase("serve-efficient")
+    served_eff, _, _, serve_eff_s = serve(cfg_eff, EFFICIENT_COUNTS)
+    print(f"serve-efficient {serve_eff_s:.3f} s against the serve phase's {serve_s:.3f} s "
+          f"(8 windows, {cfg.train.timesteps} steps)", flush=True)
     phase("edm-step")
     edm_step(cfg_edm_step)
+    phase("edm-merged")
+    edm_merged(cfg_edm_step)
     phase("serve-edm")
     served_edm, pred_edm, highres_edm, _ = serve(cfg_edm, FLAGSHIP_COUNTS)
     phase("stitch")
@@ -1686,6 +2116,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase("quality")
     gated, gate_evaluated = quality_phase()
+    phase("train-remat-conv")
+    train_remat_conv()
     # config/config.yaml's training, with the cuDNN TF32 setting the
     # training entry point runs with (torch's default; the kernel checks
     # above hold fp32 references with it off)
@@ -1704,6 +2136,8 @@ def main() -> int:
     ddp_trained = ddp_train(pairs)
     phase("ddp-serve")
     ddp_served = ddp_serve(cfg, pred_serve, serve_s)
+    phase("cli")
+    cli_phase()
 
     # ------------------------------------------------------------- report
     line = []
@@ -1731,7 +2165,10 @@ def main() -> int:
             # sampler for the conv kernels, the attention config for flash
             "launches": (served_attn if name == "flash_attention" else served_edm)[name],
             "launches_by_path": {"serve": served[name], "serve-attn": served_attn[name],
-                                 "serve-edm": served_edm[name], "train": trained[name],
+                                 "serve-edm": served_edm[name],
+                                 "serve-efficient": served_eff[name],
+                                 "preset-srunet256 sampler call": served_srunet[name],
+                                 "train": trained[name],
                                  "quality": gated[name], "quality-eval": gate_evaluated[name],
                                  **{k: c["launches"][name] for k, c in cells.items()},
                                  "ddp-train (rank 0)": ddp_trained[name],
@@ -1745,6 +2182,36 @@ def main() -> int:
             "library_ms_max": head["library_ms_max"], "library": LIBRARY[name],
             "shape": "x".join(str(v) for v in head["shape"]), **extra,
         })
+    line[0]["small_edge"] = [{k: r[k] for k in ("shape", "factor", "max_abs_err", "ms", "ms_min",
+                                              "ms_max", "plain_ms", "bound_ms", "bound_by",
+                                              "library_ms", "library_ms_min", "library_ms_max")}
+                             for r in results["halo_small"]]
+    small = results["fused_block_small"]
+    head, f1 = small[0], small[1]
+    keys = ("shape", "max_abs_err", "ms", "ms_min", "ms_max", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "conv_only_library_ms", "conv_only_library_ms_min",
+            "conv_only_library_ms_max")
+    line.insert(3, {
+        "name": "fused_block_small", "route": "cuda",
+        "source": "diffusioniqt_tpu_torch/csrc/fused_block.cu",
+        "replaces": REPLACES["fused_block_small"],
+        # the serve run of its path: the efficient flagship's sampler call
+        "launches": served_eff["fused_block_small"],
+        "launches_by_path": {"serve-efficient": served_eff["fused_block_small"],
+                             "preset-srunet256 sampler call": served_srunet["fused_block_small"],
+                             "forward-efficient": EFFICIENT_COUNTS["fused_block_small"]},
+        "max_abs_err": max(r["max_abs_err"] for r in small), "tolerance": head["tol"],
+        "ms": head["ms"], "ms_min": head["ms_min"], "ms_max": head["ms_max"],
+        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": None, "library_ms_min": None, "library_ms_max": None,
+        "library": LIBRARY["fused_block_small"],
+        "shape": "x".join(str(v) for v in head["shape"]),
+        "conv_only_library_ms": head["conv_only_library_ms"],
+        "conv_only_library_ms_min": head["conv_only_library_ms_min"],
+        "conv_only_library_ms_max": head["conv_only_library_ms_max"],
+        "factor1": {**{k: f1[k] for k in keys}, "launches_preset_srunet256":
+                    served_srunet["fused_block_small"]},
+    })
     print(f"total seconds {time.perf_counter() - t_all:.1f}")
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

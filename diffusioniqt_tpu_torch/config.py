@@ -149,9 +149,9 @@ class TrainConfig:
     # rematerialize ResnetBlocks on backward (activation memory lever)
     remat: bool = False
     # remat policy: None = full-block recompute (max memory savings);
-    # 'conv' = save conv inputs/outputs and recompute only the cheap
-    # GN/Mish/SE chain on backward — near-zero FLOP recompute at ~half
-    # the activation-memory savings
+    # 'conv' = recompute only the GroupNorm / Mish chain, never a conv:
+    # in the port no checkpoint at all, as each Block saves only its input
+    # and recomputes that chain in its backward (the memory of no remat)
     remat_policy: Optional[str] = None
     # host->device batch transfer dtype ('bfloat16' halves H2D bytes —
     # decisive on slow links; inputs are cast to the bf16 compute dtype

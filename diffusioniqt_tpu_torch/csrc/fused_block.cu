@@ -21,14 +21,31 @@
 // the normalised activation never goes to device memory, each input value
 // is transformed once per 256-voxel brick (2.3x halo overhead, not
 // 3.4-5x), and the SFU work runs beside the tensor cores.
+//
+// Sub-volume edges 4 and 2 (the levels of a memory_efficient U-Net) have
+// no 4 x 8 x 8 brick: fused_block_small_launch runs the same kernel over
+// units of whole sub-volumes (igemm.cuh, the small-edge route).
 
 #include "igemm.cuh"
 
 // weight (27, Cin, Cout) bf16; tables (B, 27, Cin) fp32; bn = 64 or 128.
-// Returns a cudaError_t.
+// S % 8 == 0. Returns a cudaError_t.
 extern "C" int fused_block_launch(void* encode, const void* xh, const float* a_tab,
                                   const float* b_tab, const void* w, void* out, int nb, int s,
                                   int cin, int cout, int bn, void* stream) {
   return igemm::launch<true>(encode, xh, a_tab, b_tab, w, out, nb, s, cin, cout, bn,
                              static_cast<cudaStream_t>(stream));
+}
+
+// The small-edge route (igemm.cuh): S = 4 or 2, Cin % 8 == 0, units of
+// whole sub-volumes. Arguments as above; returns a cudaError_t.
+extern "C" int fused_block_small_launch(void* encode, const void* xh, const float* a_tab,
+                                        const float* b_tab, const void* w, void* out, int nb,
+                                        int s, int cin, int cout, int bn, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (s == 4)
+    return igemm::launch<true, 4>(encode, xh, a_tab, b_tab, w, out, nb, s, cin, cout, bn, st);
+  if (s == 2)
+    return igemm::launch<true, 2>(encode, xh, a_tab, b_tab, w, out, nb, s, cin, cout, bn, st);
+  return (int)cudaErrorInvalidValue;
 }

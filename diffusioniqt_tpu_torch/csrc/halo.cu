@@ -15,7 +15,8 @@
 //
 // Design: the output is a sequence of rows (n, px, py) of s + 2 voxels.
 // A team of T lanes (T = 4 ... 32, a power of two picked by the launcher so
-// that a row is at most 8 vectors per lane) owns one row: it works out, once
+// that a row is at most 8 vectors per lane, and up to 256 where there are
+// too few rows to fill the card) owns one row: it works out, once
 // and in 32-bit arithmetic, the row's three sources, and then copies
 //   * vectors [0, nv): the low z end, voxel s-1 of the z-neighbour below
 //     (or zeros);
@@ -89,9 +90,14 @@ int launch(const void* x, void* out, int n, int s, int f, int row_bytes, cudaStr
   const long long row_vecs = e * nv;
   if (rows > 0x7fffffffLL || row_vecs > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   // team: the smallest power of two from 4 to 32 that gives each lane at
-  // most 8 vectors of the row
+  // most 8 vectors of the row; then, where few long rows would leave the
+  // card with less than about one wave of threads (small sub-volumes at
+  // many channels: (27, 2^3, 1024) has 432 rows of 512 vectors), up to a
+  // whole block of 256 lanes per row
   int log_team = 2;
   while (log_team < 5 && ((long long)8 << log_team) < row_vecs) ++log_team;
+  while (log_team < 8 && (1LL << log_team) < row_vecs && (rows << log_team) < (1LL << 17))
+    ++log_team;
   const int threads = 256;
   long long blocks = (rows << log_team) / threads + 1;
   if (blocks > 132LL * 256) blocks = 132LL * 256;  // grid-stride beyond this

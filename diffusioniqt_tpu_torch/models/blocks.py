@@ -9,11 +9,17 @@ reads a port ``state_dict`` directly:
   ResnetBlock           time_mlp.1, block1, block2, se.fc.{0,2}, res_conv
   Downsample            1 (the 1x1 conv after the pixel unshuffle)
   PixelShuffleUpsample  net.0 (the 1x1 conv before Mish + pixel shuffle)
+  DeconvUpsample        deconv.0 (ConvTranspose3d, torch layout (in, out, 3, 3, 3))
+  CrossEmbedLayer       convs.{i} (one conv per kernel size, smallest first)
   ChanLayerNorm         g
 
 Dense layers and 1x1 convs run in the activation's dtype (the JAX
 modules' ``dtype=compute_dtype``) with fp32 parameters cast per call; every
-3^3 conv goes through the kernels of ``ops/kernels``.
+3^3 conv of a Block goes through the kernels of ``ops/kernels``. The
+cross-embed stem, the deconv upsample and the U-Net's init / final convs
+of other kernel sizes are convs that the JAX package leaves to XLA
+(``nn.Conv``, ``lax.conv_general_dilated``) outside any Pallas kernel;
+here they are cuDNN convolutions (:class:`SameConv`).
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ from diffusioniqt_tpu_torch.ops.kernels.fused_block import (
     group_stats,
 )
 from diffusioniqt_tpu_torch.ops.volume import pixel_shuffle_3d, pixel_unshuffle_3d
-from diffusioniqt_tpu_torch.utils.misc import Mish
+from diffusioniqt_tpu_torch.utils.misc import Mish, mish
 
 
 class Dense(nn.Linear):
@@ -54,6 +60,65 @@ class PointwiseConv(nn.Conv3d):
         w = self.weight.reshape(self.out_channels, self.in_channels)
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return F.linear(x, w.to(x.dtype), bias)
+
+
+class SameConv(nn.Conv3d):
+    """k^3 ``nn.Conv3d`` with stride 1 applied to a channels-last tensor in
+    its dtype; ``padding`` voxels of zeros on every side (``(k - 1) // 2``
+    by default: flax ``padding="SAME"`` at an odd kernel)."""
+
+    def __init__(self, dim_in: int, dim_out: int, kernel_size: int,
+                 padding: Optional[int] = None):
+        super().__init__(dim_in, dim_out, kernel_size,
+                         padding=(kernel_size - 1) // 2 if padding is None else padding)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight.to(x.dtype)
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        out = F.conv3d(x.permute(0, 4, 1, 2, 3), w, bias, padding=self.padding)
+        return out.permute(0, 2, 3, 4, 1).contiguous()
+
+
+class CrossEmbedLayer(nn.Module):
+    """Multi-kernel conv stem (JAX blocks.py:430-457, reference
+    imagen_pytorch3D.py:661-686): one stride-1 conv per kernel size,
+    smallest first, padding ``(k - stride) // 2``, their outputs
+    concatenated; output channels halve per extra scale (32 -> 16 / 8 / 8)."""
+
+    def __init__(self, dim_in: int, dim_out: int, kernel_sizes=(3, 7, 15), stride: int = 1):
+        super().__init__()
+        if stride != 1:
+            raise ValueError("the U-Net's cross-embed stem has stride 1")
+        kernel_sizes = sorted(kernel_sizes)
+        scales = [int(dim_out / (2 ** i)) for i in range(1, len(kernel_sizes))]
+        scales = [*scales, dim_out - sum(scales)]
+        self.convs = nn.ModuleList([
+            SameConv(dim_in, d, k, padding=(k - stride) // 2)
+            for k, d in zip(kernel_sizes, scales)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.cat([conv(x) for conv in self.convs], dim=-1)
+
+
+class DeconvUpsample(nn.Module):
+    """2x transposed-conv upsample, bias, Mish (JAX blocks.py:366-399,
+    reference ``Deconv3D`` imagen_pytorch3D.py:441-457): the reference's
+    ``ConvTranspose3d(k=3, s=2, p=1, output_padding=1)`` with its weight in
+    torch layout ``(in, out, 3, 3, 3)``. The JAX module computes the same
+    function as a correlation with input dilation 2 and padding (1, 2) per
+    axis over the spatially flipped kernel, which is what its converter
+    stores (``utils/torch_convert.py::_deconv_upsample``)."""
+
+    def __init__(self, dim_in: int, dim_out: int):
+        super().__init__()
+        self.deconv = nn.Sequential(nn.ConvTranspose3d(dim_in, dim_out, 3, stride=2,
+                                                       padding=1, output_padding=1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        conv = self.deconv[0]
+        y = F.conv_transpose3d(x.permute(0, 4, 1, 2, 3), conv.weight.to(x.dtype),
+                               conv.bias.to(x.dtype), stride=2, padding=1, output_padding=1)
+        return mish(y.permute(0, 2, 3, 4, 1).contiguous())
 
 
 class LearnedSinusoidalPosEmb(nn.Module):

@@ -7,6 +7,9 @@ version, and a note naming the TPU kernel it replaces:
 * ``halo``        <- ``diffusioniqt_tpu/ops/pallas/halo.py::halo_exchange_pallas``
 * ``conv3d``      <- ``diffusioniqt_tpu/ops/pallas/conv3d.py::conv3d_valid``
 * ``fused_block`` <- ``diffusioniqt_tpu/ops/pallas/fused_block.py::fused_boundary_block``
+  (two routes: ``fused_block`` counts the implicit GEMM's launches at edges
+  that are multiples of 8, ``fused_block_small`` the small-edge route's at
+  edges 4 and 2)
 * ``flash_attention`` <- ``diffusioniqt_tpu/ops/pallas/flash_attention.py::flash_attention``
 
 :data:`KERNELS` and :data:`PLAIN` bundle the four entry points the model
@@ -53,6 +56,7 @@ def launch_counts() -> dict:
     """Launches of each kernel so far in this process."""
     return {"halo": halo_exchange.launches, "conv3d": conv3d_valid.launches,
             "fused_block": fused_conv.launches,
+            "fused_block_small": fused_conv.small_edge_launches,
             "flash_attention": flash_attention.launches}
 
 
@@ -60,4 +64,5 @@ def reset_launch_counts() -> None:
     halo_exchange.launches = 0
     conv3d_valid.launches = 0
     fused_conv.launches = 0
+    fused_conv.small_edge_launches = 0
     flash_attention.launches = 0

@@ -141,8 +141,11 @@ class PackedWeight:
         return self._packed
 
 
-def check_igemm_args(name: str, xh: torch.Tensor, w: torch.Tensor) -> None:
-    """Shapes, dtype, device and contiguity the implicit-GEMM kernels take."""
+def check_igemm_args(name: str, xh: torch.Tensor, w: torch.Tensor,
+                     small_edge: bool = False) -> None:
+    """Shapes, dtype, device and contiguity the implicit-GEMM kernels take:
+    sub-volume edges that are multiples of 8, or with ``small_edge`` (the
+    fused kernel's small-edge route) edges 4 and 2 at Cin % 8 == 0."""
     runtime.require(xh.dtype == torch.bfloat16, name,
                     f"input must be bfloat16, got {xh.dtype}")
     runtime.require(xh.dim() == 5 and xh.shape[1] == xh.shape[2] == xh.shape[3]
@@ -155,8 +158,13 @@ def check_igemm_args(name: str, xh: torch.Tensor, w: torch.Tensor) -> None:
     runtime.require(w.shape[0] % 8 == 0, name,
                     f"Cout = {w.shape[0]} is not a multiple of 8")
     runtime.require(w.device == xh.device, name, "weight on another device")
-    runtime.require((xh.shape[1] - 2) % 8 == 0, name,
-                    f"sub-volume edge {xh.shape[1] - 2} is not a multiple of 8")
+    edge = xh.shape[1] - 2
+    if small_edge:
+        runtime.require(edge in (2, 4) and xh.shape[4] % 8 == 0, name,
+                        f"the small-edge route takes edges 4 and 2 at Cin % 8 == 0, got "
+                        f"edge {edge}, Cin {xh.shape[4]}")
+    else:
+        runtime.require(edge % 8 == 0, name, f"sub-volume edge {edge} is not a multiple of 8")
     runtime.require(xh.data_ptr() % 16 == 0, name, "input not 16-byte aligned")
 
 

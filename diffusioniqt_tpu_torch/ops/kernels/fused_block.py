@@ -31,22 +31,33 @@ fragments from the brick by ``ldmatrix`` (a tap is a row shift) and read B
 from the ring. The normalised activation never reaches device memory, and
 the Mish runs beside the products rather than between them.
 
+Two routes, chosen from the sub-volume edge by :func:`route` (a dispatch
+by shape; neither stands in for the other, and an edge that neither takes
+raises): ``"igemm"`` for edges that are multiples of 8, and
+``"small_edge"`` for edges 4 and 2, where a ``memory_efficient`` U-Net's
+deeper levels run (the flagship at 4^3, SRUnet256 at 4^3 and 2^3 with up
+to 1024 channels). The small-edge route is the same kernel over units of
+whole sub-volumes (:func:`small_edge_geometry`: 2 x 4^3 or 16 x 2^3 = 128
+output rows, their halo'd inputs as one TMA box, the coefficients read
+per brick row from the tables in device memory); it needs Cin % 8 == 0.
+
 Autograd sees the Block as one Function over ``(x, norm_scale, norm_bias,
 scale, shift, w)``, as the JAX package puts one ``jax.custom_vjp`` over
 ``fused_boundary_block`` (fused_block.py:271-306): the forward runs the
 steps above with autograd off and saves only its inputs; the backward
 differentiates :func:`block_reference_plain`, the JAX ``_reference_impl``
 order of operations, whose halo is the concatenation sweep and whose
-statistics and affine are broadcasts. No gather over the activation (and
-so no accumulating scatter) is on the backward path; the tables and the
-fused kernel are forward only.
+statistics and affine are broadcasts: it recomputes the activation and
+runs the conv's backward products on it, never the conv forward. No gather
+over the activation (and so no accumulating scatter) is on the backward
+path; the tables and the fused kernel are forward only.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -62,6 +73,37 @@ from diffusioniqt_tpu_torch.ops.volume import halo_exchange
 
 # encoder, xh, a_tab, b_tab, w, out, B, s, Cin, Cout, BN, stream
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+# sub-volume edges of the small-edge route
+SMALL_EDGES = (4, 2)
+
+
+def route(s: int) -> str:
+    """The fused kernel's route at sub-volume edge ``s``: ``"igemm"`` (4 x 8
+    x 8 output bricks) for multiples of 8, ``"small_edge"`` (whole
+    sub-volumes) for :data:`SMALL_EDGES`; raises for any other edge."""
+    if s > 0 and s % 8 == 0:
+        return "igemm"
+    if s in SMALL_EDGES:
+        return "small_edge"
+    raise ValueError(f"fused_block kernel: no route for sub-volume edge {s} "
+                     f"(multiples of 8, or {SMALL_EDGES})")
+
+
+class SmallEdgeGeometry(NamedTuple):
+    """How the small-edge route (``csrc/igemm.cuh``, ``Geom<S>``) tiles one
+    shape: a unit of work is ``subs`` whole sub-volumes (128 output rows,
+    a brick of ``subs * (s + 2)^3`` halo'd voxels) and ``bn`` output
+    channels."""
+
+    subs: int
+    bn: int
+    units: int     # ceil(B / subs) * ceil(Cout / bn)
+
+
+def small_edge_geometry(nb: int, s: int, cout: int) -> SmallEdgeGeometry:
+    subs = 128 // s ** 3
+    bn = 128 if cout % 128 == 0 else 64
+    return SmallEdgeGeometry(subs=subs, bn=bn, units=-(-nb // subs) * -(-cout // bn))
 
 
 # ---------------------------------------------------------------------------
@@ -172,20 +214,31 @@ def _launch(xh, a_tab, b_tab, w, packed):
     name = "fused_block"
     b, s, cin, cout = xh.shape[0], xh.shape[1] - 2, xh.shape[4], w.shape[0]
     out = torch.empty((b, s, s, s, cout), dtype=xh.dtype, device=xh.device)
-    fn = runtime.c_function(name, "fused_block_launch", _ARGTYPES)
+    small = route(s) == "small_edge"
+    if small:
+        fn = runtime.c_function(name, "fused_block_small_launch", _ARGTYPES)
+        bn = small_edge_geometry(b, s, cout).bn
+    else:
+        fn = runtime.c_function(name, "fused_block_launch", _ARGTYPES)
+        bn = gemm_geometry(s, cin, cout).bn
     err = fn(runtime.driver_function("cuTensorMapEncodeTiled"), xh.data_ptr(),
              a_tab.data_ptr(), b_tab.data_ptr(), packed.data_ptr(), out.data_ptr(), b, s,
-             cin, cout, gemm_geometry(s, cin, cout).bn, runtime.stream_handle(xh.device))
+             cin, cout, bn, runtime.stream_handle(xh.device))
     runtime.check_launch(name, err)
-    fused_conv.launches += 1
+    if small:
+        fused_conv.small_edge_launches += 1
+    else:
+        fused_conv.launches += 1
     return out
 
 
 def fused_conv(xh, a_tab, b_tab, w, cache: PackedWeight = None) -> torch.Tensor:
-    """The fused kernel for a CUDA tensor (bf16 xh, fp32 contiguous tables),
-    the plain version for a CPU tensor. The kernel has no backward of its
-    own: differentiate :func:`fused_boundary_block`, whose backward is the
-    plain composition."""
+    """The fused kernel for a CUDA tensor (bf16 xh, fp32 contiguous tables;
+    the route by sub-volume edge, :func:`route`), the plain version for a
+    CPU tensor. The kernel has no backward of its own: differentiate
+    :func:`fused_boundary_block`, whose backward is the plain composition.
+    ``fused_conv.launches`` counts the implicit-GEMM route's launches,
+    ``fused_conv.small_edge_launches`` the small-edge route's."""
     if xh.device.type == "cpu":
         return fused_conv_plain(xh, a_tab, b_tab, w)
     if xh.device.type != "cuda":
@@ -194,7 +247,7 @@ def fused_conv(xh, a_tab, b_tab, w, cache: PackedWeight = None) -> torch.Tensor:
     runtime.require(not (torch.is_grad_enabled() and any(
         t.requires_grad for t in (xh, a_tab, b_tab, w))), name,
         "no backward of its own; differentiate fused_boundary_block")
-    check_igemm_args(name, xh, w)
+    check_igemm_args(name, xh, w, small_edge=route(xh.shape[1] - 2) == "small_edge")
     want = (xh.shape[0], 27, xh.shape[4])
     for tab in (a_tab, b_tab):
         runtime.require(tab.dtype == torch.float32 and tuple(tab.shape) == want
@@ -207,6 +260,21 @@ def fused_conv(xh, a_tab, b_tab, w, cache: PackedWeight = None) -> torch.Tensor:
 
 
 fused_conv.launches = 0
+fused_conv.small_edge_launches = 0
+
+
+def block_activation_plain(x, norm_scale, norm_bias, scale, shift,
+                           groups: int, factor: int, eps: float = 1e-5) -> torch.Tensor:
+    """Steps 1-5 of :func:`block_reference_plain`: the halo'd Mish
+    activation that the conv reads, ``(B, s+2, s+2, s+2, C)`` in ``x.dtype``."""
+    b, c = x.shape[0], x.shape[-1]
+    mean, rstd = group_stats(x, groups, eps)
+    xn = (x.float() - mean.reshape(b, 1, 1, 1, c)) * rstd.reshape(b, 1, 1, 1, c)
+    xn = xn * norm_scale.float() + norm_bias.float()
+    if scale is not None:
+        xn = xn * (_per_sample(scale, b) + 1.0) + _per_sample(shift, b)
+    act = mish_one_exp(xn).to(x.dtype)
+    return halo_exchange(act, factor)
 
 
 def block_reference_plain(x, norm_scale, norm_bias, scale, shift, w,
@@ -225,20 +293,32 @@ def block_reference_plain(x, norm_scale, norm_bias, scale, shift, w,
     as the kernel feeds its tensor cores. At fp32 this is the JAX
     reference to rounding; in bf16 it differentiates what the kernel ran
     rather than the JAX non-Pallas Block's bf16 affine."""
-    b, c = x.shape[0], x.shape[-1]
-    mean, rstd = group_stats(x, groups, eps)
-    xn = (x.float() - mean.reshape(b, 1, 1, 1, c)) * rstd.reshape(b, 1, 1, 1, c)
-    xn = xn * norm_scale.float() + norm_bias.float()
-    if scale is not None:
-        xn = xn * (_per_sample(scale, b) + 1.0) + _per_sample(shift, b)
-    act = mish_one_exp(xn).to(x.dtype)
-    return conv3d_valid_plain(halo_exchange(act, factor), w)
+    return conv3d_valid_plain(
+        block_activation_plain(x, norm_scale, norm_bias, scale, shift, groups, factor, eps), w)
+
+
+def conv3d_valid_vjp(xh, w, grad, need_x: bool, need_w: bool):
+    """The backward products of :func:`conv3d_valid_plain` without its
+    forward: the input gradient (a transposed conv) and the weight gradient,
+    by the one ``convolution_backward`` call that autograd makes for the
+    plain conv, on the same views. ``None`` for what is not needed."""
+    gx, gw, _ = torch.ops.aten.convolution_backward(
+        grad.permute(0, 4, 1, 2, 3), xh.permute(0, 4, 1, 2, 3), w.to(xh.dtype), None,
+        [1, 1, 1], [0, 0, 0], [1, 1, 1], False, [0, 0, 0], 1, [need_x, need_w, False])
+    return (gx.permute(0, 2, 3, 4, 1) if need_x else None,
+            gw.to(w.dtype) if need_w else None)
 
 
 class _Block(torch.autograd.Function):
     """The whole Block unit: forward through ``ops`` (kernels or plain
-    versions) with autograd off, backward through
-    :func:`block_reference_plain`; saves only its inputs."""
+    versions) with autograd off; saves only its inputs. The backward is the
+    gradient of :func:`block_reference_plain`: it recomputes the GroupNorm /
+    affine / Mish chain and the halo (:func:`block_activation_plain`, under
+    autograd), runs the conv's two backward products on that activation
+    (:func:`conv3d_valid_vjp`; never the conv forward), and pulls the
+    activation's gradient back through the chain. That is what the JAX
+    ``remat_policy='conv'`` recomputes, so the U-Net's ``'conv'`` policy
+    needs no checkpoint around the ResnetBlocks."""
 
     @staticmethod
     def forward(ctx, x, norm_scale, norm_bias, scale, shift, w, groups, factor, cache, ops):
@@ -251,9 +331,17 @@ class _Block(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        grads = runtime.plain_vjp(block_reference_plain, list(ctx.saved_tensors),
-                                  ctx.needs_input_grad[:6], grad, *ctx.consts)
-        return (*grads, None, None, None, None)
+        *inputs, w = ctx.saved_tensors
+        needs = ctx.needs_input_grad[:6]
+        chain = [bool(n) and t is not None for t, n in zip(inputs, needs[:5])]
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(n) if t is not None else None
+                      for t, n in zip(inputs, chain)]
+            xh = block_activation_plain(*leaves, *ctx.consts)
+        gxh, gw = conv3d_valid_vjp(xh.detach(), w.detach(), grad, any(chain), needs[5])
+        wanted = [t for t, n in zip(leaves, chain) if n]
+        grads = iter(torch.autograd.grad(xh, wanted, gxh) if wanted else ())
+        return (*(next(grads) if n else None for n in chain), gw, None, None, None, None)
 
 
 def fused_boundary_block(x, norm_scale, norm_bias, scale_shift, w,

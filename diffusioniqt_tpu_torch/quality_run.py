@@ -10,7 +10,7 @@ MS-SSIM and PSNR against the LR input: the reference's acceptance test
 (test_all.py:304-324). The gate's run (QUALITY.md:37-45):
 
     python -m diffusioniqt_tpu_torch.quality_run --elucidated --steps 3000 \\
-        --sigma-data 1.0 --batch-patches 8 --accum 2 --remat
+        --sigma-data 1.0 --batch-patches 8 --accum 2 --remat [--remat-policy conv]
 
 A tiny CPU run (dim 16, one 96^3 phantom, 6 steps):
 
@@ -98,13 +98,16 @@ def flagship_cfg(quick: bool = False, elucidated: bool = False, device="cuda") -
     return cfg
 
 
-def build_trainer(cfg, accum: int = 4, remat: bool = False, device="cuda"):
+def build_trainer(cfg, accum: int = 4, remat: bool = False, device="cuda",
+                  remat_policy: Optional[str] = None):
     """The cascade's trainer with the EMA on (``use_ema``, the config's
     ``ema_update_after_step`` / ``ema_update_every``), ``accum``
     microbatches per step and, with ``remat``, each ResnetBlock recomputed
-    in the backward."""
+    in the backward (``remat_policy`` None), or only the GroupNorm / Mish
+    chain (``'conv'``)."""
     if remat:
         cfg.train.remat = True
+        cfg.train.remat_policy = remat_policy
     cfg.train.gradient_accumulation_steps = accum
     return train_main.build_trainer(cfg, device)
 
@@ -205,8 +208,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(
         description=__doc__.splitlines()[0],
         epilog="Not ported: --transfer-dtype (the port copies fp32 batches; the option "
-               "was removed from the port), --remat-policy (the 'conv' policy raises in "
-               "the port's UNet3D), --cpu (use --device cpu).")
+               "was removed from the port), --cpu (use --device cpu).")
     ap.add_argument("--steps", type=int, default=None,
                     help="optimizer steps of this invocation (default 3000; 6 with --quick)")
     ap.add_argument("--out", default=os.path.join("build", "quality"))
@@ -219,6 +221,9 @@ def main(argv=None):
                          "patches of 27 sub-volumes")
     ap.add_argument("--remat", action="store_true",
                     help="recompute each ResnetBlock in the backward (Train.remat)")
+    ap.add_argument("--remat-policy", default=None, choices=["conv"],
+                    help="with --remat: recompute only the GroupNorm / Mish chain, never a "
+                         "conv (Train.remat_policy 'conv'; the memory of no remat)")
     ap.add_argument("--resume", default=None, help="bundle to resume from")
     ap.add_argument("--log-every", type=int, default=50)
     ap.add_argument("--ckpt-every", type=int, default=1000)
@@ -259,7 +264,7 @@ def main(argv=None):
     dataset = SyntheticIQTDataset(cfg, seed=0, samples_per_volume=8, pairs=pairs)
 
     trainer = build_trainer(cfg, accum=1 if args.quick else args.accum, remat=args.remat,
-                            device=device)
+                            device=device, remat_policy=args.remat_policy)
     trainer.add_train_dataset(dataset, batch_size=args.batch_patches)
     if args.resume:
         trainer.load(args.resume)

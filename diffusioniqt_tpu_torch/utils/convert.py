@@ -158,11 +158,25 @@ def _resnet_block(p: Dict[str, Any], key: str,
         _conv(p["Conv_0"], f"{key}.res_conv", out)
 
 
+def _deconv(p: Dict[str, Any], key: str, out: Dict[str, torch.Tensor]) -> None:
+    """flax ``DeconvUpsample`` (kernel ``(3, 3, 3, in, out)``, the spatially
+    flipped transposed-conv weight) -> torch ``ConvTranspose3d`` ``(in, out,
+    3, 3, 3)``: the inverse of the JAX converter's ``_deconv_upsample``."""
+    kernel = np.asarray(p["kernel"])
+    out[f"{key}.weight"] = _t(kernel.transpose(3, 4, 0, 1, 2)[:, :, ::-1, ::-1, ::-1])
+    out[f"{key}.bias"] = _t(p["bias"])
+
+
 def state_dict_from_jax_params(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """flax ``UNet3D`` variables (``{"params": ...}`` or the inner tree) ->
-    port ``UNet3D`` ``state_dict`` (fp32 CPU tensors). Raises ``KeyError``
-    on a parameter group the port has no module for (the cross-embed stem,
-    ``memory_efficient`` pre-downsampling)."""
+    port ``UNet3D`` ``state_dict`` (fp32 CPU tensors), every option's
+    parameters included: the 3^3 or other-size stem (``init_conv``) or the
+    cross-embed stem (``init_conv/Conv_{i}`` -> ``init_conv.convs.{i}``),
+    the ``memory_efficient`` pre-downsample (``down{i}_pre`` ->
+    ``downs.{i}.0.1``) and 1x1 post conv (``downs.{i}.4``), the pixel-shuffle
+    (``ups.{i}.0.net.0``) or deconv (``ups.{i}.0.deconv.0``, kernel flipped)
+    upsample. Raises ``KeyError`` on a parameter group the port has no
+    module for."""
     p = params.get("params", params)
     out: Dict[str, torch.Tensor] = {}
     handled = set()
@@ -171,13 +185,20 @@ def state_dict_from_jax_params(params: Dict[str, Any]) -> Dict[str, torch.Tensor
         handled.add(name)
         return p[name]
 
-    _conv(take("init_conv"), "init_conv", out)
+    stem = take("init_conv")
+    if "kernel" in stem:
+        _conv(stem, "init_conv", out)
+    else:  # the cross-embed stem, one conv per kernel size
+        for i in range(len(stem)):
+            _conv(stem[f"Conv_{i}"], f"init_conv.convs.{i}", out)
     out["to_time_hiddens.0.weights"] = _t(take("sinu_pos_emb")["weights"])
     _dense(take("time_hidden"), "to_time_hiddens.1", out)
     _dense(take("time_cond"), "to_time_cond.0", out)
 
     for name in sorted(p):
-        if (m := re.fullmatch(r"down(\d+)_init", name)):
+        if (m := re.fullmatch(r"down(\d+)_pre", name)):
+            _conv(take(name)["Conv_0"], f"downs.{m.group(1)}.0.1", out)
+        elif (m := re.fullmatch(r"down(\d+)_init", name)):
             _resnet_block(take(name), f"downs.{m.group(1)}.1", out)
         elif (m := re.fullmatch(r"down(\d+)_attn", name)):
             _attn_module(take(name), f"downs.{m.group(1)}.2", out)
@@ -192,7 +213,11 @@ def state_dict_from_jax_params(params: Dict[str, Any]) -> Dict[str, torch.Tensor
             else:  # plain 1x1 conv of the last level
                 _conv(post, f"downs.{m.group(1)}.4", out)
         elif (m := re.fullmatch(r"up(\d+)_upsample", name)):
-            _conv(take(name)["Conv_0"], f"ups.{m.group(1)}.0.net.0", out)
+            up = take(name)
+            if "Conv_0" in up:  # pixel-shuffle upsample
+                _conv(up["Conv_0"], f"ups.{m.group(1)}.0.net.0", out)
+            else:  # deconv upsample
+                _deconv(up, f"ups.{m.group(1)}.0.deconv.0", out)
         elif (m := re.fullmatch(r"up(\d+)_init", name)):
             _resnet_block(take(name), f"ups.{m.group(1)}.1", out)
         elif (m := re.fullmatch(r"up(\d+)_block(\d+)", name)):

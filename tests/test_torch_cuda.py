@@ -63,7 +63,10 @@ _HALO_WIDTHS = [(2 * f ** 3, 8, c, f) for c in (1, 2, 3, 4, 8, 64, 192) for f in
 
 
 @pytest.mark.parametrize("n,s,c,factor", [(54, 8, 2, 3), (27, 4, 64, 3),
-                                          (27, 8, 192, 3), (2, 6, 3, 1)] + _HALO_WIDTHS)
+                                          (27, 8, 192, 3), (2, 6, 3, 1),
+                                          # the small-edge levels: 4^3 and 2^3 at up to 1024
+                                          (216, 4, 256, 3), (27, 4, 512, 1), (27, 2, 1024, 1),
+                                          (54, 2, 128, 3)] + _HALO_WIDTHS)
 def test_halo_equals_plain(dev, n, s, c, factor):
     x = torch.randn((n, s, s, s, c), device=dev).to(torch.bfloat16)
     kernels.reset_launch_counts()
@@ -116,6 +119,100 @@ def test_fused_kernel_matches_plain(dev, s, cin, cout):
     got = kernels.fused_conv(xh, ta, tb, w)
     assert kernels.launch_counts()["fused_block"] == 1
     _close(got, kernels.fused_conv_plain(xh, ta, tb, w))
+
+
+@pytest.mark.parametrize("n,s,factor,cin,cout", [
+    (54, 4, 3, 64, 64), (27, 4, 1, 72, 128), (216, 4, 3, 256, 256), (27, 4, 1, 512, 512),
+    (27, 2, 3, 64, 128), (27, 2, 1, 1024, 1024), (8, 2, 1, 32, 64)])
+def test_small_edge_route_matches_plain(dev, n, s, factor, cin, cout):
+    """The fused kernel's small-edge route: whole sub-volumes of 4^3 (two a
+    unit, double-buffered) and 2^3 (16 a unit, one buffer), a ragged last
+    run (27 sub-volumes), fewer sub-volumes than a unit holds (8 of 16), BN
+    64 and 128, Cin 32 and 72 (partial chunks) to 1024."""
+    g = torch.Generator(device=dev).manual_seed(n + s + cin + cout)
+    x = torch.randn((n, s, s, s, cin), generator=g, device=dev).to(torch.bfloat16)
+    w = torch.randn((cout, cin, 3, 3, 3), generator=g, device=dev) * (27 * cin) ** -0.5
+    ss = tuple(0.2 * torch.randn((n, 1, 1, 1, cin), generator=g, device=dev)
+               for _ in range(2))
+    a, b = tfb.groupnorm_affine(x, 1.0 + 0.1 * torch.randn(cin, generator=g, device=dev),
+                                0.1 * torch.randn(cin, generator=g, device=dev), 8,
+                                scale_shift=ss)
+    ta, tb = tfb.neighbor_tables(a, b, factor)
+    xh = kernels.halo_exchange(x, factor)
+    kernels.reset_launch_counts()
+    got = kernels.fused_conv(xh, ta, tb, w)
+    counts = kernels.launch_counts()
+    assert (counts["fused_block_small"], counts["fused_block"]) == (1, 0)
+    _close(got, kernels.fused_conv_plain(xh, ta, tb, w))
+
+
+def test_fused_kernel_refuses_edges_without_a_route(dev):
+    w = torch.randn((64, 64, 3, 3, 3), device=dev)
+    tab = torch.zeros((27, 27, 64), device=dev)
+    with pytest.raises(ValueError, match="no route"):
+        kernels.fused_conv(torch.zeros((27, 8, 8, 8, 64), device=dev, dtype=torch.bfloat16),
+                           tab, tab, w)
+    w12 = torch.randn((64, 12, 3, 3, 3), device=dev)
+    tab12 = torch.zeros((27, 27, 12), device=dev)
+    with pytest.raises(ValueError, match="small-edge"):
+        kernels.fused_conv(torch.zeros((27, 6, 6, 6, 12), device=dev, dtype=torch.bfloat16),
+                           tab12, tab12, w12)
+
+
+def test_memory_efficient_unet_runs_through_the_kernels(dev):
+    """memory_efficient at 27 x 16^3: the Blocks at 16^3 and 8^3 take the
+    implicit GEMM, those at 4^3 the small-edge route; exact counts, and the
+    plain path within 5e-2."""
+    torch.manual_seed(0)
+    model = UNet3D(dim=16, init_dim=16, dim_mults=(1, 2), num_resnet_blocks=(1, 1),
+                   resnet_groups=4, memory_efficient=True, dtype=torch.bfloat16).to(dev).eval()
+    x = torch.randn((27, 16, 16, 16, 1), device=dev)
+    lowres = torch.randn_like(x)
+    t = torch.full((27,), 0.5, device=dev)
+    log_snr = torch.full((27,), -1.0, device=dev)
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        got = model(x, t, log_snr, lowres_cond_img=lowres)
+        counts = kernels.launch_counts()
+        want = model.use_ops(kernels.PLAIN)(x, t, log_snr, lowres_cond_img=lowres)
+    # every level downsamples on entry and every up level upsamples first:
+    # at 4^3 level 1 down (2 ResnetBlocks); at 8^3 level 0 down (2) and the
+    # first up level (2); at 16^3 the last up level (2) and the final block
+    assert counts == {"halo": 2 * 9 + 1, "conv3d": 1, "fused_block": 2 * 7,
+                      "fused_block_small": 2 * 2, "flash_attention": 0}
+    assert torch.isfinite(got).all()
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 5e-2
+
+
+def test_remat_conv_backward_launches_no_kernel(dev):
+    """remat_policy 'conv': a train step's backward launches no halo or
+    fused kernel (the launches of forward + backward are the forward's),
+    and its gradients equal no remat's bit for bit."""
+    torch.backends.cudnn.deterministic = True
+    try:
+        torch.manual_seed(0)
+        kw = dict(dim=16, init_dim=16, dim_mults=(1, 2), num_resnet_blocks=(1, 1),
+                  resnet_groups=4, dtype=torch.bfloat16)
+        plain = UNet3D(**kw).to(dev)
+        conv = UNet3D(**kw, remat=True, remat_policy="conv").to(dev)
+        conv.load_state_dict(plain.state_dict())
+        x = torch.randn((27, 16, 16, 16, 1), device=dev)
+        t = torch.full((27,), 0.5, device=dev)
+        grads, counts = [], []
+        for model in (plain, conv):
+            kernels.reset_launch_counts()
+            model(x, t, t, lowres_cond_img=x).float().square().mean().backward()
+            torch.cuda.synchronize()
+            counts.append(kernels.launch_counts())
+            grads.append({k: p.grad for k, p in model.named_parameters()})
+    finally:
+        torch.backends.cudnn.deterministic = False
+    n_res = 2 * 2 + 2 * 2 + 1
+    assert counts[0] == counts[1] == {"halo": 2 * n_res + 1, "conv3d": 1,
+                                      "fused_block": 2 * n_res, "fused_block_small": 0,
+                                      "flash_attention": 0}
+    for k in grads[0]:
+        assert torch.equal(grads[0][k], grads[1][k]), k
 
 
 @pytest.mark.parametrize("s,cin,cout", [(16, 64, 64), (8, 72, 32), (8, 12, 16)])
@@ -234,7 +331,7 @@ def test_small_attention_unet_runs_through_the_kernels(dev):
         want = model.use_ops(kernels.PLAIN)(x, t, log_snr, lowres_cond_img=lowres)
     # 2 levels x (init + 1 block) down and up, the mid block, the final block
     n_res = 2 * 2 + 1 + 2 * 2 + 1
-    assert counts == {"halo": 2 * n_res + 1, "conv3d": 1, "fused_block": 2 * n_res,
+    assert counts == {"halo": 2 * n_res + 1, "conv3d": 1, "fused_block": 2 * n_res, "fused_block_small": 0,
                       "flash_attention": 3}
     assert torch.isfinite(got).all()
     assert ((got - want).abs().max() / want.abs().max()).item() <= 5e-2
@@ -255,7 +352,7 @@ def test_small_unet_runs_through_the_kernels(dev):
         want = model.use_ops(kernels.PLAIN)(x, t, log_snr, lowres_cond_img=lowres)
     # 2 levels x (init + 2 blocks) down and up, plus the final block
     n_res = 2 * 3 + 2 * 3 + 1
-    assert counts == {"halo": 2 * n_res + 1, "conv3d": 1, "fused_block": 2 * n_res,
+    assert counts == {"halo": 2 * n_res + 1, "conv3d": 1, "fused_block": 2 * n_res, "fused_block_small": 0,
                       "flash_attention": 0}
     assert torch.isfinite(got).all()
     # bf16 rounding differences compound through the network
@@ -287,7 +384,7 @@ def test_edm_heun_step_through_the_kernels(dev):
     model.use_ops(kernels.PLAIN)
     want = run()
     n_res = 2 * 3 + 2 * 3 + 1
-    assert counts == {"halo": 3 * (2 * n_res + 1), "conv3d": 3, "fused_block": 3 * 2 * n_res,
+    assert counts == {"halo": 3 * (2 * n_res + 1), "conv3d": 3, "fused_block": 3 * 2 * n_res, "fused_block_small": 0,
                       "flash_attention": 0}
     assert torch.isfinite(got).all()
     assert ((got - want).abs().max() / want.abs().max()).item() <= 5e-2
@@ -449,7 +546,7 @@ def test_small_attention_unet_train_step_through_the_kernels(dev):
     loss_k, grads_k, counts = step(kernels.KERNELS)
     loss_p, grads_p, _ = step(kernels.PLAIN)
     n_res = 2 * 2 + 1 + 2 * 2 + 1
-    assert counts == {"halo": 2 * n_res + 1, "conv3d": 1, "fused_block": 2 * n_res,
+    assert counts == {"halo": 2 * n_res + 1, "conv3d": 1, "fused_block": 2 * n_res, "fused_block_small": 0,
                       "flash_attention": 3}
     assert abs(loss_k - loss_p) <= 5e-2 * abs(loss_p)
     cos = {k: float((g.flatten() @ grads_p[k].flatten()) / (g.norm() * grads_p[k].norm()))
@@ -510,7 +607,7 @@ def test_block_backward_matches_plain_composition_without_scatter(dev):
 
     kernels.reset_launch_counts()
     got, got_scatter = grads(block)
-    assert kernels.launch_counts() == {"halo": 1, "conv3d": 0, "fused_block": 1,
+    assert kernels.launch_counts() == {"halo": 1, "conv3d": 0, "fused_block": 1, "fused_block_small": 0,
                                        "flash_attention": 0}
     want, want_scatter = grads(tables)
     assert got_scatter == 0 and want_scatter > 0, (got_scatter, want_scatter)

@@ -358,6 +358,115 @@ def test_fused_kernel_tiles_match_plain_and_pallas(_interpret, s, cin, cout):
                                    rtol=1e-5, atol=1e-5)
 
 
+# ------------------------------------------- the small-edge route, tile by tile
+
+def _emulate_small_edge(xh, a_tab, b_tab, w):
+    """What the small-edge route of ``csrc/igemm.cuh`` (``Geom<S>``, S = 4
+    or 2) computes, unit by unit, in fp32: for each run of ``subs`` whole
+    sub-volumes (:func:`small_edge_geometry`; sub-volumes past B are
+    zeros) and BN output channels, their halo'd inputs as one brick of
+    ``subs * (S+2)^3`` rows in 64-channel chunks (zeros past Cin), put
+    through mish(A_r x + B_r) with each row's own sub-volume and region r,
+    stored with the 128-byte swizzle, and 27 taps, each a row shift
+    (kx*E + ky)*E + kz of the brick read back through the swizzle, times
+    the packed weight; output row o of a unit is voxel o of its first
+    sub-volume's run, stored only below B * S^3."""
+    nb, e, cin = xh.shape[0], xh.shape[1], xh.shape[4]
+    s, cout = e - 2, w.shape[0]
+    geo = tfb.small_edge_geometry(nb, s, cout)
+    p, v, e3 = geo.subs, s ** 3, e ** 3
+    rows = p * e3
+    assert p * v == 128
+    n_tiles = geo.units // -(-nb // p)
+    ncol, cin_pad = n_tiles * geo.bn, -(-cin // 64) * 64
+    wpad = torch.zeros((27, cin_pad, ncol))
+    wpad[:, :cin, :cout] = tconv.pack_weight(w).float().reshape(27, cin, cout)
+    runs = -(-nb // p)
+    # brick row -> (sub-volume of the run, x, y, z); output row -> brick row
+    sub, hx, hy, hz = (g.reshape(-1) for g in torch.meshgrid(
+        torch.arange(p), torch.arange(e), torch.arange(e), torch.arange(e), indexing="ij"))
+    region = (_region_per_axis(hx, e) * 3 + _region_per_axis(hy, e)) * 3 + \
+        _region_per_axis(hz, e)
+    osub, ox, oy, oz = (g.reshape(-1) for g in torch.meshgrid(
+        torch.arange(p), torch.arange(s), torch.arange(s), torch.arange(s), indexing="ij"))
+    row0 = osub * e3 + (ox * e + oy) * e + oz
+    r8 = torch.arange(rows) % 8
+    xh_pad = torch.cat([xh, torch.zeros((runs * p - nb,) + tuple(xh.shape[1:]))])
+    b_of = torch.arange(runs)[:, None] * p + sub[None, :]        # (runs, rows)
+    inside = b_of < nb
+    acc = torch.zeros((runs, 128, ncol))
+    for c0 in range(0, cin_pad, 64):
+        n_c = min(64, cin - c0)
+        brick = torch.zeros((runs, rows, 64))
+        raw = xh_pad[b_of, hx, hy, hz, c0:c0 + n_c]
+        bi = torch.where(inside, b_of, 0)
+        act = tfb.mish_one_exp(a_tab[bi, region, c0:c0 + n_c] * raw
+                               + b_tab[bi, region, c0:c0 + n_c])
+        brick[..., :n_c] = torch.where(inside[..., None], act, raw)
+        groups = brick.reshape(runs, rows, 8, 8)
+        phys = groups[:, torch.arange(rows)[:, None], torch.arange(8)[None, :] ^ r8[:, None]]
+        for tap in range(27):
+            kx, ky, kz = tap // 9, (tap // 3) % 3, tap % 3
+            r = row0 + (kx * e + ky) * e + kz
+            a = phys[:, r[:, None], torch.arange(8)[None, :] ^ (r % 8)[:, None]]
+            acc += a.reshape(runs, 128, 64) @ wpad[tap, c0:c0 + 64]
+    out = acc.reshape(runs * 128, ncol)[:nb * v, :cout]
+    return out.reshape(nb, s, s, s, cout)
+
+
+def test_small_edge_geometry_and_route():
+    assert tfb.route(32) == tfb.route(8) == "igemm"
+    assert tfb.route(4) == tfb.route(2) == "small_edge"
+    for s in (6, 1, 12):
+        with pytest.raises(ValueError, match="no route"):
+            tfb.route(s)
+    assert tfb.small_edge_geometry(216, 4, 256) == (2, 128, 216)
+    assert tfb.small_edge_geometry(27, 2, 1024) == (16, 128, 16)
+    assert tfb.small_edge_geometry(27, 4, 64).bn == 64
+
+
+@pytest.mark.parametrize("s,factor,cin,cout", [(4, 3, 72, 64), (2, 3, 64, 128), (2, 1, 8, 16)])
+def test_small_edge_tiles_match_plain_and_pallas(_interpret, s, factor, cin, cout):
+    """The small-edge route's decomposition (runs of whole sub-volumes, a
+    ragged last run, per-row regions and sub-volumes, chunk padding,
+    swizzle, taps as row shifts) equals ``fused_conv_plain`` at fp32, and
+    the JAX fused_boundary_block in interpret mode."""
+    nb, groups = 27, 8
+    x = _bf16_values(_rand((nb, s, s, s, cin), seed=31))
+    ns = 1.0 + _rand((cin,), seed=32, scale=0.1)
+    nbias = _rand((cin,), seed=33, scale=0.1)
+    ss = (_rand((nb, 1, 1, 1, cin), seed=34, scale=0.2),
+          _rand((nb, 1, 1, 1, cin), seed=35, scale=0.2))
+    w = _bf16_values(_rand((3, 3, 3, cin, cout), seed=36, scale=(27 * cin) ** -0.5))
+    a, b = tfb.groupnorm_affine(_t(x), _t(ns), _t(nbias), groups,
+                                scale_shift=tuple(map(_t, ss)))
+    ta, tb = tfb.neighbor_tables(a, b, factor)
+    xh = kernels.halo_exchange_plain(_t(x), factor)
+    got = _emulate_small_edge(xh, ta, tb, _torch_w(w))
+    np.testing.assert_allclose(got.numpy(), tfb.fused_conv_plain(xh, ta, tb, _torch_w(w)).numpy(),
+                               rtol=1e-5, atol=1e-5)
+    want = np.asarray(jfb.fused_boundary_block(
+        jnp.asarray(x), jnp.asarray(ns), jnp.asarray(nbias), tuple(map(jnp.asarray, ss)),
+        jnp.asarray(w), groups, factor, jnp.float32))
+    # the tolerance of test_fused_block_plain_matches_pallas_interpret
+    np.testing.assert_allclose(got.numpy(), want, rtol=3e-3, atol=3e-4)
+
+
+def test_block_backward_runs_no_conv_forward():
+    """The Block's backward recomputes the GroupNorm / Mish chain and the
+    halo and runs the conv's backward products only: no forward
+    convolution among its operators (the remat policy 'conv' rests on it)."""
+    x, ns, nb, w = _fused_inputs(b=27, s=4, c=8, cout=8)
+    xt = _t(x).requires_grad_()
+    wt = _torch_w(w).requires_grad_()
+    out = tfb.fused_boundary_block(xt, _t(ns).requires_grad_(), _t(nb), None, wt,
+                                   groups=4, factor=3)
+    ops = _aten_ops_of(lambda: out.square().sum().backward())
+    assert "aten::convolution_backward" in ops
+    assert not {"aten::convolution", "aten::_convolution"} & ops, sorted(ops)
+    assert xt.grad is not None and wt.grad is not None
+
+
 # ------------------------------------------- the Block's backward (custom VJP)
 
 @pytest.mark.parametrize("with_scale_shift", [False, True])

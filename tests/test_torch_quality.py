@@ -156,3 +156,15 @@ def test_heldout_lr_baseline_matches_jax_at_gate_size():
     want = jax_evaluate(lr_n, hr_n, border=border)
     for key in ("msssim", "psnr"):
         assert got[key] == pytest.approx(float(want[key]), rel=1e-5), key
+
+
+def test_remat_policy_conv_reaches_the_model():
+    """``quality_run --remat --remat-policy conv`` builds the gate's U-Net
+    with the 'conv' policy (the JAX tool's ``--remat-policy``)."""
+    cfg = quality_run.flagship_cfg(quick=True, elucidated=True, device="cpu")
+    trainer = quality_run.build_trainer(cfg, accum=1, remat=True, device="cpu",
+                                        remat_policy="conv")
+    unet = trainer.imagen.unets[1]
+    assert unet.remat and unet.remat_policy == "conv"
+    with pytest.raises(SystemExit):
+        quality_run.main(["--remat-policy", "nope"])

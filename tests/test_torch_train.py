@@ -607,20 +607,50 @@ def test_two_trainer_steps_match_jax(runs, edm):
 # ---------------------------------------------------------------------------
 
 def test_remat_grads_equal_plain_grads():
+    """Full remat and the 'conv' policy give the gradients of no remat, bit
+    for bit: the same backward operations, recomputed or not."""
     torch.manual_seed(0)
     plain = UNet3D(**UNET_KW)
     remat = UNet3D(**UNET_KW, remat=True)
+    conv = UNet3D(**UNET_KW, remat=True, remat_policy="conv")
     remat.load_state_dict(plain.state_dict())
+    conv.load_state_dict(plain.state_dict())
     x, low = torch.from_numpy(_rand(SHAPE, 1)), torch.from_numpy(_rand(SHAPE, 2))
     t = torch.full((B,), 0.3)
     grads = []
-    for model in (plain, remat):
+    for model in (plain, remat, conv):
         model(x, t, t, lowres_cond_img=low).square().mean().backward()
         grads.append({k: p.grad for k, p in model.named_parameters()})
     for k in grads[0]:
         torch.testing.assert_close(grads[1][k], grads[0][k], rtol=0, atol=0, msg=k)
-    with pytest.raises(NotImplementedError, match="remat_policy"):
-        UNet3D(**UNET_KW, remat=True, remat_policy="conv")
+        torch.testing.assert_close(grads[2][k], grads[0][k], rtol=0, atol=0, msg=k)
+
+
+def test_remat_conv_grads_match_jax():
+    """The port's ``remat_policy='conv'`` against the JAX one (save
+    ``conv_in`` / ``conv_out``, recompute the GroupNorm / Mish chain) on the
+    same weights and inputs: every parameter gradient within 1e-5 of its
+    largest entry (fp32 sums in other orders; the JAX test holds its own
+    policies to each other at 1e-5)."""
+    jmodel = JUNet3D(**UNET_KW, att_type="linear", dtype=jnp.float32, remat=True,
+                     remat_policy="conv")
+    params = _init_params(_jax_unet(), 0)
+    x, low = _rand(SHAPE, 1), _rand(SHAPE, 2)
+    t = np.full((B,), 0.3, np.float32)
+
+    def loss(p):
+        out = jmodel.apply(p, jnp.asarray(x), jnp.asarray(t), jnp.asarray(t),
+                           lowres_cond_img=jnp.asarray(low))
+        return jnp.mean(jnp.square(out))
+
+    want = state_dict_from_jax_params(jax.jit(jax.grad(loss))(params))
+    port = UNet3D(**UNET_KW, remat=True, remat_policy="conv")
+    port.load_state_dict(state_dict_from_jax_params(params))
+    port(_t(x), _t(t), _t(t), lowres_cond_img=_t(low)).square().mean().backward()
+    for k, p in port.named_parameters():
+        ref = want[k].numpy()
+        np.testing.assert_allclose(p.grad.numpy(), ref, rtol=1e-5,
+                                   atol=1e-5 * np.abs(ref).max(), err_msg=k)
 
 
 def _vit_unet(**kw):

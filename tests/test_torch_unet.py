@@ -187,23 +187,23 @@ def test_jax_params_round_trip_at_eval_config_width():
     assert jax.tree_util.tree_structure(again) == jax.tree_util.tree_structure(params)
 
 
-@pytest.mark.parametrize("kwargs", [
-    dict(merged_boundary=True),
-    dict(memory_efficient=True),
-    dict(init_cross_embed=True),
-    dict(pixel_shuffle_upsample=False),
-    dict(remat=True, remat_policy="conv"),
-])
-def test_unported_options_raise(kwargs):
-    with pytest.raises(NotImplementedError):
-        UNet3D(**{**SMALL, **kwargs, "img_size": 24})
-
-
 def test_iqt_unet_from_config_eval_geometry():
     port = iqt_unet_from_config(_eval_cfg(), device="cpu")
     assert port.dtype == torch.bfloat16 and port.factor == 3
     blocks = [m for m in port.modules() if isinstance(m, tb.Block)]
     assert len(blocks) == 38  # 19 ResnetBlocks
+
+
+def test_iqt_unet_from_config_efficient_and_remat_conv():
+    """``Train.efficient`` and ``Train.remat_policy: 'conv'`` build: a
+    pre-downsample at every level, an upsample at every up level, and the
+    'conv' policy (no checkpoint around the ResnetBlocks)."""
+    cfg = _eval_cfg()
+    cfg.train.efficient, cfg.train.remat, cfg.train.remat_policy = True, True, "conv"
+    port = iqt_unet_from_config(cfg, device="cpu")
+    assert port.remat and port.remat_policy == "conv"
+    assert all(isinstance(d[0], tb.Downsample) for d in port.downs)
+    assert all(isinstance(u[0], tb.PixelShuffleUpsample) for u in port.ups)
 
 
 def test_iqt_unet_from_config_defaults_to_cuda(monkeypatch):
