@@ -5,7 +5,7 @@
 Phases, each of which raises (and exits non-zero) on failure:
 
   env           torch / CUDA versions, the card's name and power limit
-  build         nvcc builds the four kernels' sources from ``diffusioniqt_tpu_torch/csrc``,
+  build         nvcc builds the five kernel sources from ``diffusioniqt_tpu_torch/csrc``,
                 one process per source, all started together
   kernels       each kernel against its plain PyTorch version at every shape
                 the serve phases give it (bf16, batch 8 windows x 27
@@ -22,10 +22,14 @@ Phases, each of which raises (and exits non-zero) on failure:
                 and at factor 1, config/config.yaml's SAME convs on its 27
                 sub-volumes: the halo at C 64 against F.pad (which
                 computes it in one call) and the fused Block at 64->64;
-                and the fused Block's small-edge route (with the halo) at
-                its heaviest shape on each path: (216, 4^3, 256->256) at
-                factor 3 (forward-efficient) and (27, 2^3, 1024->1024) at
-                factor 1 (preset-srunet256)
+                and the fused Block's small-edge kernel (with the halo) at
+                every shape the presets launch it at (SMALL_EDGE_SHAPES:
+                the efficient flagship's 4^3 x 256 at 216 and 27 rows,
+                SRUnet256's 4^3 x 512, 4^3 1024->512 and 2^3 x 1024), each
+                launched twice (identical bits required) and printed with
+                its plan; then the brick route's headline row against the
+                spread PERF.md records for it (fails outside it, widened by
+                BRICK_ROUTE_MARGIN, on a card at the recorded power limit)
   forward       the full-width ``config/eval_config.yaml`` UNet3D (seeded
                 random weights, bf16) on one 27 x 32^3 group, through the
                 kernels and through the plain versions; launches per forward
@@ -148,8 +152,10 @@ Phases, each of which raises (and exits non-zero) on failure:
                 and 4^3; every up level upsamples) at full width: one
                 27 x 32^3 window through the kernels and the plain versions
                 within FORWARD_REL_TOL; launches exactly EFFICIENT_COUNTS
-                (the fused Block's small-edge route at 4^3); the Blocks'
-                conv GFLOP beside the flagship's
+                (the fused Block's small-edge route at 4^3), its small-edge
+                shapes, and those of a forward at the serve batch, all in
+                SMALL_EDGE_SHAPES; the Blocks' conv GFLOP beside the
+                flagship's
   serve-efficient  the serve phase's ``infer_volume`` call (8 windows, 20
                 ancestral steps) with that config; seconds and ms per
                 forward beside the serve phase's
@@ -173,16 +179,18 @@ Phases, each of which raises (and exits non-zero) on failure:
                 96^3 window (27 x 32^3) through the kernels and the plain
                 versions within FORWARD_REL_TOL, launches exactly
                 SRUNET_COUNTS (the small-edge route at 4^3 and 2^3, up to
-                1024 channels); one 20-step ancestral sampler call of the
-                window; ms per forward, parameters, peak memory
+                1024 channels; every small-edge shape in SMALL_EDGE_SHAPES);
+                one 20-step ancestral sampler call of the window; ms per
+                forward, parameters, peak memory
   cli           ``python -m diffusioniqt_tpu_torch.cli config``, then
                 ``train --steps 2`` and ``sample`` of the JAX CLI test's
                 small config, as subprocesses on the card: finite samples
                 of shape (2, 8, 8, 8, 1)
 
 ``python3 chip_smoke.py --profile`` also prints a ``torch.profiler``
-breakdown of one forward of each of the two configs at the serve batch,
-8 x 27 x 32^3 (device time by kernel, device busy share), and of one
+breakdown of one forward of each config at the serve batch, 8 x 27 x
+32^3 (device time by kernel, device busy share), of SRUnet256's one
+window (27 x 32^3), and of one
 training microbatch's forward and backward (27 x 32^3) in the train phase
 and in each of the three config.yaml cells. Without it too,
 train-step profiles one microbatch's forward and backward and fails if any
@@ -204,14 +212,17 @@ against the plain version, times
 in ms at the main path's heaviest shape for that kernel, the bound and what
 sets it; for the halo and the fused Block also a ``factor1`` row with the
 train-base launches; the halo's ``small_edge`` rows; the fused Block's
-small-edge route as its own row, ``fused_block_small``, launched in
-serve-efficient, with the SRUnet256 shape as its ``factor1`` row); the
+small-edge kernel as its own row, ``fused_block_small``
+(``csrc/fused_block_small.cu``, its reduction kernel counted in the same
+launch), launched in serve-efficient, headed by the (216, 4^3, 256->256)
+shape, every shape of SMALL_EDGE_SHAPES in its ``shapes`` list); the
 last line is ``{"ok": true, "device": {...}}``. Imports
 nothing of JAX or of ``diffusioniqt_tpu``. Exits non-zero without CUDA.
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import math
 import os
@@ -319,9 +330,25 @@ EFFICIENT_COUNTS = {"halo": 39, "conv3d": 1, "fused_block": 32, "fused_block_sma
 # conv3d); the mid ViT's one attention layer goes through flash
 SRUNET_COUNTS = {"halo": 108, "conv3d": 0, "fused_block": 52, "fused_block_small": 56,
                  "flash_attention": 1}
-# the small-edge route's rows in the kernels phase: (batch, s, Cin, Cout,
-# factor) at its heaviest shape on each path
-SMALL_EDGE_SHAPES = [(BATCH, 4, 256, 256, 3), (GROUP, 2, 1024, 1024, 1)]
+# the small-edge route's rows in the kernels phase: every (batch, s, Cin,
+# Cout, factor) that the fused Block's wrapper sees in one forward of the
+# efficient flagship (6 launches at 4^3, factor 3; 27 rows in
+# forward-efficient, 216 in serve-efficient) and one of SRUnet256 at one
+# window (35 at 4^3 x 512, 1 at 4^3 1024->512 on the up path, 20 at 2^3 x
+# 1024; factor 1); the first is the route's headline. The same list as
+# ops/kernels/fused_block.py::SMALL_EDGE_SHAPES, written out so that a copy
+# of this script times an older checkout's kernels too
+SMALL_EDGE_SHAPES = [(BATCH, 4, 256, 256, 3), (GROUP, 4, 256, 256, 3), (GROUP, 4, 512, 512, 1),
+                     (GROUP, 4, 1024, 512, 1), (GROUP, 2, 1024, 1024, 1)]
+# the brick route's headline row: the min-max of 5 device timings that
+# PERF.md's kernel table records for it before the small-edge route moved to
+# its own kernel (H100 80GB HBM3, 700 W). This run's median must lie within
+# it, widened by the noise margin on each side (the parent's own median read
+# 3.5819, just under it, in a later call), where the card's power limit is
+# that of the recording; on a card held lower it is printed only
+BRICK_ROUTE_SPREAD_MS = (3.5828, 3.7128)
+BRICK_ROUTE_MARGIN = 0.05
+BRICK_ROUTE_WATTS = 700.0
 # the train phase, as tools/quality_run.py trains the EDM flagship: 96^3
 # patches per optimizer step, microbatches per step (27 x 32^3 each), steps
 # (the EMA is applied every 10th), and the synthetic phantoms' edge and count
@@ -397,10 +424,8 @@ DDP_RANK_TIMEOUT_S = 600
 # device kernels of an accumulating scatter: the backward of a gather
 SCATTER_KERNELS = ("indexing_backward", "index_put")
 # device-kernel names of each hand-written kernel, for the profile's layers
-LAYERS = {"fused_block": tuple(f"igemm::conv_sm90<true, {a}, {bn}, 0>"
-                               for a in ("true", "false") for bn in (64, 128)),
-          "fused_block_small": tuple(f"igemm::conv_sm90<true, true, {bn}, {e}>"
-                                     for bn in (64, 128) for e in (4, 2)),
+LAYERS = {"fused_block": ("igemm::conv_sm90<true",),
+          "fused_block_small": ("small_edge::conv_kernel", "small_edge::reduce_partials"),
           "conv3d": ("small_cin_kernel", "igemm::conv_sm90<false"),
           "halo": ("halo_row_kernel",), "flash_attention": ("flash_kernel",)}
 # the one PyTorch call timed beside each kernel as its library yardstick
@@ -412,6 +437,26 @@ LIBRARY = {"halo": "index_select gather from a precomputed source table",
            "fused_block_small": "none, as for fused_block (conv_only_library_ms: "
                                 "F.conv3d, cuDNN, on the transformed input)",
            "flash_attention": "F.scaled_dot_product_attention"}
+
+
+def recording_ops(seen):
+    """The kernels, counting in ``seen`` the (B, s, Cin, Cout, factor) of
+    every fused Block launch at a small sub-volume edge."""
+    from diffusioniqt_tpu_torch.ops.kernels import KERNELS, Ops
+    factor = {}
+
+    def halo(x, f):
+        factor["f"] = f  # the Block's halo, just before its fused conv
+        return KERNELS.halo(x, f)
+
+    def fused_conv(xh, a_tab, b_tab, w, cache=None):
+        s = xh.shape[1] - 2
+        if s in (4, 2):
+            seen[(xh.shape[0], s, xh.shape[4], w.shape[0], factor["f"])] += 1
+        return KERNELS.fused_conv(xh, a_tab, b_tab, w, cache)
+
+    return Ops(halo=halo, conv3d=KERNELS.conv3d, fused_conv=fused_conv,
+               attention=KERNELS.attention)
 
 
 def phase(name: str) -> float:
@@ -549,6 +594,15 @@ def scatter_ms(fn):
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     hits = [(k, ms) for k, ms in rows if any(t in k for t in SCATTER_KERNELS)]
     return sum(ms for _, ms in hits), sum(ms for _, ms in rows), hits
+
+
+def power_watts(smi: str) -> float:
+    """The power limit in an ``nvidia-smi --query-gpu=name,power.limit`` line
+    (0 where the card does not report one)."""
+    try:
+        return float(smi.rsplit(",", 1)[1].split()[0])
+    except (IndexError, ValueError):
+        return 0.0
 
 
 def card_settings() -> None:
@@ -735,6 +789,7 @@ def main() -> int:
     # ------------------------------------------------------------ kernels
     t0 = phase("kernels")
     gen = torch.Generator(device=dev).manual_seed(0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     results = {}
 
     def record(name, shape, stats, k_ms, p_ms, lib_ms, bnd, **extra):
@@ -871,9 +926,8 @@ def main() -> int:
            conv_only_library_ms=timed(lambda: torch.nn.functional.conv3d(act_cf, w_bf)))
     del act_cf, xh, got, want
 
-    # the fused Block's small-edge route and the halo at its input, at the
-    # route's heaviest shape on each path: the efficient flagship's 4^3
-    # level (factor 3) and SRUnet256's 2^3 level (factor 1)
+    # the fused Block's small-edge route and the halo at its input, at every
+    # shape the presets launch it at (SMALL_EDGE_SHAPES)
     for n, s, cin, cout, f in SMALL_EDGE_SHAPES:
         x = torch.randn((n, s, s, s, cin), generator=gen, device=dev).to(torch.bfloat16)
         xh = kernels.halo_exchange(x, f)
@@ -905,14 +959,22 @@ def main() -> int:
         got = kernels.fused_conv(xh, a_tab, b_tab, w, cache)
         if kernels.launch_counts()["fused_block_small"] != before + 1:
             raise AssertionError(f"fused_block at s={s} did not take the small-edge route")
+        again = kernels.fused_conv(xh, a_tab, b_tab, w, cache)
         want = kernels.fused_conv_plain(xh, a_tab, b_tab, w)
         torch.cuda.synchronize()
         stats = compare("fused_block small edge", (n, s, cin, cout), got, want, BF16_TOL)
+        if not torch.equal(got, again):
+            raise AssertionError(f"fused_block small edge {(n, s, cin, cout)}: two launches "
+                                 "differ")
         reg = fused_module._region_index(s + 2, dev)
         act = fused_module.mish_one_exp(a_tab[:, reg] * xh.float() + b_tab[:, reg])
         act_cf = act.to(torch.bfloat16).permute(0, 4, 1, 2, 3)
         w_bf = w.to(torch.bfloat16)
         del act
+        plan = fused_module.small_edge_plan(n, s, cin, cout, sms)
+        print(f"    plan: tiles {plan.m_blocks} x {plan.n_blocks} of {plan.subs} "
+              f"sub-volumes x {plan.bn} channels, {plan.k_slices // 27} chunks each, "
+              f"{plan.ctas} CTAs in pairs, cut {plan.cut}")
         record("fused_block_small", (n, s, cin, cout), stats,
                timed(lambda: kernels.fused_conv(xh, a_tab, b_tab, w, cache)),
                cuda_time_ms(lambda: kernels.fused_conv_plain(xh, a_tab, b_tab, w), iters=3),
@@ -920,7 +982,16 @@ def main() -> int:
                               nbytes(xh, a_tab, b_tab, w_bf, got)),
                conv_only_library_ms=timed(lambda: torch.nn.functional.conv3d(act_cf, w_bf)))
         results["fused_block_small"][-1]["factor"] = f
-        del act_cf, xh, got, want, x
+        del act_cf, xh, got, again, want, x
+    brick = next(r for r in results["fused_block"] if tuple(r["shape"][1:]) == (32, 64, 64))
+    lo, hi = BRICK_ROUTE_SPREAD_MS
+    held = lo * (1 - BRICK_ROUTE_MARGIN) <= brick["ms"] <= hi * (1 + BRICK_ROUTE_MARGIN)
+    print(f"  fused_block brick route (216, 32^3, 64->64): {brick['ms']:.4f} ms, recorded "
+          f"spread {lo}-{hi}: {'within' if lo <= brick['ms'] <= hi else 'OUTSIDE'} "
+          f"(margin {BRICK_ROUTE_MARGIN:.0%}: {'held' if held else 'missed'})", flush=True)
+    if not held and power_watts(smi) >= BRICK_ROUTE_WATTS:
+        raise AssertionError(f"fused_block brick route: {brick['ms']:.4f} ms outside "
+                             f"{lo}-{hi} ms widened by {BRICK_ROUTE_MARGIN:.0%}")
 
     for bh, n, d in FLASH_SHAPES:
         q, k, v = (torch.randn((bh, n, d), generator=gen, device=dev).to(torch.bfloat16)
@@ -943,11 +1014,16 @@ def main() -> int:
         print(json.dumps({"kernel_rows": results}))
         return 0
 
-    def held_forward(label, cfg, want_counts, profile, build=None):
+    def held_forward(label, cfg, want_counts, profile, build=None, serve_batch=False,
+                     profile_rows=BATCH):
         """One 27 x 32^3 window through the kernels and through the plain
         versions: exact launch counts, agreement within FORWARD_REL_TOL.
         ``build`` makes the model (default: ``iqt_unet_from_config(cfg)``),
-        seeded. Returns ms per forward and the Blocks' conv GFLOP."""
+        seeded. The small-edge Blocks of the window's forward (and, with
+        ``serve_batch``, of one forward at the serve batch) must all be
+        shapes of SMALL_EDGE_SHAPES. With ``--profile``, one forward of
+        ``profile_rows`` sub-volumes is profiled. Returns ms per forward and
+        the Blocks' conv GFLOP."""
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(0)
             model = (build() if build else iqt_unet_from_config(cfg, device=dev)).eval()
@@ -956,14 +1032,21 @@ def main() -> int:
         t = torch.full((BATCH,), 0.5, device=dev)
         log_snr = torch.full((BATCH,), -1.0, device=dev)
         if profile and "--profile" in sys.argv[1:]:
+            r = profile_rows
             with torch.no_grad():
-                call = lambda: model(x, t, log_snr, lowres_cond_img=lowres)  # noqa: E731
-                profile_forward(label, call)
+                call = lambda: model(x[:r], t[:r], log_snr[:r],  # noqa: E731
+                                     lowres_cond_img=lowres[:r])
+                profile_forward(f"{label} ({r} x 32^3)", call)
                 slots = [d[2] for d in model.downs if not isinstance(d[2], torch.nn.Identity)]
                 slots += [model.mid_attn] if model.mid_attn is not None else []
                 if slots:
                     print(f"  attention slots (CUDA events): {slots_ms(call, slots):.3f} ms "
                           f"of one forward, {len(slots)} slots", flush=True)
+        seen = collections.Counter()
+        if serve_batch:
+            with torch.no_grad():
+                model.use_ops(recording_ops(seen))(x, t, log_snr, lowres_cond_img=lowres)
+                model.use_ops(kernels.KERNELS)
         # the held forward: one window's 27 sub-volumes
         x, lowres, t, log_snr = x[:GROUP], lowres[:GROUP], t[:GROUP], log_snr[:GROUP]
         flops = []  # the Blocks' 3^3 convs: 2 * voxels * 27 * Cin * Cout each
@@ -973,12 +1056,18 @@ def main() -> int:
             for m in model.modules() if isinstance(m, Block)]
         with torch.no_grad():
             kernels.reset_launch_counts()
-            out_k = model(x, t, log_snr, lowres_cond_img=lowres)
+            out_k = model.use_ops(recording_ops(seen))(x, t, log_snr, lowres_cond_img=lowres)
             torch.cuda.synchronize()
             per_forward = kernels.launch_counts()
+            model.use_ops(kernels.KERNELS)
             for h in hooks:
                 h.remove()
             print(f"launches per forward {per_forward}")
+            if seen:
+                print(f"small-edge Blocks (B, s, Cin, Cout, factor): {dict(seen)}")
+            if not set(seen) <= set(SMALL_EDGE_SHAPES):
+                raise AssertionError(f"{label}: small-edge shapes {sorted(set(seen))} not all in "
+                                     f"SMALL_EDGE_SHAPES")
             if per_forward != want_counts:
                 raise AssertionError(f"launches per forward {per_forward}, "
                                      f"expected {want_counts}")
@@ -1254,7 +1343,8 @@ def main() -> int:
                 return SRUnet256(channels=1, lowres_cond=True, dtype=torch.bfloat16)
 
         torch.cuda.reset_peak_memory_stats()
-        held = held_forward("SRUnet256", None, SRUNET_COUNTS, profile=False, build=build)
+        held = held_forward("SRUnet256", None, SRUNET_COUNTS, profile=True, build=build,
+                            profile_rows=GROUP)
         model = held["model"]
         imagen = imagen_from_config(cfg, (NullUnet().to(dev), model))
         lowres = torch.randn((GROUP, SUB, SUB, SUB, 1), generator=gen, device=dev)
@@ -2081,7 +2171,8 @@ def main() -> int:
     phase("forward-vit")
     held_forward("vit", cfg_vit, ATTN_COUNTS, profile=False)
     phase("forward-efficient")
-    efficient_fwd = held_forward("efficient", cfg_eff, EFFICIENT_COUNTS, profile=True)
+    efficient_fwd = held_forward("efficient", cfg_eff, EFFICIENT_COUNTS, profile=True,
+                                 serve_batch=True)
     print(f"efficient vs flagship forward (27 x 32^3): {efficient_fwd['ms']:.3f} vs "
           f"{flagship_fwd['ms']:.3f} ms, the Blocks' convs {efficient_fwd['gflop']:.1f} vs "
           f"{flagship_fwd['gflop']:.1f} GFLOP", flush=True)
@@ -2187,13 +2278,13 @@ def main() -> int:
                                               "library_ms", "library_ms_min", "library_ms_max")}
                              for r in results["halo_small"]]
     small = results["fused_block_small"]
-    head, f1 = small[0], small[1]
-    keys = ("shape", "max_abs_err", "ms", "ms_min", "ms_max", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "conv_only_library_ms", "conv_only_library_ms_min",
+    head = small[0]
+    keys = ("shape", "factor", "max_abs_err", "ms", "ms_min", "ms_max", "plain_ms", "bound_ms",
+            "bound_by", "conv_only_library_ms", "conv_only_library_ms_min",
             "conv_only_library_ms_max")
     line.insert(3, {
         "name": "fused_block_small", "route": "cuda",
-        "source": "diffusioniqt_tpu_torch/csrc/fused_block.cu",
+        "source": "diffusioniqt_tpu_torch/csrc/fused_block_small.cu",
         "replaces": REPLACES["fused_block_small"],
         # the serve run of its path: the efficient flagship's sampler call
         "launches": served_eff["fused_block_small"],
@@ -2209,8 +2300,8 @@ def main() -> int:
         "conv_only_library_ms": head["conv_only_library_ms"],
         "conv_only_library_ms_min": head["conv_only_library_ms_min"],
         "conv_only_library_ms_max": head["conv_only_library_ms_max"],
-        "factor1": {**{k: f1[k] for k in keys}, "launches_preset_srunet256":
-                    served_srunet["fused_block_small"]},
+        # every shape the presets launch it at (SMALL_EDGE_SHAPES)
+        "shapes": [{k: r[k] for k in keys if k in r} for r in small],
     })
     print(f"total seconds {time.perf_counter() - t_all:.1f}")
     print(json.dumps({"kernels": line}))

@@ -23,8 +23,7 @@
 // 3.4-5x), and the SFU work runs beside the tensor cores.
 //
 // Sub-volume edges 4 and 2 (the levels of a memory_efficient U-Net) have
-// no 4 x 8 x 8 brick: fused_block_small_launch runs the same kernel over
-// units of whole sub-volumes (igemm.cuh, the small-edge route).
+// no 4 x 8 x 8 brick: they take fused_block_small.cu.
 
 #include "igemm.cuh"
 
@@ -35,17 +34,4 @@ extern "C" int fused_block_launch(void* encode, const void* xh, const float* a_t
                                   int cin, int cout, int bn, void* stream) {
   return igemm::launch<true>(encode, xh, a_tab, b_tab, w, out, nb, s, cin, cout, bn,
                              static_cast<cudaStream_t>(stream));
-}
-
-// The small-edge route (igemm.cuh): S = 4 or 2, Cin % 8 == 0, units of
-// whole sub-volumes. Arguments as above; returns a cudaError_t.
-extern "C" int fused_block_small_launch(void* encode, const void* xh, const float* a_tab,
-                                        const float* b_tab, const void* w, void* out, int nb,
-                                        int s, int cin, int cout, int bn, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (s == 4)
-    return igemm::launch<true, 4>(encode, xh, a_tab, b_tab, w, out, nb, s, cin, cout, bn, st);
-  if (s == 2)
-    return igemm::launch<true, 2>(encode, xh, a_tab, b_tab, w, out, nb, s, cin, cout, bn, st);
-  return (int)cudaErrorInvalidValue;
 }

@@ -68,21 +68,9 @@
 // padding; channels past Cin stay exactly 0. Mish uses the one-exp identity
 // with the input clamped at 20, as the Pallas kernel does.
 //
-// The small-edge route (fused only; ops/kernels/fused_block.py::route): a
-// sub-volume edge S of 4 or 2 has no 4 x 8 x 8 brick, and the levels of a
-// memory_efficient U-Net run there (the flagship at 4^3, SRUnet256 at 4^3
-// and 2^3, with Cin, Cout up to 1024). Its unit is P whole sub-volumes, 128
-// output rows (P = 2 at S = 4, 16 at S = 2), one m64 tile per consumer
-// warpgroup; its brick is their (S+2)^3 halo'd inputs one after another,
-// one TMA box over (B, E, E, E, Cin) of P sub-volumes (sub-volumes past B
-// come in as zeros, and their output rows are not stored). The taps are
-// the same row shifts, (kx*E + ky)*E + kz. The transform reads A and B of
-// each brick row's sub-volume and region straight from the (B, 27, Cin)
-// tables in device memory (L1 / L2), as the brick mixes sub-volumes. At
-// S = 2 the brick (1024 rows, 128 KB) leaves room for one buffer only, so
-// there the transform of a chunk waits for the products of the one before.
-// The halo'd brick is 3.4x (S = 4) and 8x (S = 2) the output rows: the
-// Mish work per output row grows by as much.
+// Sub-volume edges 4 and 2 have no 4 x 8 x 8 brick; the fused Block runs
+// there on its own kernel, fused_block_small.cu, which reuses the Mish
+// prologue and the wgmma helpers below.
 #pragma once
 
 #include "sm90.cuh"
@@ -92,8 +80,11 @@ namespace igemm {
 
 using namespace sm90;
 
-constexpr int TX = 4, TY = 8, TZ = 8;     // output brick (x, y, z) of the S % 8 == 0 route
+constexpr int TX = 4, TY = 8, TZ = 8;     // output brick (x, y, z)
+constexpr int HX = TX + 2, HY = TY + 2, HZ = TZ + 2;
+constexpr int ROWS = HX * HY * HZ;        // 600 halo'd voxels
 constexpr int KC = 64;                    // input channels per chunk: one 128-byte row
+constexpr int BRICK_BYTES = ROWS * KC * 2;  // 76800 = 75 * 1024
 constexpr int W_PART = KC * 64 * 2;       // one 64-column part of a weight slice
 constexpr int TRANSFORM_THREADS = 224;    // warps 1-3 and 12-15
 constexpr int THREADS = 512;
@@ -101,32 +92,9 @@ constexpr int THREADS = 512;
 // the FUSED coefficients of one sub-volume and chunk, A and B, [27][64] fp32
 constexpr int TAB_BYTES = 2 * 27 * KC * 4;
 
-// How a unit's output rows and its halo'd input brick lie in the volume.
-// SS = 0: a TX x TY x TZ output brick of one sub-volume of edge S (S % 8 ==
-// 0), tile t of the unit = output x-plane t (8 x 8 rows, y-major); SS = 4
-// or 2: P whole sub-volumes of edge SS, output row o = sub * SS^3 + voxel.
-template <int SS>
-struct Geom {
-  static constexpr int E = SS + 2, E3 = E * E * E, V = SS * SS * SS;
-  static constexpr int P = 128 / V;     // sub-volumes per unit: 2 or 16
-  static constexpr int MT = 1;          // m64 tiles per consumer warpgroup
-  static constexpr int HX = E, HY = E, HZ = E;
-  static constexpr int ROWS = P * E3;   // 432 or 1024 halo'd voxels
-  static constexpr int NBUF = ROWS <= 512 ? 2 : 1;
-  static_assert(P * V == 128, "a unit is two m64 tiles");
-};
-template <>
-struct Geom<0> {
-  static constexpr int P = 1, MT = 2;
-  static constexpr int HX = TX + 2, HY = TY + 2, HZ = TZ + 2;
-  static constexpr int ROWS = HX * HY * HZ;  // 600 halo'd voxels
-  static constexpr int NBUF = 2;
-};
-
-// shared memory from a 1024-byte aligned base: the brick buffers, the
-// weight ring (both 1024-byte aligned, as the 128-byte swizzle needs), the
-// tables (staged per sub-volume on the SS = 0 route only)
-template <int BN, int SS>
+// shared memory from a 1024-byte aligned base: the two bricks, the weight
+// ring (both 1024-byte aligned, as the 128-byte swizzle needs), the tables
+template <int BN>
 struct Cfg {
   // setmaxnreg budgets: they move only the registers the CTA was launched
   // with, 512 * 128 = 65536 = 256 * CONSUMER_REGS + 256 * OTHER_REGS
@@ -137,13 +105,11 @@ struct Cfg {
   static constexpr int BATCH = BN == 64 ? 4 : 2;  // transform groups in flight a thread
   static constexpr int STAGES = BN == 64 ? 6 : 3;
   static constexpr int STAGE_BYTES = KC * BN * 2;
-  static constexpr int BRICK_BYTES = Geom<SS>::ROWS * KC * 2;
-  static constexpr int NBUF = Geom<SS>::NBUF;
-  static constexpr int TAB_OFFSET = NBUF * BRICK_BYTES + STAGES * STAGE_BYTES;
-  static constexpr int SMEM = 1024 + TAB_OFFSET + (SS == 0 ? TAB_BYTES : 0);
-  static_assert(BRICK_BYTES % 1024 == 0, "brick buffers 1024-byte aligned");
-  static_assert(SMEM <= 227 * 1024 - 256, "shared memory");
+  static constexpr int TAB_OFFSET = 2 * BRICK_BYTES + STAGES * STAGE_BYTES;
+  static constexpr int SMEM = 1024 + TAB_OFFSET + TAB_BYTES;
 };
+static_assert(Cfg<64>::SMEM <= 227 * 1024 - 256 && Cfg<128>::SMEM <= 227 * 1024 - 256,
+              "shared memory");
 
 struct Params {
   const __nv_bfloat16* xh;  // read directly only when Cin % 8 != 0
@@ -152,7 +118,7 @@ struct Params {
   __nv_bfloat16* out;
   int nb, s, cin, cout;
   int nchunks;  // ceil(Cin / 64)
-  int units;    // (SS = 0: B * bricks per sub-volume; else ceil(B / P)) * ceil(Cout / BN)
+  int units;    // B * bricks per sub-volume * ceil(Cout / BN)
 };
 
 __device__ __forceinline__ float mish1(float v) {
@@ -184,10 +150,9 @@ __device__ __forceinline__ uint4 affine_mish8(uint4 raw, const float* ap, const 
 }
 
 // keeps the A fragments of half a tap live until its wgmma has finished
-template <int MT>
-__device__ __forceinline__ void fence_frags(uint32_t (&f)[MT][2][4]) {
-#pragma unroll
-  for (int i = 0; i < MT; ++i) fence_regs(f[i]);
+__device__ __forceinline__ void fence_frags(uint32_t (&f)[2][2][4]) {
+  fence_regs(f[0]);
+  fence_regs(f[1]);
 }
 
 template <int BN>
@@ -196,75 +161,36 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[BN / 2], const uint32_t (&a)
   else wgmma_rs_n128(d, a, db);
 }
 
-// The unit u -> n tile, sub-volume (the first of the unit's P), brick
-// origin. Units run n tile by n tile, then sub-volume by sub-volume, bricks
-// in x, y, z order, so the CTAs in flight share one weight and
-// neighbouring bricks in L2.
-template <int SS>
+// The unit u -> n tile, sub-volume, brick origin. Units run n tile by n
+// tile, then sub-volume by sub-volume, bricks in x, y, z order, so the CTAs
+// in flight share one weight and neighbouring bricks in L2.
 struct Unit {
   int nt, b, x0, y0, z0;
   __device__ __forceinline__ Unit(int u, int nb, int s) {
-    if constexpr (SS == 0) {
-      const int by = s / TY, bz = s / TZ;
-      const int per_sub = (s / TX) * by * bz;
-      nt = u / (nb * per_sub);
-      int r = u % (nb * per_sub);
-      b = r / per_sub;
-      r %= per_sub;
-      x0 = (r / (by * bz)) * TX;
-      y0 = ((r / bz) % by) * TY;
-      z0 = (r % bz) * TZ;
-    } else {
-      const int per_nt = (nb + Geom<SS>::P - 1) / Geom<SS>::P;
-      nt = u / per_nt;
-      b = (u % per_nt) * Geom<SS>::P;
-      x0 = y0 = z0 = 0;
-    }
+    const int by = s / TY, bz = s / TZ;
+    const int per_sub = (s / TX) * by * bz;
+    nt = u / (nb * per_sub);
+    int r = u % (nb * per_sub);
+    b = r / per_sub;
+    r %= per_sub;
+    x0 = (r / (by * bz)) * TX;
+    y0 = ((r / bz) % by) * TY;
+    z0 = (r % bz) * TZ;
   }
 };
 
-// brick row of output row r (0 ... 63) of m64 tile t of the unit, before
-// the tap's shift
-template <int SS>
-__device__ __forceinline__ int brick_row(int t, int r) {
-  using G = Geom<SS>;
-  if constexpr (SS == 0) {
-    return (t * G::HY + r / 8) * G::HZ + r % 8;
-  } else {
-    const int o = t * 64 + r;
-    const int sub = o / G::V, v = o % G::V;
-    return sub * G::E3 + ((v / (SS * SS)) * G::E + (v / SS) % SS) * G::E + v % SS;
-  }
-}
-
-// the output voxel of output row r of tile t, or -1 past the last sub-volume
-template <int SS>
-__device__ __forceinline__ long long out_voxel(const Unit<SS>& un, int t, int r, int nb, int s) {
-  if constexpr (SS == 0) {
-    return (((long long)un.b * s + un.x0 + t) * s + un.y0 + r / 8) * s + un.z0 + r % 8;
-  } else {
-    const long long vox = (long long)un.b * Geom<SS>::V + t * 64 + r;
-    return vox < (long long)nb * Geom<SS>::V ? vox : -1;
-  }
-}
-
-template <bool FUSED, bool TMA_A, int BN, int SS>
+template <bool FUSED, bool TMA_A, int BN>
 __global__ void __launch_bounds__(THREADS, 1)
 conv_sm90(const Params p, const __grid_constant__ CUtensorMap xmap,
           const __grid_constant__ CUtensorMap wmap) {
-  using C = Cfg<BN, SS>;
-  using G = Geom<SS>;
+  using C = Cfg<BN>;
   constexpr int ST = C::STAGES;
-  constexpr int NBUF = C::NBUF;
-  constexpr int MT = G::MT;
-  constexpr int ROWS = G::ROWS;
-  static_assert(SS == 0 || (FUSED && TMA_A), "the small-edge route is the fused TMA one");
   extern __shared__ unsigned char smem_raw[];
   // 1024-byte alignment: the 128-byte swizzle repeats every 8 rows of 128 B
   const uint32_t raw_addr = smem_addr(smem_raw);
   const uint32_t base = (raw_addr + 1023u) & ~1023u;
   unsigned char* base_ptr = smem_raw + (base - raw_addr);
-  const uint32_t w_s = base + NBUF * C::BRICK_BYTES;
+  const uint32_t w_s = base + 2 * BRICK_BYTES;
   __shared__ __align__(8) uint64_t bars[2 * ST + 6];
   auto full_w = [&](int st) { return smem_addr(&bars[st]); };
   auto empty_w = [&](int st) { return smem_addr(&bars[ST + st]); };
@@ -299,7 +225,7 @@ conv_sm90(const Params p, const __grid_constant__ CUtensorMap xmap,
       // ------------------------------------------------ weight producer
       int g = 0;
       for (int u = blockIdx.x; u < p.units; u += gridDim.x) {
-        const Unit<SS> un(u, p.nb, S);
+        const Unit un(u, p.nb, S);
         for (int chunk = 0; chunk < p.nchunks; ++chunk)
           for (int tap = 0; tap < 27; ++tap, ++g) {
             const int st = g % ST, round = g / ST;
@@ -317,18 +243,18 @@ conv_sm90(const Params p, const __grid_constant__ CUtensorMap xmap,
       float* tab_b = tab_a + 27 * KC;
       int item = 0;
       for (int u = blockIdx.x; u < p.units; u += gridDim.x) {
-        const Unit<SS> un(u, p.nb, S);
+        const Unit un(u, p.nb, S);
         for (int chunk = 0; chunk < p.nchunks; ++chunk, ++item) {
-          const int buf = item % NBUF, use = item / NBUF;
+          const int buf = item & 1, use = item >> 1;
           if (use > 0) mbar_wait(brick_empty(buf), (use - 1) & 1);
-          unsigned char* bp = base_ptr + buf * C::BRICK_BYTES;
+          unsigned char* bp = base_ptr + buf * BRICK_BYTES;
           const int c_base = chunk * KC;
           if (TMA_A && t == 0) {
-            mbar_expect_tx(raw_full(buf), C::BRICK_BYTES);
-            tma_load_5d(base + buf * C::BRICK_BYTES, &xmap, raw_full(buf), c_base, un.z0, un.y0,
+            mbar_expect_tx(raw_full(buf), BRICK_BYTES);
+            tma_load_5d(base + buf * BRICK_BYTES, &xmap, raw_full(buf), c_base, un.z0, un.y0,
                         un.x0, un.b);
           }
-          if constexpr (FUSED && SS == 0) {
+          if constexpr (FUSED) {
             // this sub-volume's coefficients of the chunk's channels -> shared
             // memory, [region][channel]; entries past Cin are never read
             named_bar_sync(1, TRANSFORM_THREADS);  // the previous chunk is done with them
@@ -372,7 +298,7 @@ conv_sm90(const Params p, const __grid_constant__ CUtensorMap xmap,
                 } else {
                   v[q] = make_uint4(0u, 0u, 0u, 0u);
                   __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&v[q]);
-                  const int hz = row % G::HZ, hy = (row / G::HZ) % G::HY, hx = row / (G::HZ * G::HY);
+                  const int hz = row % HZ, hy = (row / HZ) % HY, hx = row / (HZ * HY);
                   const long long g =
                       ((((long long)un.b * E + un.x0 + hx) * E + un.y0 + hy) * E + un.z0 + hz) *
                           cin + c;
@@ -388,24 +314,12 @@ conv_sm90(const Params p, const __grid_constant__ CUtensorMap xmap,
                 const int row = id >> 3, pc = id & 7;
                 const int j8 = 8 * (pc ^ (row & 7));
                 uint4 val = v[q];
-                if constexpr (FUSED && SS == 0) {
+                if constexpr (FUSED) {
                   if (c_base + j8 < cin) {
-                    const int hz = row % G::HZ, hy = (row / G::HZ) % G::HY,
-                              hx = row / (G::HZ * G::HY);
+                    const int hz = row % HZ, hy = (row / HZ) % HY, hx = row / (HZ * HY);
                     const int r = (region(un.x0 + hx, E) * 3 + region(un.y0 + hy, E)) * 3 +
                                   region(un.z0 + hz, E);
                     val = affine_mish8(val, tab_a + r * KC + j8, tab_b + r * KC + j8);
-                  }
-                } else if constexpr (FUSED) {
-                  // the row's own sub-volume; rows of sub-volumes past B stay zero
-                  const int sub = row / G::E3, rr = row % G::E3;
-                  const int b = un.b + sub;
-                  if (c_base + j8 < cin && b < p.nb) {
-                    const int r = (region(rr / (G::E * G::E), G::E) * 3 +
-                                   region((rr / G::E) % G::E, G::E)) * 3 +
-                                  region(rr % G::E, G::E);
-                    const long long off = ((long long)b * 27 + r) * cin + c_base + j8;
-                    val = affine_mish8(val, p.a_tab + off, p.b_tab + off);
                   }
                 }
                 *reinterpret_cast<uint4*>(bp + row * 128 + pc * 16) = val;
@@ -420,26 +334,26 @@ conv_sm90(const Params p, const __grid_constant__ CUtensorMap xmap,
   } else {
     // ------------------------------------------------------- consumers
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(C::CONSUMER_REGS));
-    const int cw = wg - 1;  // m64 tiles MT cw ... MT cw + MT - 1 of the unit
+    const int cw = wg - 1;  // output x-planes 2 cw, 2 cw + 1 of the brick
     const int t = threadIdx.x % 128;
     const int warp = t / 32, lane = t % 32;
     // ldmatrix: lane l gives the address of row l % 16 of its warp's 16
-    // rows of the tile (on the SS = 0 route y = 2 warp + (l % 16) / 8,
-    // z = l % 8) at k offset 8 (l / 16)
-    int row0[MT];
+    // rows (y = 2 warp + (l % 16) / 8, z = l % 8) at k offset 8 (l / 16)
+    int row0[2];
 #pragma unroll
-    for (int i = 0; i < MT; ++i) row0[i] = brick_row<SS>(MT * cw + i, 16 * warp + lane % 16);
+    for (int i = 0; i < 2; ++i)
+      row0[i] = ((2 * cw + i) * HY + 2 * warp + (lane % 16) / 8) * HZ + lane % 8;
     const int khalf = lane / 16;
 
-    float acc[MT][BN / 2];
-    uint32_t a[2][MT][2][4];  // [half of the tap][m tile][k16 step][fragment]
+    float acc[2][BN / 2];
+    uint32_t a[2][2][2][4];  // [half of the tap][m tile][k16 step][fragment]
 
     // A fragments of half h of one tap: k16 steps 2h, 2h + 1
-    auto load_a = [&](uint32_t (&frag)[MT][2][4], uint32_t brick, int tap, int h) {
+    auto load_a = [&](uint32_t (&frag)[2][2][4], uint32_t brick, int tap, int h) {
       const int kx = tap / 9, ky = (tap / 3) % 3, kz = tap % 3;
-      const int toff = (kx * G::HY + ky) * G::HZ + kz;
+      const int toff = (kx * HY + ky) * HZ + kz;
 #pragma unroll
-      for (int i = 0; i < MT; ++i) {
+      for (int i = 0; i < 2; ++i) {
         const int r = row0[i] + toff;
 #pragma unroll
         for (int k2 = 0; k2 < 2; ++k2) {
@@ -449,28 +363,28 @@ conv_sm90(const Params p, const __grid_constant__ CUtensorMap xmap,
       }
     };
     // B of k16 step kk: 16 rows of the weight slice, 64-column parts W_PART apart
-    auto mma_half = [&](const uint32_t (&frag)[MT][2][4], uint32_t wst, int h) {
+    auto mma_half = [&](const uint32_t (&frag)[2][2][4], uint32_t wst, int h) {
 #pragma unroll
       for (int k2 = 0; k2 < 2; ++k2) {
         const uint64_t db = make_desc(wst + (2 * h + k2) * 16 * 128, W_PART, 1024, 1);
 #pragma unroll
-        for (int i = 0; i < MT; ++i) wgmma_rs<BN>(acc[i], frag[i][k2], db);
+        for (int i = 0; i < 2; ++i) wgmma_rs<BN>(acc[i], frag[i][k2], db);
       }
     };
 
     int g = 0, item = 0;
     for (int u = blockIdx.x; u < p.units; u += gridDim.x) {
-      const Unit<SS> un(u, p.nb, S);
+      const Unit un(u, p.nb, S);
 #pragma unroll
-      for (int i = 0; i < MT; ++i) {
+      for (int i = 0; i < 2; ++i)
 #pragma unroll
         for (int j = 0; j < BN / 2; ++j) acc[i][j] = 0.0f;
-        fence_regs(acc[i]);
-      }
+      fence_regs(acc[0]);
+      fence_regs(acc[1]);
       for (int chunk = 0; chunk < p.nchunks; ++chunk, ++item) {
-        const int buf = item % NBUF;
-        mbar_wait(ready(buf), (item / NBUF) & 1);
-        const uint32_t brick = base + buf * C::BRICK_BYTES;
+        const int buf = item & 1;
+        mbar_wait(ready(buf), (item >> 1) & 1);
+        const uint32_t brick = base + buf * BRICK_BYTES;
         load_a(a[0], brick, 0, 0);
         for (int tap = 0; tap < 27; ++tap) {
           const int gs = g + tap;
@@ -492,24 +406,24 @@ conv_sm90(const Params p, const __grid_constant__ CUtensorMap xmap,
           if (tap < 26) load_a(a[0], brick, tap + 1, 0);
         }
         wgmma_wait<0>();
-#pragma unroll
-        for (int i = 0; i < MT; ++i) fence_regs(acc[i]);
+        fence_regs(acc[0]);
+        fence_regs(acc[1]);
         fence_frags(a[1]);
         mbar_arrive(empty_w((g + 26) % ST));
         mbar_arrive(brick_empty(buf));
         g += 27;
       }
 
-      // ---- epilogue: accumulator element j of tile i is the tile's output
-      // row 16 warp + lane/4 + 8 ((j/2) % 2), column (j/4) * 8 + 2 (lane % 4)
-      // + j % 2
+      // ---- epilogue: accumulator element j of tile i is output row
+      // 16 warp + lane/4 + 8 ((j/2) % 2) (y = 2 warp + (j/2) % 2, z = lane/4),
+      // column (j/4) * 8 + 2 (lane % 4) + j % 2
 #pragma unroll
-      for (int i = 0; i < MT; ++i)
+      for (int i = 0; i < 2; ++i)
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
-          const long long vox = out_voxel<SS>(un, MT * cw + i, 16 * warp + lane / 4 + 8 * hh,
-                                              p.nb, S);
-          if (vox < 0) continue;
+          const long long vox =
+              (((long long)un.b * S + un.x0 + 2 * cw + i) * S + un.y0 + 2 * warp + hh) * S +
+              un.z0 + lane / 4;
           const int n0 = un.nt * BN + 2 * (lane % 4);
           __nv_bfloat16* dst = p.out + vox * p.cout + n0;
 #pragma unroll
@@ -522,41 +436,35 @@ conv_sm90(const Params p, const __grid_constant__ CUtensorMap xmap,
   }
 }
 
-template <bool FUSED, bool TMA_A, int BN, int SS>
+template <bool FUSED, bool TMA_A, int BN>
 int launch_cfg(const Params& p, const CUtensorMap& xmap, const CUtensorMap& wmap,
                cudaStream_t stream) {
-  auto kernel = conv_sm90<FUSED, TMA_A, BN, SS>;
-  constexpr int smem = Cfg<BN, SS>::SMEM;
+  auto kernel = conv_sm90<FUSED, TMA_A, BN>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         smem);
+                                         Cfg<BN>::SMEM);
   if (err != cudaSuccess) return (int)err;
   int device = 0, sms = 0;
   if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
     return (int)err;
   const int grid = p.units < sms ? p.units : sms;
-  kernel<<<grid, THREADS, smem, stream>>>(p, xmap, wmap);
+  kernel<<<grid, THREADS, Cfg<BN>::SMEM, stream>>>(p, xmap, wmap);
   return (int)cudaGetLastError();
 }
 
 // xh, w, out, tables as at the head of this file; bn = 64 or 128 (the
-// Python wrapper picks it: ops/kernels/conv3d.py::gemm_geometry). SS = 0
-// needs S % 8 == 0; SS = 4 or 2 (FUSED only) needs S == SS and Cin % 8 ==
-// 0. Both need Cout % 8 == 0 and 16-byte aligned xh and w. ``encode`` is
-// cuTensorMapEncodeTiled of libcuda. Returns a cudaError_t.
-template <bool FUSED, int SS = 0>
+// Python wrapper picks it: ops/kernels/conv3d.py::gemm_geometry). Needs
+// S % 8 == 0, Cout % 8 == 0 and 16-byte aligned xh and w. ``encode`` is the
+// driver's cuTensorMapEncodeTiled. Returns a cudaError_t.
+template <bool FUSED>
 int launch(void* encode, const void* xh, const float* a_tab, const float* b_tab, const void* w,
            void* out, int nb, int s, int cin, int cout, int bn, cudaStream_t stream) {
-  using G = Geom<SS>;
   EncodeTiled enc = reinterpret_cast<EncodeTiled>(encode);
-  if (enc == nullptr || nb <= 0 || s <= 0 || cin <= 0 || cout <= 0 || cout % 8 != 0 ||
-      (bn != 64 && bn != 128))
+  if (enc == nullptr || nb <= 0 || s <= 0 || s % 8 != 0 || cin <= 0 || cout <= 0 ||
+      cout % 8 != 0 || (bn != 64 && bn != 128))
     return (int)cudaErrorInvalidValue;
-  if (SS == 0 ? s % 8 != 0 : (s != SS || cin % 8 != 0 || !FUSED))
-    return (int)cudaErrorInvalidValue;
-  const long long per_nt = SS == 0 ? (long long)nb * (s / TX) * (s / TY) * (s / TZ)
-                                   : ((long long)nb + G::P - 1) / G::P;
-  const long long units = per_nt * ((cout + bn - 1) / bn);
+  const long long per_sub = (long long)(s / TX) * (s / TY) * (s / TZ);
+  const long long units = (long long)nb * per_sub * ((cout + bn - 1) / bn);
   if (units > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   Params p;
   p.xh = static_cast<const __nv_bfloat16*>(xh);
@@ -585,11 +493,10 @@ int launch(void* encode, const void* xh, const float* a_tab, const float* b_tab,
   const bool tma_a = cin % 8 == 0;  // rows 16-byte strided
   if (tma_a) {
     // input (B, E, E, E, Cin), innermost first; one halo'd brick per box
-    // (SS = 0), or P whole halo'd sub-volumes (the small-edge route)
     const cuuint64_t e = (cuuint64_t)s + 2, row = (cuuint64_t)cin * 2;
     const cuuint64_t dims[5] = {(cuuint64_t)cin, e, e, e, (cuuint64_t)nb};
     const cuuint64_t strides[4] = {row, row * e, row * e * e, row * e * e * e};
-    const cuuint32_t box[5] = {KC, G::HZ, G::HY, G::HX, G::P};
+    const cuuint32_t box[5] = {KC, HZ, HY, HX, 1};
     const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
     if (enc(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(xh), dims, strides, box,
             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
@@ -598,16 +505,11 @@ int launch(void* encode, const void* xh, const float* a_tab, const float* b_tab,
   } else {
     xmap = wmap;  // not read: the transform warps load the brick themselves
   }
-  if constexpr (SS != 0) {
-    return bn == 64 ? launch_cfg<true, true, 64, SS>(p, xmap, wmap, stream)
-                    : launch_cfg<true, true, 128, SS>(p, xmap, wmap, stream);
-  } else {
-    if (bn == 64)
-      return tma_a ? launch_cfg<FUSED, true, 64, 0>(p, xmap, wmap, stream)
-                   : launch_cfg<FUSED, false, 64, 0>(p, xmap, wmap, stream);
-    return tma_a ? launch_cfg<FUSED, true, 128, 0>(p, xmap, wmap, stream)
-                 : launch_cfg<FUSED, false, 128, 0>(p, xmap, wmap, stream);
-  }
+  if (bn == 64)
+    return tma_a ? launch_cfg<FUSED, true, 64>(p, xmap, wmap, stream)
+                 : launch_cfg<FUSED, false, 64>(p, xmap, wmap, stream);
+  return tma_a ? launch_cfg<FUSED, true, 128>(p, xmap, wmap, stream)
+               : launch_cfg<FUSED, false, 128>(p, xmap, wmap, stream);
 }
 
 }  // namespace igemm

@@ -1,8 +1,10 @@
 // PTX helpers shared by the port's kernels: shared-memory addresses,
 // ldmatrix / mma.sync / cp.async (used by the small-Cin conv), mbarriers and
-// TMA loads, and Hopper's wgmma with its shared-memory descriptors.
-// Included by conv3d.cu (through igemm.cuh), fused_block.cu and
-// flash_attention.cu; nothing here launches anything.
+// TMA loads (and, for thread block clusters, multicast loads, remote
+// arrivals and the cluster barrier), and Hopper's wgmma with its
+// shared-memory descriptors. Included by conv3d.cu and fused_block.cu
+// (through igemm.cuh), fused_block_small.cu and flash_attention.cu;
+// nothing here launches anything.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums only: libcuda is not linked
@@ -78,6 +80,25 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "=r"(done) : "r"(bar), "r"(parity) : "memory");
   }
 }
+// arrive on the barrier at `bar`'s offset in the shared memory of CTA `cta`
+// of the cluster
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n"
+      :: "r"(bar), "r"(cta) : "memory");
+}
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// every thread of every CTA of the cluster
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.aligned;\n"
+               "barrier.cluster.wait.aligned;\n" ::: "memory");
+}
 // barrier `id` (1 ... 15) over `count` threads of the CTA
 __device__ __forceinline__ void named_bar_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
@@ -94,6 +115,23 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       " [%0], [%1, {%3, %4, %5}], [%2];\n"
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+// the same box into this offset of the shared memory of every CTA of the
+// cluster in `mask`, completing bytes on the barrier at `bar`'s offset in each
+__device__ __forceinline__ void tma_load_3d_multicast(uint32_t dst, const CUtensorMap* map,
+                                                      uint32_t bar, int c0, int c1, int c2,
+                                                      uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%4, %5, %6}], [%2], %3;\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "h"(mask), "r"(c0), "r"(c1),
+         "r"(c2)
+      : "memory");
+}
+// the box into L2 only
+__device__ __forceinline__ void tma_prefetch_3d(const CUtensorMap* map, int c0, int c1, int c2) {
+  asm volatile("cp.async.bulk.prefetch.tensor.3d.L2.global [%0, {%1, %2, %3}];\n"
+               :: "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2) : "memory");
 }
 __device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                             int c0, int c1, int c2, int c3, int c4) {

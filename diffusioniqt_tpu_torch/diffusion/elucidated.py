@@ -142,11 +142,14 @@ class ElucidatedImagen:
     # ------------------------------------------------------------------
     def preconditioned_network_forward(self, unet, noised_images, sigma, hp: EDMParams, *,
                                        clamp: bool = False, dynamic_threshold: bool = True,
-                                       cond_scale: float = 1.0, lowres_cond_img=None):
+                                       cond_scale: float = 1.0, lowres_cond_img=None,
+                                       self_cond=None):
         """EDM eq. (7) (reference :329-358). ``cond_scale != 1`` mixes a
         second, null-conditioned evaluation into the raw network output
         before the c_skip / c_out recombination (JAX elucidated.py:227-237);
-        the IQT U-Net ignores ``cond_drop_prob``, so both evaluations agree."""
+        the IQT U-Net ignores ``cond_drop_prob``, so both evaluations agree.
+        ``self_cond`` is the x0 estimate a self-conditioned U-Net is given
+        (None: the U-Net's zeros)."""
         batch = noised_images.shape[0]
         sigma = torch.as_tensor(sigma, dtype=torch.float32, device=noised_images.device)
         if sigma.dim() == 0:
@@ -154,10 +157,11 @@ class ElucidatedImagen:
         padded_sigma = right_pad_dims_to(noised_images, sigma)
         c_noise = hp.c_noise(sigma)
         net_in = hp.c_in(padded_sigma) * noised_images
-        net_out = unet(net_in, c_noise, c_noise, lowres_cond_img=lowres_cond_img)
+        extra = {} if self_cond is None else {"self_cond": self_cond}
+        net_out = unet(net_in, c_noise, c_noise, lowres_cond_img=lowres_cond_img, **extra)
         if cond_scale != 1.0:
             null_out = unet(net_in, c_noise, c_noise, lowres_cond_img=lowres_cond_img,
-                            cond_drop_prob=1.0)
+                            cond_drop_prob=1.0, **extra)
             net_out = null_out + (net_out - null_out) * cond_scale
         out = hp.c_skip(padded_sigma) * noised_images + hp.c_out(padded_sigma) * net_out
         if not clamp:
@@ -177,7 +181,12 @@ class ElucidatedImagen:
                         sigma_max: Optional[float] = None):
         """Stochastic Heun sampling (reference :381-532; JAX
         elucidated.py:245-447). The sigma overrides keep the JAX ``or``
-        semantics: 0 or None keeps the hyperparameter."""
+        semantics: 0 or None keeps the hyperparameter. A self-conditioned
+        U-Net (``unet.self_cond``) carries an x0 estimate as the JAX loop
+        does (elucidated.py:306,347-372,411): zeros at first; each step's
+        first forward gets the carry, its Heun correction that forward's
+        output; the carry becomes the correction's output, or the first
+        forward's on the last (uncorrected) step."""
         if sigma_min is not None or sigma_max is not None:
             hp = dataclasses.replace(hp, sigma_min=sigma_min or hp.sigma_min,
                                      sigma_max=sigma_max or hp.sigma_max)
@@ -205,6 +214,8 @@ class ElucidatedImagen:
         fwd = dict(hp=hp, clamp=clamp, dynamic_threshold=dynamic_threshold,
                    cond_scale=cond_scale, lowres_cond_img=lowres_cond_img)
         n_steps = sigma_cur.shape[0]
+        self_cond = getattr(unet, "self_cond", False)
+        x_start = torch.zeros_like(images)
         for i in range(n_steps):
             sig, sig_next, gamma = sigma_cur[i], sigma_next[i], gamma_cur[i]
             for r in reversed(range(resample_times)):
@@ -216,19 +227,22 @@ class ElucidatedImagen:
                     images_hat = (images_hat * (1 - inpaint_masks)
                                   + (inpaint_images + added_noise) * inpaint_masks)
                 model_output = self.preconditioned_network_forward(
-                    unet, images_hat, sigma_hat, **fwd)
+                    unet, images_hat, sigma_hat, self_cond=x_start if self_cond else None,
+                    **fwd)
                 denoised_over_sigma = (images_hat - model_output) / sigma_hat
                 images_next = images_hat + (sig_next - sigma_hat) * denoised_over_sigma
                 if i < n_steps - 1:
                     # second-order correction on every step but the last,
                     # whose sigma_next is the schedule's trailing 0
                     model_output_next = self.preconditioned_network_forward(
-                        unet, images_next, sig_next, **fwd)
+                        unet, images_next, sig_next,
+                        self_cond=model_output if self_cond else None, **fwd)
                     denoised_prime = (images_next - model_output_next) / sig_next
                     images = images_hat + 0.5 * (sig_next - sigma_hat) * (
                         denoised_over_sigma + denoised_prime)
+                    x_start = model_output_next
                 else:
-                    images = images_next
+                    images, x_start = images_next, model_output
                 if has_inpainting and r != 0:
                     images = images + (sig - sig_next) * noise(tuple(shape))
 

@@ -160,15 +160,17 @@ class Imagen:
 
     # ------------------------------------------------------------------
     def p_mean_variance(self, unet, x, t, *, noise_scheduler, t_next=None,
-                        lowres_cond_img=None, model_output=None,
+                        lowres_cond_img=None, self_cond=None, model_output=None,
                         pred_objective: str = "noise",
                         dynamic_threshold: bool = True):
         """Posterior mean / variance and the predicted x0 (reference
-        :1976-2030)."""
+        :1976-2030). ``self_cond`` is the previous step's x0 for a
+        self-conditioned U-Net (None: the U-Net's zeros)."""
         pred = model_output
         if pred is None:
+            extra = {} if self_cond is None else {"self_cond": self_cond}
             pred = unet(x, t, noise_scheduler.get_condition(t),
-                        lowres_cond_img=lowres_cond_img)
+                        lowres_cond_img=lowres_cond_img, **extra)
         if pred_objective == "noise":
             x_start = noise_scheduler.predict_start_from_noise(x, t, pred)
         elif pred_objective == "x_start":
@@ -201,7 +203,10 @@ class Imagen:
                       noise_scheduler: GaussianDiffusionContinuousTimes,
                       lowres_cond_img=None, pred_objective: str = "noise",
                       dynamic_threshold: bool = True):
-        """Full ancestral sampling from pure noise (reference :2058-2160)."""
+        """Full ancestral sampling from pure noise (reference :2058-2160).
+        A self-conditioned U-Net (``unet.self_cond``) gets each step's
+        predicted x0 at the next step, zeros at the first (JAX
+        gaussian.py:345,359-365,385)."""
         batch = shape[0]
         img = noise(tuple(shape))
         if self.non_uniform_times:
@@ -209,12 +214,15 @@ class Imagen:
                 batch, img.device, gamma=self.non_uniform_gamma)
         else:
             t_cur, t_next = noise_scheduler.get_sampling_timesteps(batch, img.device)
+        self_cond = getattr(unet, "self_cond", False)
+        x_start = torch.zeros_like(img)
         for i in range(t_cur.shape[0]):
-            img, _ = self.p_sample(
+            img, x_start = self.p_sample(
                 unet, img, t_cur[i], noise=noise,
                 noise_scheduler=noise_scheduler, t_next=t_next[i],
-                lowres_cond_img=lowres_cond_img, pred_objective=pred_objective,
-                dynamic_threshold=dynamic_threshold,
+                lowres_cond_img=lowres_cond_img,
+                self_cond=x_start if self_cond else None,
+                pred_objective=pred_objective, dynamic_threshold=dynamic_threshold,
             )
         return clamp_to_range(img, self.norm, self.min_bound)
 

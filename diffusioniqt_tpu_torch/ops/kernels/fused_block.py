@@ -36,10 +36,14 @@ by shape; neither stands in for the other, and an edge that neither takes
 raises): ``"igemm"`` for edges that are multiples of 8, and
 ``"small_edge"`` for edges 4 and 2, where a ``memory_efficient`` U-Net's
 deeper levels run (the flagship at 4^3, SRUnet256 at 4^3 and 2^3 with up
-to 1024 channels). The small-edge route is the same kernel over units of
-whole sub-volumes (:func:`small_edge_geometry`: 2 x 4^3 or 16 x 2^3 = 128
-output rows, their halo'd inputs as one TMA box, the coefficients read
-per brick row from the tables in device memory); it needs Cin % 8 == 0.
+to 1024 channels). The small-edge route is its own kernel,
+``csrc/fused_block_small.cu``: tiles of 128 output rows of whole
+sub-volumes (2 x 4^3 or 16 x 2^3, their halo'd inputs one TMA box) by up
+to 256 output channels, CTAs in pairs that share each weight slice by TMA
+multicast, the pairs' K (64-channel chunks of 27 taps) cut into one wave
+of ranges of whole chunks (:func:`small_edge_plan`), the tiles that a
+range cuts summed from fp32 partials in a fixed order by a second kernel;
+it needs Cin % 8 == 0.
 
 Autograd sees the Block as one Function over ``(x, norm_scale, norm_bias,
 scale, shift, w)``, as the JAX package puts one ``jax.custom_vjp`` over
@@ -73,8 +77,19 @@ from diffusioniqt_tpu_torch.ops.volume import halo_exchange
 
 # encoder, xh, a_tab, b_tab, w, out, B, s, Cin, Cout, BN, stream
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+# encoder, xh, a_tab, b_tab, w, out, ws, B, s, Cin, Cout, BN / 2, CTAs, stream
+_SMALL_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 # sub-volume edges of the small-edge route
 SMALL_EDGES = (4, 2)
+# the small-edge kernel's tile: output rows (two m64 tiles), and input
+# channels per K chunk (a slice is one tap of one chunk)
+TILE_ROWS, CHUNK = 128, 64
+# (B, s, Cin, Cout, factor) of every small-edge Block the presets launch, as
+# the wrapper sees them in one forward: the efficient flagship at the serve
+# batch (8 windows) and at one window, SRUnet256 at one window (35 at 4^3 x
+# 512, one at 4^3 1024->512 on the up path, 20 at 2^3 x 1024)
+SMALL_EDGE_SHAPES = ((216, 4, 256, 256, 3), (27, 4, 256, 256, 3), (27, 4, 512, 512, 1),
+                     (27, 4, 1024, 512, 1), (27, 2, 1024, 1024, 1))
 
 
 def route(s: int) -> str:
@@ -89,21 +104,82 @@ def route(s: int) -> str:
                      f"(multiples of 8, or {SMALL_EDGES})")
 
 
-class SmallEdgeGeometry(NamedTuple):
-    """How the small-edge route (``csrc/igemm.cuh``, ``Geom<S>``) tiles one
-    shape: a unit of work is ``subs`` whole sub-volumes (128 output rows,
-    a brick of ``subs * (s + 2)^3`` halo'd voxels) and ``bn`` output
-    channels."""
+class SmallEdgePlan(NamedTuple):
+    """How the small-edge kernel (``csrc/fused_block_small.cu``) cuts one
+    shape. A tile is ``subs`` whole sub-volumes (:data:`TILE_ROWS` output
+    rows: m block ``mb``) by ``bn`` output channels (n block), ``bn // 2``
+    per consumer warpgroup; its K is ``k_slices`` = 27 taps x ceil(Cin /
+    64) chunks, one brick (a TMA load of the tile's halo'd inputs, put
+    through Mish) per chunk. CTAs come in pairs (a cluster) that take m
+    blocks ``2 j`` and ``2 j + 1`` of pair tile ``u`` (n block ``u //
+    m_pairs``, ``j = u % m_pairs``) with the same weight slices, each
+    loading half of every slice into both. The pair tiles' bricks, tile
+    after tile, are cut into ``ctas // 2`` contiguous ranges that differ by
+    at most one brick, one per pair (:meth:`segments`); ``cut`` says
+    whether a range starts inside a pair tile, whose sums then come from
+    fp32 partials."""
 
     subs: int
     bn: int
-    units: int     # ceil(B / subs) * ceil(Cout / bn)
+    m_blocks: int
+    n_blocks: int
+    k_slices: int
+    ctas: int
+    cut: bool
+
+    @property
+    def m_pairs(self) -> int:
+        return -(-self.m_blocks // 2)
+
+    @property
+    def bricks(self) -> int:
+        """The pair tiles' bricks."""
+        return self.m_pairs * self.n_blocks * (self.k_slices // 27)
+
+    def range_lo(self, cluster: int) -> int:
+        """First brick of pair ``cluster``'s range (the kernel's
+        ``range_lo``)."""
+        return cluster * self.bricks // (self.ctas // 2)
+
+    def segments(self):
+        """``(cta, tile, k_begin, k_end, slot)`` for every piece of a tile
+        (``n block * m_blocks + m block``) that a CTA computes, in slices.
+        A piece that is not the whole tile goes to the CTA's partial
+        ``slot``: 0 if its pair tile is the first of the range, else 1."""
+        chunks = self.k_slices // 27
+        for cl in range(self.ctas // 2):
+            lo, hi = self.range_lo(cl), self.range_lo(cl + 1)
+            for u in range(lo // chunks, -(-hi // chunks)):
+                kb, ke = max(lo, u * chunks) - u * chunks, min(hi, (u + 1) * chunks) - u * chunks
+                for rank in (0, 1):
+                    mb = 2 * (u % self.m_pairs) + rank
+                    if mb < self.m_blocks:
+                        yield (2 * cl + rank, u // self.m_pairs * self.m_blocks + mb, 27 * kb,
+                               27 * ke, 0 if u == lo // chunks else 1)
 
 
-def small_edge_geometry(nb: int, s: int, cout: int) -> SmallEdgeGeometry:
-    subs = 128 // s ** 3
-    bn = 128 if cout % 128 == 0 else 64
-    return SmallEdgeGeometry(subs=subs, bn=bn, units=-(-nb // subs) * -(-cout // bn))
+@functools.lru_cache(maxsize=64)
+def small_edge_plan(nb: int, s: int, cin: int, cout: int, sms: int) -> SmallEdgePlan:
+    """The small-edge kernel's plan for ``nb`` sub-volumes of edge ``s`` on
+    a card of ``sms`` SMs: 64 or 128 columns a consumer warpgroup (128
+    where Cout is a multiple of 256), and one wave of CTA pairs: each pair
+    takes ceil(bricks / (sms // 2)) bricks (the least any one wave allows),
+    and there are as few pairs as that allows, so that as many ranges as
+    can be are whole tiles, which need no partials."""
+    subs = TILE_ROWS // s ** 3
+    bn = 256 if cout % 256 == 0 else 128
+    m_blocks, n_blocks = -(-nb // subs), -(-cout // bn)
+    chunks = -(-cin // CHUNK)
+    bricks = -(-m_blocks // 2) * n_blocks * chunks
+    clusters = -(-bricks // -(-bricks // max(1, sms // 2)))
+    ctas = 2 * clusters
+    cut = any(c * bricks // clusters % chunks for c in range(1, clusters))
+    return SmallEdgePlan(subs, bn, m_blocks, n_blocks, 27 * chunks, ctas, cut)
+
+
+@functools.lru_cache(maxsize=8)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 # ---------------------------------------------------------------------------
@@ -213,22 +289,35 @@ def fused_conv_plain(xh, a_tab, b_tab, w) -> torch.Tensor:
 def _launch(xh, a_tab, b_tab, w, packed):
     name = "fused_block"
     b, s, cin, cout = xh.shape[0], xh.shape[1] - 2, xh.shape[4], w.shape[0]
+    if route(s) == "small_edge":
+        return launch_small_edge(xh, a_tab, b_tab, packed,
+                                 small_edge_plan(b, s, cin, cout, _sm_count(xh.device)))
     out = torch.empty((b, s, s, s, cout), dtype=xh.dtype, device=xh.device)
-    small = route(s) == "small_edge"
-    if small:
-        fn = runtime.c_function(name, "fused_block_small_launch", _ARGTYPES)
-        bn = small_edge_geometry(b, s, cout).bn
-    else:
-        fn = runtime.c_function(name, "fused_block_launch", _ARGTYPES)
-        bn = gemm_geometry(s, cin, cout).bn
+    fn = runtime.c_function(name, "fused_block_launch", _ARGTYPES)
     err = fn(runtime.driver_function("cuTensorMapEncodeTiled"), xh.data_ptr(),
              a_tab.data_ptr(), b_tab.data_ptr(), packed.data_ptr(), out.data_ptr(), b, s,
-             cin, cout, bn, runtime.stream_handle(xh.device))
+             cin, cout, gemm_geometry(s, cin, cout).bn, runtime.stream_handle(xh.device))
     runtime.check_launch(name, err)
-    if small:
-        fused_conv.small_edge_launches += 1
-    else:
-        fused_conv.launches += 1
+    fused_conv.launches += 1
+    return out
+
+
+def launch_small_edge(xh, a_tab, b_tab, packed, plan: SmallEdgePlan):
+    """The small-edge kernel (and, where ``plan.cut``, its reduction) on
+    checked arguments, as :func:`fused_conv` calls it; one launch counted."""
+    name = "fused_block_small"
+    b, s, cin = xh.shape[0], xh.shape[1] - 2, xh.shape[4]
+    cout = packed.shape[1]
+    out = torch.empty((b, s, s, s, cout), dtype=xh.dtype, device=xh.device)
+    ws = (torch.empty((plan.ctas, 2, TILE_ROWS, plan.bn), dtype=torch.float32,
+                      device=xh.device) if plan.cut else None)
+    fn = runtime.c_function(name, "fused_block_small_launch", _SMALL_ARGTYPES)
+    err = fn(runtime.driver_function("cuTensorMapEncodeTiled"), xh.data_ptr(),
+             a_tab.data_ptr(), b_tab.data_ptr(), packed.data_ptr(), out.data_ptr(),
+             None if ws is None else ws.data_ptr(), b, s, cin, cout, plan.bn // 2, plan.ctas,
+             runtime.stream_handle(xh.device))
+    runtime.check_launch(name, err)
+    fused_conv.small_edge_launches += 1
     return out
 
 

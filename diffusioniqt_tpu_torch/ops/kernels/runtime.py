@@ -24,7 +24,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-SOURCES = ("halo", "conv3d", "fused_block", "flash_attention")
+SOURCES = ("halo", "conv3d", "fused_block", "fused_block_small", "flash_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-lineinfo", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

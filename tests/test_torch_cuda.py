@@ -123,12 +123,16 @@ def test_fused_kernel_matches_plain(dev, s, cin, cout):
 
 @pytest.mark.parametrize("n,s,factor,cin,cout", [
     (54, 4, 3, 64, 64), (27, 4, 1, 72, 128), (216, 4, 3, 256, 256), (27, 4, 1, 512, 512),
-    (27, 2, 3, 64, 128), (27, 2, 1, 1024, 1024), (8, 2, 1, 32, 64)])
+    (27, 2, 3, 64, 128), (27, 2, 1, 1024, 1024), (8, 2, 1, 32, 64),
+    (27, 4, 3, 256, 256), (27, 4, 1, 1024, 512), (27, 4, 3, 136, 192)])
 def test_small_edge_route_matches_plain(dev, n, s, factor, cin, cout):
-    """The fused kernel's small-edge route: whole sub-volumes of 4^3 (two a
-    unit, double-buffered) and 2^3 (16 a unit, one buffer), a ragged last
-    run (27 sub-volumes), fewer sub-volumes than a unit holds (8 of 16), BN
-    64 and 128, Cin 32 and 72 (partial chunks) to 1024."""
+    """The fused kernel's small-edge kernel: tiles of whole sub-volumes of
+    4^3 (two a tile, double-buffered) and 2^3 (16 a tile, one buffer) in CTA
+    pairs, a ragged last m block (27 sub-volumes), an odd count of m blocks
+    (27 and 1: the pair's second CTA has none), tiles split over several
+    CTAs and summed from partials, BN 128 and 256 (Cout 64 and 192 in part),
+    Cin 32, 72 and 136 (partial chunks) to 1024. Two launches give the same
+    bits."""
     g = torch.Generator(device=dev).manual_seed(n + s + cin + cout)
     x = torch.randn((n, s, s, s, cin), generator=g, device=dev).to(torch.bfloat16)
     w = torch.randn((cout, cin, 3, 3, 3), generator=g, device=dev) * (27 * cin) ** -0.5
@@ -144,6 +148,7 @@ def test_small_edge_route_matches_plain(dev, n, s, factor, cin, cout):
     counts = kernels.launch_counts()
     assert (counts["fused_block_small"], counts["fused_block"]) == (1, 0)
     _close(got, kernels.fused_conv_plain(xh, ta, tb, w))
+    assert torch.equal(kernels.fused_conv(xh, ta, tb, w), got)
 
 
 def test_fused_kernel_refuses_edges_without_a_route(dev):

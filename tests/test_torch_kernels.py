@@ -5,6 +5,8 @@ version, which is what these tests hold against the Pallas kernels; the
 CUDA kernels themselves are held against the same plain versions on the
 card (``tests/test_torch_cuda.py`` and ``chip_smoke.py``)."""
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -360,28 +362,29 @@ def test_fused_kernel_tiles_match_plain_and_pallas(_interpret, s, cin, cout):
 
 # ------------------------------------------- the small-edge route, tile by tile
 
-def _emulate_small_edge(xh, a_tab, b_tab, w):
-    """What the small-edge route of ``csrc/igemm.cuh`` (``Geom<S>``, S = 4
-    or 2) computes, unit by unit, in fp32: for each run of ``subs`` whole
-    sub-volumes (:func:`small_edge_geometry`; sub-volumes past B are
-    zeros) and BN output channels, their halo'd inputs as one brick of
-    ``subs * (S+2)^3`` rows in 64-channel chunks (zeros past Cin), put
-    through mish(A_r x + B_r) with each row's own sub-volume and region r,
-    stored with the 128-byte swizzle, and 27 taps, each a row shift
-    (kx*E + ky)*E + kz of the brick read back through the swizzle, times
-    the packed weight; output row o of a unit is voxel o of its first
-    sub-volume's run, stored only below B * S^3."""
+def _emulate_small_edge(xh, a_tab, b_tab, w, sms=132):
+    """What ``csrc/fused_block_small.cu`` computes under
+    :func:`small_edge_plan` for a card of ``sms`` SMs, in fp32. Per m block
+    (``subs`` whole sub-volumes; those past B are zeros) and 64-channel
+    chunk (zeros past Cin), the halo'd inputs as one brick of ``subs *
+    (S+2)^3`` rows, put through mish(A_r x + B_r) with each row's own
+    sub-volume and region r, stored with the 128-byte swizzle; slice k of a
+    tile is tap ``k % 27`` (a row shift (kx*E + ky)*E + kz of chunk ``k //
+    27``'s brick, read back through the swizzle) times the packed weight's
+    slice at the tile's n block. Each CTA of a pair sums the slices of the
+    pair's range for its m block in order, tile by tile: a whole tile is
+    the output, a cut one goes to the CTA's partial slot, and a cut tile is
+    the sum of its CTAs' partials in CTA order. Output row o of m block mb
+    is voxel o of sub-volume run mb, stored only below B * S^3."""
     nb, e, cin = xh.shape[0], xh.shape[1], xh.shape[4]
     s, cout = e - 2, w.shape[0]
-    geo = tfb.small_edge_geometry(nb, s, cout)
-    p, v, e3 = geo.subs, s ** 3, e ** 3
-    rows = p * e3
-    assert p * v == 128
-    n_tiles = geo.units // -(-nb // p)
-    ncol, cin_pad = n_tiles * geo.bn, -(-cin // 64) * 64
+    plan = tfb.small_edge_plan(nb, s, cin, cout, sms)
+    p, v, e3 = plan.subs, s ** 3, e ** 3
+    rows, mbs, ks = p * e3, plan.m_blocks, plan.k_slices
+    assert p * v == tfb.TILE_ROWS
+    ncol, cin_pad = plan.n_blocks * plan.bn, ks // 27 * 64
     wpad = torch.zeros((27, cin_pad, ncol))
     wpad[:, :cin, :cout] = tconv.pack_weight(w).float().reshape(27, cin, cout)
-    runs = -(-nb // p)
     # brick row -> (sub-volume of the run, x, y, z); output row -> brick row
     sub, hx, hy, hz = (g.reshape(-1) for g in torch.meshgrid(
         torch.arange(p), torch.arange(e), torch.arange(e), torch.arange(e), indexing="ij"))
@@ -391,27 +394,50 @@ def _emulate_small_edge(xh, a_tab, b_tab, w):
         torch.arange(p), torch.arange(s), torch.arange(s), torch.arange(s), indexing="ij"))
     row0 = osub * e3 + (ox * e + oy) * e + oz
     r8 = torch.arange(rows) % 8
-    xh_pad = torch.cat([xh, torch.zeros((runs * p - nb,) + tuple(xh.shape[1:]))])
-    b_of = torch.arange(runs)[:, None] * p + sub[None, :]        # (runs, rows)
+    xh_pad = torch.cat([xh, torch.zeros((mbs * p - nb,) + tuple(xh.shape[1:]))])
+    b_of = torch.arange(mbs)[:, None] * p + sub[None, :]        # (m blocks, rows)
     inside = b_of < nb
-    acc = torch.zeros((runs, 128, ncol))
+    a_slices = []  # [chunk][tap] (m blocks, 128, 64): the A operand of a slice
     for c0 in range(0, cin_pad, 64):
         n_c = min(64, cin - c0)
-        brick = torch.zeros((runs, rows, 64))
+        brick = torch.zeros((mbs, rows, 64))
         raw = xh_pad[b_of, hx, hy, hz, c0:c0 + n_c]
         bi = torch.where(inside, b_of, 0)
         act = tfb.mish_one_exp(a_tab[bi, region, c0:c0 + n_c] * raw
                                + b_tab[bi, region, c0:c0 + n_c])
         brick[..., :n_c] = torch.where(inside[..., None], act, raw)
-        groups = brick.reshape(runs, rows, 8, 8)
+        groups = brick.reshape(mbs, rows, 8, 8)
         phys = groups[:, torch.arange(rows)[:, None], torch.arange(8)[None, :] ^ r8[:, None]]
+        taps = []
         for tap in range(27):
             kx, ky, kz = tap // 9, (tap // 3) % 3, tap % 3
             r = row0 + (kx * e + ky) * e + kz
-            a = phys[:, r[:, None], torch.arange(8)[None, :] ^ (r % 8)[:, None]]
-            acc += a.reshape(runs, 128, 64) @ wpad[tap, c0:c0 + 64]
-    out = acc.reshape(runs * 128, ncol)[:nb * v, :cout]
-    return out.reshape(nb, s, s, s, cout)
+            taps.append(phys[:, r[:, None], torch.arange(8)[None, :] ^ (r % 8)[:, None]]
+                        .reshape(mbs, 128, 64))
+        a_slices.append(taps)
+    out = torch.zeros((mbs * 128, ncol))
+    ws, cuts = {}, {}
+    for g, tile, kb, ke, slot in plan.segments():
+        mb, nbk = tile % mbs, tile // mbs
+        cols = slice(nbk * plan.bn, (nbk + 1) * plan.bn)
+        acc = torch.zeros((128, plan.bn))
+        for k in range(kb, ke):
+            c, tap = divmod(k, 27)
+            acc += a_slices[c][tap][mb] @ wpad[tap, c * 64:(c + 1) * 64, cols]
+        if (kb, ke) == (0, ks):
+            out[mb * 128:(mb + 1) * 128, cols] = acc
+        else:
+            ws[g, slot] = acc
+            cuts.setdefault(tile, []).append((g, slot))
+    # the reduction: each cut tile from its CTAs' partials, in CTA order
+    assert bool(cuts) == plan.cut
+    for tile, parts in cuts.items():
+        mb, nbk = tile % mbs, tile // mbs
+        total = torch.zeros((128, plan.bn))
+        for key in sorted(parts):
+            total += ws[key]
+        out[mb * 128:(mb + 1) * 128, nbk * plan.bn:(nbk + 1) * plan.bn] = total
+    return out[:nb * v, :cout].reshape(nb, s, s, s, cout)
 
 
 def test_small_edge_geometry_and_route():
@@ -420,17 +446,81 @@ def test_small_edge_geometry_and_route():
     for s in (6, 1, 12):
         with pytest.raises(ValueError, match="no route"):
             tfb.route(s)
-    assert tfb.small_edge_geometry(216, 4, 256) == (2, 128, 216)
-    assert tfb.small_edge_geometry(27, 2, 1024) == (16, 128, 16)
-    assert tfb.small_edge_geometry(27, 4, 64).bn == 64
+    # 54 pair tiles of 2 x 2 x 4^3 by 256 columns, 4 chunks: 216 bricks, 4
+    # to a pair at most, so 54 pairs of one whole pair tile each, nothing cut
+    assert tfb.small_edge_plan(216, 4, 256, 256, 132) == (2, 256, 108, 1, 108, 108, False)
+    # one pair of m blocks of 16 x 2^3 by 4 n blocks of 256, 16 chunks:
+    # split-K, one chunk of one pair tile on each of 64 pairs (128 SMs)
+    assert tfb.small_edge_plan(27, 2, 1024, 1024, 132) == (16, 256, 2, 4, 432, 128, True)
+    # 7 pair tiles of one chunk: a pair each, nothing cut; Cout 64 in a 128 tile
+    assert tfb.small_edge_plan(27, 4, 64, 64, 132) == (2, 128, 14, 1, 27, 14, False)
+    # 2 pair tiles of 3 chunks: on 4 SMs, 2 pairs of one whole pair tile
+    # each; on 8 SMs, 3 pairs of 2 bricks, so the middle one's range starts
+    # inside a pair tile
+    assert tfb.small_edge_plan(8, 4, 192, 256, 4) == (2, 256, 4, 1, 81, 4, False)
+    assert tfb.small_edge_plan(8, 4, 192, 256, 8) == (2, 256, 4, 1, 81, 6, True)
 
 
-@pytest.mark.parametrize("s,factor,cin,cout", [(4, 3, 72, 64), (2, 3, 64, 128), (2, 1, 8, 16)])
-def test_small_edge_tiles_match_plain_and_pallas(_interpret, s, factor, cin, cout):
-    """The small-edge route's decomposition (runs of whole sub-volumes, a
-    ragged last run, per-row regions and sub-volumes, chunk padding,
-    swizzle, taps as row shifts) equals ``fused_conv_plain`` at fp32, and
-    the JAX fused_boundary_block in interpret mode."""
+def test_small_edge_trace_stamps_only_in_the_trace_build():
+    """``small_edge_trace`` reads six phase stamps: ``TRACE(0)`` ...
+    ``TRACE(5)`` each once in the kernel's source, compiled to nothing
+    unless ``SMALL_EDGE_TRACE`` is defined, which the port's build never
+    is."""
+    from diffusioniqt_tpu_torch.ops.kernels import runtime, small_edge_trace
+
+    src = (runtime.CSRC / "fused_block_small.cu").read_text()
+    stamps = re.findall(r"^\s*TRACE\((\d), ", src, re.M)
+    assert sorted(int(k) for k in stamps) == list(range(6))
+    assert "#define TRACE(k, cond) do {} while (0)" in src
+    assert not any("SMALL_EDGE_TRACE" in flag for flag in runtime.NVCC_FLAGS)
+    assert callable(small_edge_trace.build)
+
+
+@pytest.mark.parametrize("sms", [132, 14])
+@pytest.mark.parametrize("nb,s,cin,cout,factor", tfb.SMALL_EDGE_SHAPES)
+def test_small_edge_plan_covers_every_product_once(nb, s, cin, cout, factor, sms):
+    """Every (output row, output column, K slice) of the shape is in
+    exactly one CTA's range, the ranges are whole bricks (27 slices) and
+    the pairs' differ by at most one, no pair holds more bricks than one
+    wave of ``sms // 2`` pairs must, both CTAs of a pair take the same
+    slices, and each CTA writes at most one partial per slot."""
+    plan = tfb.small_edge_plan(nb, s, cin, cout, sms)
+    assert plan.subs * s ** 3 == tfb.TILE_ROWS and plan.ctas <= sms and plan.ctas % 2 == 0
+    assert plan.m_blocks * plan.subs >= nb > (plan.m_blocks - 1) * plan.subs
+    assert plan.n_blocks * plan.bn >= cout > (plan.n_blocks - 1) * plan.bn
+    assert plan.k_slices == 27 * -(-cin // 64)
+    seen = np.zeros((plan.m_blocks * plan.n_blocks, plan.k_slices), np.int64)
+    per_cta = np.zeros(plan.ctas, np.int64)
+    pieces = {}
+    slots = set()
+    for g, tile, kb, ke, slot in plan.segments():
+        assert 0 <= kb < ke <= plan.k_slices and kb % 27 == 0 and ke % 27 == 0
+        seen[tile, kb:ke] += 1
+        per_cta[g] += ke - kb
+        pieces.setdefault(g, []).append((tile // plan.m_blocks, kb, ke))
+        if (kb, ke) != (0, plan.k_slices):
+            assert (g, slot) not in slots
+            slots.add((g, slot))
+    assert (seen == 1).all()
+    per_pair = np.maximum(per_cta[0::2], per_cta[1::2])
+    assert per_pair.max() - per_pair.min() <= 27
+    assert per_pair.max() == 27 * -(-plan.bricks // (sms // 2))
+    for g in range(1, plan.ctas, 2):  # a pair's CTAs: the same n blocks and slices
+        assert g not in pieces or pieces[g] == pieces[g - 1]
+    assert plan.cut == bool(slots)
+
+
+@pytest.mark.parametrize("s,factor,cin,cout,sms", [
+    (4, 3, 72, 64, 132), (2, 3, 64, 128, 132), (2, 1, 8, 16, 132),
+    # a 2^3 shape whose tiles are split over several CTAs, and one with
+    # whole tiles, cut tiles and several CTAs per tile on a small card
+    (2, 3, 192, 256, 132), (4, 1, 136, 192, 10)])
+def test_small_edge_tiles_match_plain_and_pallas(_interpret, s, factor, cin, cout, sms):
+    """The small-edge kernel's decomposition (tiles of whole sub-volumes, a
+    ragged last m block, per-row regions and sub-volumes, chunk padding,
+    swizzle, taps as row shifts, stream-K ranges, partials summed in CTA
+    order) equals ``fused_conv_plain`` at fp32, and the JAX
+    fused_boundary_block in interpret mode."""
     nb, groups = 27, 8
     x = _bf16_values(_rand((nb, s, s, s, cin), seed=31))
     ns = 1.0 + _rand((cin,), seed=32, scale=0.1)
@@ -442,7 +532,7 @@ def test_small_edge_tiles_match_plain_and_pallas(_interpret, s, factor, cin, cou
                                 scale_shift=tuple(map(_t, ss)))
     ta, tb = tfb.neighbor_tables(a, b, factor)
     xh = kernels.halo_exchange_plain(_t(x), factor)
-    got = _emulate_small_edge(xh, ta, tb, _torch_w(w))
+    got = _emulate_small_edge(xh, ta, tb, _torch_w(w), sms)
     np.testing.assert_allclose(got.numpy(), tfb.fused_conv_plain(xh, ta, tb, _torch_w(w)).numpy(),
                                rtol=1e-5, atol=1e-5)
     want = np.asarray(jfb.fused_boundary_block(

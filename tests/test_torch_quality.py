@@ -25,6 +25,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_SUMMARY_KEYS = {"sampler", "steps", "final_loss_mean_100", "first_loss_mean_100",
                     "volumes", "pred_beats_lr_msssim", "pred_beats_lr_psnr", "config"}
 JAX_ROW_KEYS = {"volume", "pred_msssim", "pred_psnr", "lr_msssim", "lr_psnr", "seconds"}
+# the JAX gate run r5's loss at its first step (ROADMAP §3;
+# results/quality_edm_r5/train_loss.csv)
+R5_STEP1_LOSS = 13.136
 JAX_EVAL_KEYS = {"ckpt", "steps", "stitch", "sampler", "edm_s_churn", "edm_sigma_data",
                  "volumes", "pred_beats_lr_msssim", "pred_beats_lr_psnr"}
 
@@ -135,6 +138,50 @@ def test_quick_run_resume_and_eval_on_cpu(tmp_path, monkeypatch):
     # the same EMA weights, noise seed and sampler give the same prediction
     assert ev["volumes"][0]["pred_psnr"] == pytest.approx(written["volumes"][0]["pred_psnr"],
                                                           rel=1e-5)
+
+
+def test_gate_step_loss_from_port_and_jax_initialisers(jax_tool):
+    """The initialiser suspect of the gate's loss gap against r5, measured
+    (ROADMAP §3): one gate step at ``--quick`` size (EDM, sigma_data 1.0,
+    fp32 on the CPU) from the port's own initialiser and from a JAX
+    ``init_params`` converted by ``state_dict_from_jax_params``, on the same
+    batch and the same draws. Prints both losses (``-s``). Neither init
+    reaches r5's step-1 scale: each loss is finite and under a quarter of
+    r5's 13.136 (1.1582 and 2.3694 measured), and the two are within a
+    factor of 3 of each other (2.05 measured), where r5 stood 9x above the
+    port's step-1 loss."""
+    import jax
+
+    from diffusioniqt_tpu.diffusion.elucidated import elucidated_imagen_from_config as j_edm
+    from diffusioniqt_tpu.models.unet3d import NullUnet as JNullUnet
+    from diffusioniqt_tpu.models.unet3d import iqt_unet_from_config as j_unet
+    from diffusioniqt_tpu_torch.data.synthetic import SyntheticIQTDataset, population_stats
+    from diffusioniqt_tpu_torch.utils.convert import state_dict_from_jax_params
+
+    pairs = quality_run.training_pairs(quality_run.QUICK["size"], quality_run.QUICK["volumes"])
+    losses = {}
+    for init in ("port", "jax"):
+        cfg = quality_run.flagship_cfg(quick=True, elucidated=True, device="cpu")
+        cfg.train.edm_sigma_data = 1.0
+        cfg.data.mean, cfg.data.std = population_stats([lr for _, lr in pairs])
+        cfg.data.mean_hr, cfg.data.std_hr = population_stats([hr for hr, _ in pairs])
+        trainer = quality_run.build_trainer(cfg, accum=1, device="cpu")
+        if init == "jax":
+            jcfg = jax_tool.flagship_cfg(quick=True, elucidated=True)
+            jcfg.train.edm_sigma_data = 1.0
+            jimagen = j_edm(jcfg, [JNullUnet(), j_unet(jcfg)])
+            params = jimagen.init_params(jax.random.PRNGKey(0), batch_size=27)[1]
+            trainer.imagen.unets[1].load_state_dict(
+                state_dict_from_jax_params(jax.device_get(params)))
+        # the same crop stream and the trainer's generator from the same seed
+        trainer.add_train_dataset(SyntheticIQTDataset(cfg, seed=0, samples_per_volume=8,
+                                                      pairs=pairs), batch_size=1)
+        losses[init] = trainer.train_step(unet_number=2)
+    print(f"gate step 1 at --quick size: loss {losses['port']:.4f} from the port's "
+          f"initialiser, {losses['jax']:.4f} from the JAX init_params")
+    assert all(np.isfinite(v) for v in losses.values())
+    assert max(losses.values()) < R5_STEP1_LOSS / 4
+    assert max(losses.values()) < 3 * min(losses.values())
 
 
 def test_heldout_lr_baseline_matches_jax_at_gate_size():

@@ -147,6 +147,68 @@ def test_p_sample_loop_non_uniform_matches_jax_loop():
     assert _loop_against_jax(non_uniform=True) > 4
 
 
+class _NoSelfCond:
+    """A self-conditioned U-Net that a sampler reads as not self-conditioned:
+    the loop passes no ``self_cond``, so every step concatenates zeros (what
+    the port's samplers did before they carried x0)."""
+
+    self_cond, lowres_cond = False, True
+
+    def __init__(self, unet):
+        self.unet = unet
+
+    def __call__(self, *args, **kwargs):
+        assert "self_cond" not in kwargs
+        return self.unet(*args, **kwargs)
+
+
+def test_p_sample_loop_self_cond_matches_jax_loop():
+    """A ``self_cond=True`` U-Net: each ancestral step gets the previous
+    step's predicted x0 (zeros at the first), as the JAX loop carries it
+    (gaussian.py:345,359-365,385), on shared weights and noise at fp32,
+    within 1e-4 of the largest output. The same loop without the carry
+    differs by far more."""
+    steps, edge, b = 3, 4, 27
+    unet_kw = dict(dim=8, init_dim=8, num_resnet_blocks=(1, 1), dim_mults=(1, 2),
+                   channels=1, resnet_groups=4, lowres_cond=True, self_cond=True,
+                   use_se_attn=True, attend_at_middle=False, attend_at_enc=False,
+                   init_cross_embed=False, deep_feature=False, boundary=True,
+                   batch_sample=True, img_size=12)
+    img_kw = dict(image_sizes=(edge, edge), min_bound=MIN_BOUND, channels=1,
+                  timesteps=steps, pred_objectives="x_start", dynamic_thresholding=False,
+                  batch_sample=True)
+    jimagen = JImagen([JNullUnet(), JUNet3D(**unet_kw, att_type="linear",
+                                            dtype=jnp.float32)], cond_drop_prob=0.0, **img_kw)
+    junet, jsched = jimagen.unets[1], jimagen.noise_schedulers[1]
+    lowres = _rand((b, edge, edge, edge, 1), 7)
+    params = jimagen.init_params(jax.random.PRNGKey(1), batch_size=b)[1]
+    t_cur, t_next = jsched.get_sampling_timesteps(b)
+    noise = [_rand((b, edge, edge, edge, 1), 200 + i) for i in range(steps + 1)]
+
+    img, x_start = jnp.asarray(noise[0]), jnp.zeros((b, edge, edge, edge, 1))
+    for i in range(steps):
+        (mean, _, log_var), x_start = jimagen.p_mean_variance(
+            junet, params, img, t_cur[i], noise_scheduler=jsched, t_next=t_next[i],
+            lowres_cond_img=jnp.asarray(lowres), self_cond=x_start,
+            pred_objective="x_start", dynamic_threshold=False)
+        nonzero = (1.0 - (t_next[i] == 0).astype(jnp.float32)).reshape(b, 1, 1, 1, 1)
+        img = mean + nonzero * jnp.exp(0.5 * log_var) * jnp.asarray(noise[i + 1])
+    want = np.asarray(jnp.clip(img, min=MIN_BOUND))
+
+    port = UNet3D(**unet_kw)
+    port.load_state_dict(state_dict_from_jax_params(jax.device_get(params)))
+    timagen = TImagen([NullUnet(), port], **img_kw)
+    kw = dict(noise_scheduler=timagen.noise_schedulers[1],
+              lowres_cond_img=torch.from_numpy(lowres), pred_objective="x_start",
+              dynamic_threshold=False)
+    got = timagen.p_sample_loop(port, (b, edge, edge, edge, 1), noise=_noise_from(noise), **kw)
+    tol = 1e-4 * np.abs(want).max()
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=tol)
+    dropped = timagen.p_sample_loop(_NoSelfCond(port), (b, edge, edge, edge, 1),
+                                    noise=_noise_from(noise), **kw)
+    assert np.abs(dropped.numpy() - want).max() > 100 * tol
+
+
 @pytest.mark.parametrize("timesteps,gamma", [(20, 10.0), (64, 1.0), (3, 30.0)])
 def test_non_uniform_timesteps_match_jax(timesteps, gamma):
     """The host numpy draw of ``default_rng(seed)``: the same times, in the
