@@ -29,7 +29,9 @@ Phases, each of which raises (and exits non-zero) on failure:
                 launched twice (identical bits required) and printed with
                 its plan; then the brick route's headline row against the
                 spread PERF.md records for it (fails outside it, widened by
-                BRICK_ROUTE_MARGIN, on a card at the recorded power limit)
+                BRICK_ROUTE_MARGIN, on a card at the recorded power limit);
+                flash attention at the attention config's (64, 1728, 64) and
+                at serve-2d's (128, 3600, 32)
   forward       the full-width ``config/eval_config.yaml`` UNet3D (seeded
                 random weights, bf16) on one 27 x 32^3 group, through the
                 kernels and through the plain versions; launches per forward
@@ -65,8 +67,9 @@ Phases, each of which raises (and exits non-zero) on failure:
   train-step    the EDM loss of ``config/eval_edm.yaml`` and its backward on one
                 27 x 32^3 microbatch at full width (seeded weights and draws),
                 through the kernels (launches exactly 39 / 1 / 38 / 0) and
-                through the plain versions: the loss within FORWARD_REL_TOL,
-                every gradient within the GRAD_* bounds; again with
+                through the plain versions, whose squeeze-excite ReLUs
+                keep the kernel path's branches (SEBranches): the loss within
+                FORWARD_REL_TOL, every gradient within the GRAD_* bounds; again with
                 ``Train.remat`` (launches 77 / 1 / 76 / 0): gradients equal to
                 the remat-off ones of the kernel path
   train         ``ImagenTrainer`` (built as ``python -m diffusioniqt_tpu_torch.train``
@@ -89,7 +92,10 @@ Phases, each of which raises (and exits non-zero) on failure:
                 128^3 phantoms, 8 patches of 96^3 per step in 2 microbatches
                 of 108 x 32^3 with remat, 4 steps (launches exactly 2 x (77,
                 1, 76, 0) per step; seconds per step, patches per second,
-                backward share, peak memory); the bundle loaded into a fresh
+                backward share, peak memory); the step-1 loss beside the same
+                first step (batch, draws) from torch's default initialisers,
+                which the port drew before it took the JAX package's (flax's
+                lecun_normal kernels, zero biases); the bundle loaded into a fresh
                 trainer equals the saving one bit for bit (parameters, EMA,
                 Adam moments, steps, generator), one more step on the same
                 batch gives both the same loss; ``quality_eval`` of the bundle
@@ -100,7 +106,7 @@ Phases, each of which raises (and exits non-zero) on failure:
                 halo kernel at factor 1), full width, cuDNN's TF32 on as the
                 entry point runs it: one microbatch of 27 independent 32^3
                 patches, its loss and gradients through the kernels against
-                the plain path (remat on there) under train-step's limits,
+                the plain path (remat on there, SEBranches) under train-step's limits,
                 launches exactly 39 / 1 / 38 / 0; then 4 optimizer steps of
                 108 patches of 32^3 in 4 microbatches on two seeded 128^3
                 phantoms (launches exactly 4 x 4 x (39, 1, 38, 0)): seconds
@@ -182,6 +188,20 @@ Phases, each of which raises (and exits non-zero) on failure:
                 1024 channels; every small-edge shape in SMALL_EDGE_SHAPES);
                 one 20-step ancestral sampler call of the window; ms per
                 forward, parameters, peak memory
+  serve-2d      the 2D slice family: UNet2D at the JAX defaults' full width
+                (dim 64, mults (1, 2, 4), 2 ResnetBlocks a level, SE) with
+                softmax attention at the last level and the middle (60^2
+                tokens, head dim 32), behind ``Imagen(spatial_dims=2)``, on 16
+                axial slices of 240^2 from a seeded 240^3 phantom, the LR
+                slices as conditioning, bf16: one forward through the kernels
+                and the plain versions within FORWARD_REL_TOL (launches 2
+                flash attentions, nothing else), then one 20-step ancestral
+                call (launches exactly 40 flash): s per call, ms per NFE, finite
+                slices of the input's shape
+  train-2d      ``quality_run_2d``'s trainer at its default width (dim 24,
+                linear attention type, no slot on) on the card: 10 steps of 8
+                crops of 96^2 from two seeded 128^3 phantoms; every loss
+                finite; s per step, peak memory
   cli           ``python -m diffusioniqt_tpu_torch.cli config``, then
                 ``train --steps 2`` and ``sample`` of the JAX CLI test's
                 small config, as subprocesses on the card: finite samples
@@ -215,8 +235,9 @@ train-base launches; the halo's ``small_edge`` rows; the fused Block's
 small-edge kernel as its own row, ``fused_block_small``
 (``csrc/fused_block_small.cu``, its reduction kernel counted in the same
 launch), launched in serve-efficient, headed by the (216, 4^3, 256->256)
-shape, every shape of SMALL_EDGE_SHAPES in its ``shapes`` list); the
-last line is ``{"ok": true, "device": {...}}``. Imports
+shape, every shape of SMALL_EDGE_SHAPES in its ``shapes`` list; flash
+attention's ``shapes`` list holds its serve-attn and serve-2d rows, each
+with its launches); the last line is ``{"ok": true, "device": {...}}``. Imports
 nothing of JAX or of ``diffusioniqt_tpu``. Exits non-zero without CUDA.
 """
 
@@ -290,9 +311,26 @@ HALO_SHAPES = [(32, 2), (32, 64), (32, 128), (16, 64), (16, 128), (16, 192), (8,
 CONV_SHAPES = [(32, 2, 64), (16, 64, 64)]
 FUSED_SHAPES = [(32, 64, 64), (32, 128, 64), (16, 64, 64), (16, 192, 128),
                 (16, 128, 128), (8, 128, 128), (8, 256, 256)]
-# every attention slot of the attention config: 8 windows x 8 heads, 12^3
-# patch tokens, head dim 64
-FLASH_SHAPES = [(WINDOWS * 8, 1728, 64)]
+# the 2D slice family's serve cell (serve-2d): UNet2D at the JAX defaults'
+# full width (dim 64, mults (1, 2, 4), 2 ResnetBlocks a level, SE) with
+# softmax attention at the last level and the middle, 16 axial slices of
+# the users' 240^3 volume (240^2 each), lowres-conditioned, 20 ancestral
+# steps; bf16 compute, fp32 parameters
+SERVE_2D = dict(dim=64, dim_mults=(1, 2, 4), num_resnet_blocks=2, channels=1, lowres_cond=True,
+                use_se_attn=True, att_type="softmax", layer_attns=(False, False, True),
+                attend_at_middle=True)
+SLICES_2D, EDGE_2D, STEPS_2D = 16, 240, 20
+# launches per UNet2D forward: the two softmax slots at 60^2 tokens
+SERVE_2D_COUNTS = {"halo": 0, "conv3d": 0, "fused_block": 0, "fused_block_small": 0,
+                   "flash_attention": 2}
+# train-2d: quality_run_2d's trainer (tools/quality_run_2d.py:88-92: dim 24,
+# linear attention type with no slot on) on 96^2 crops, batch 8, this many steps
+TRAIN_2D_DIM, TRAIN_2D_CROP, TRAIN_2D_BATCH, TRAIN_2D_STEPS = 24, 96, 8, 10
+# (batch, heads, tokens, head dim) of every softmax attention the serve
+# phases launch: the attention config's slots (8 windows x 8 heads, 12^3
+# patch tokens, head dim 64) and serve-2d's (16 slices x 8 heads, 60^2
+# tokens, head dim 32: not a multiple of the kernel's query or key tile)
+FLASH_SHAPES = [(WINDOWS, 8, 1728, 64), (SLICES_2D, 8, (EDGE_2D // 4) ** 2, 32)]
 REPLACES = {
     "halo": "diffusioniqt_tpu/ops/pallas/halo.py:103",
     "conv3d": "diffusioniqt_tpu/ops/pallas/conv3d.py:83",
@@ -457,6 +495,62 @@ def recording_ops(seen):
 
     return Ops(halo=halo, conv3d=KERNELS.conv3d, fused_conv=fused_conv,
                attention=KERNELS.attention)
+
+
+def torch_default_init_(unet: torch.nn.Module) -> None:
+    """Redraw ``unet``'s convs and dense layers with torch's own
+    ``reset_parameters`` (``kaiming_uniform_(a=sqrt(5))`` weights, uniform
+    biases): the port's initialisers before it took flax's. The
+    pixel-shuffle convs keep their ICNR draw, which is the same in both."""
+    from diffusioniqt_tpu_torch.models.blocks import PixelShuffleUpsample
+
+    icnr = {id(m.net[0]) for m in unet.modules() if isinstance(m, PixelShuffleUpsample)}
+    for m in unet.modules():
+        if id(m) in icnr:
+            continue
+        for base in (torch.nn.Linear, torch.nn.Conv3d, torch.nn.ConvTranspose3d):
+            if isinstance(m, base):
+                base.reset_parameters(m)
+    torch.autograd.graph.increment_version(list(unet.parameters()))
+
+
+class SEBranches:
+    """Forward hooks on every squeeze-excite ReLU of ``model``. ``record``
+    keeps which hidden units pass; ``pin`` makes each ReLU pass exactly
+    those (its input times the recorded mask), so that a second path's
+    gradient is taken on the same linear piece of every gate as the first
+    path's. A hidden unit within bf16 noise of zero (a gate's first dense
+    layer has no bias) otherwise passes on one path and not on the other,
+    and the gate weight's row of that unit then differs between the two
+    gradients by the whole contribution of a sample, not by rounding: one
+    such unit in 2 of 4 seeded microbatches of config/config.yaml at the
+    flax init, per-tensor cosine 0.9986 (NVIDIA H100 80GB HBM3, 700 W).
+    ``flips`` counts, per gate, the units on which a pinned path's own ReLU
+    would have decided otherwise."""
+
+    def __init__(self, model: torch.nn.Module):
+        from diffusioniqt_tpu_torch.models.blocks import SE3D
+
+        self.mode, self.masks, self.flips = None, {}, {}
+        self.hooks = [m.fc[1].register_forward_hook(self._hook)
+                      for m in model.modules() if isinstance(m, SE3D)]
+
+    def _hook(self, module, inputs, output):
+        x = inputs[0]
+        if self.mode == "record":
+            self.masks[module] = x > 0
+        elif self.mode == "pin":
+            mask = self.masks[module]
+            self.flips[module] = int(((x > 0) != mask).sum())
+            return x * mask.to(x.dtype)
+        return None
+
+    def flipped(self) -> int:
+        return sum(self.flips.values())
+
+    def remove(self) -> None:
+        for h in self.hooks:
+            h.remove()
 
 
 def phase(name: str) -> float:
@@ -993,7 +1087,8 @@ def main() -> int:
         raise AssertionError(f"fused_block brick route: {brick['ms']:.4f} ms outside "
                              f"{lo}-{hi} ms widened by {BRICK_ROUTE_MARGIN:.0%}")
 
-    for bh, n, d in FLASH_SHAPES:
+    for nb, heads, n, d in FLASH_SHAPES:
+        bh = nb * heads
         q, k, v = (torch.randn((bh, n, d), generator=gen, device=dev).to(torch.bfloat16)
                    for _ in range(3))
         scale = d ** -0.5
@@ -1001,14 +1096,15 @@ def main() -> int:
         want = kernels.attention_plain(q, k, v, scale)
         torch.cuda.synchronize()
         stats = compare("flash_attention", (bh, n, d), got, want, FLASH_TOL)
-        # the library yardstick: one SDPA call over (windows, heads, N, D)
-        q4, k4, v4 = (a.view(WINDOWS, bh // WINDOWS, n, d) for a in (q, k, v))
+        # the library yardstick: one SDPA call over (batch, heads, N, D)
+        q4, k4, v4 = (a.view(nb, heads, n, d) for a in (q, k, v))
         sdpa = torch.nn.functional.scaled_dot_product_attention
         record("flash_attention", (bh, n, d), stats,
                timed(lambda: kernels.flash_attention(q, k, v, scale)),
                cuda_time_ms(lambda: kernels.attention_plain(q, k, v, scale), iters=3),
                timed(lambda: sdpa(q4, k4, v4, scale=scale)),
                bound_ms(4.0 * bh * n * n * d, nbytes(q, k, v, got)))
+        del q, k, v, q4, k4, v4, got, want
     print(f"kernels seconds {time.perf_counter() - t0:.1f}", flush=True)
     if "--kernels-only" in sys.argv[1:]:
         print(json.dumps({"kernel_rows": results}))
@@ -1531,15 +1627,23 @@ def main() -> int:
             return (loss.item(), {k: p.grad.detach().clone() for k, p in model.named_parameters()},
                     counts)
 
+        # the plain path's squeeze-excite gates on the kernel path's branches
+        branches = SEBranches(model)
+        branches.mode = "record"
         loss_k, grads_k, counts = run(kernels.KERNELS)
+        branches.mode = None
         _, grads_k2, _ = run(kernels.KERNELS)
+        branches.mode = "pin"
         loss_p, grads_p, _ = run(kernels.PLAIN, remat=True)
+        branches.mode = None
         loss_r, grads_r, counts_r = run(kernels.KERNELS, remat=True)
+        branches.remove()
         model.use_ops(kernels.KERNELS)
         model.remat = False
         torch.backends.cudnn.deterministic = False
         print(f"train-step loss kernels {loss_k:.6f} plain {loss_p:.6f} remat {loss_r:.6f}; "
-              f"launches {counts}, with remat {counts_r}")
+              f"launches {counts}, with remat {counts_r}; squeeze-excite units the plain "
+              f"path's own ReLU would have decided otherwise: {branches.flipped()}")
         if counts != FLAGSHIP_COUNTS:
             raise AssertionError(f"train-step launches {counts}, expected {FLAGSHIP_COUNTS}")
         if counts_r != REMAT_COUNTS:
@@ -1727,6 +1831,20 @@ def main() -> int:
               f"memory {peak / 2 ** 30:.2f} GiB; launches per step {per_step}", flush=True)
         if not all(math.isfinite(v) for v in losses):
             raise AssertionError("quality: a loss is not finite")
+        # the same first step (batch, draws) from torch's default initialisers,
+        # which the port drew before it took the JAX package's
+        old = gate_trainer()
+        with torch.no_grad():
+            torch.manual_seed(cfg.train.seed)
+            torch_default_init_(old.imagen.unets[1])
+        old_loss = old.train_step(unet_number=2)
+        del old
+        torch.cuda.empty_cache()
+        print(f"gate step-1 loss {losses[0]:.4f} from the port's initialisers (flax's "
+              f"lecun_normal, zero biases); {old_loss:.4f} from torch's defaults on the same "
+              f"batch and draws (the JAX gate run r5: 13.136)", flush=True)
+        if not math.isfinite(old_loss):
+            raise AssertionError("quality: the step from torch's default init is not finite")
 
         work = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
         try:
@@ -1853,8 +1971,13 @@ def main() -> int:
             return (loss.item(), {k: p.grad.detach().clone() for k, p in model.named_parameters()},
                     kernels.launch_counts())
 
+        # the plain path's squeeze-excite gates on the kernel path's branches
+        branches = SEBranches(model)
+        branches.mode = "record"
         loss_k, grads_k, counts = run(kernels.KERNELS)
+        branches.mode = "pin"
         loss_p, grads_p, _ = run(kernels.PLAIN, remat=True)
+        branches.remove()
         model.use_ops(kernels.KERNELS)
         model.remat = False
         model.zero_grad(set_to_none=True)
@@ -1864,7 +1987,8 @@ def main() -> int:
         del grads_k, grads_p
         print(f"microbatch 27 x 32^3 (x_start, SAME convs, term {flag}): loss kernels "
               f"{loss_k:.6f} plain {loss_p:.6f} (rel {rel:.3e}, tol {FORWARD_REL_TOL}); "
-              f"launches {counts}; gradients: whole cos {cos_all:.6f} (min "
+              f"launches {counts}; squeeze-excite units flipped {branches.flipped()}; "
+              f"gradients: whole cos {cos_all:.6f} (min "
               f"{GRAD_GLOBAL_COS_MIN}), norm rel {norm_rel:.3e} (tol {GRAD_GLOBAL_NORM_REL_TOL}), "
               f"per-tensor cos min {worst[0][1]:.5f} (min {GRAD_TENSOR_COS_MIN}), worst "
               f"{[(k, round(c, 5)) for k, c in worst]}", flush=True)
@@ -2144,6 +2268,114 @@ def main() -> int:
                                  "sampling each rank's rows alone")
         return ranks[0]["launches"]
 
+    def serve_2d():
+        """The 2D slice family's serve cell: UNet2D at full width
+        (SERVE_2D) behind ``Imagen(spatial_dims=2)``, as quality_run_2d
+        builds the wrapper, on the central SLICES_2D axial slices of a
+        seeded 240^3 phantom's LR volume: one forward through the kernels
+        and through the plain versions (FORWARD_REL_TOL, SERVE_2D_COUNTS),
+        then one STEPS_2D-step ancestral call with the counts zeroed just
+        before and read just after. Returns the call's launches."""
+        from diffusioniqt_tpu_torch.diffusion.gaussian import Imagen
+        from diffusioniqt_tpu_torch.models.unet2d import UNet2D
+
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            unet = UNet2D(**SERVE_2D, dtype=torch.bfloat16).to(dev).eval()
+        _, lr = generate_pair(EDGE_2D, seed=0)
+        mean, std = population_stats([lr])
+        z0 = (EDGE_2D - SLICES_2D) // 2
+        lowres = torch.from_numpy(((lr[z0:z0 + SLICES_2D] - mean) / std).astype(np.float32))
+        lowres = lowres[..., None].to(dev)
+        imagen = Imagen([NullUnet().to(dev), unet], image_sizes=(EDGE_2D, EDGE_2D), channels=1,
+                        timesteps=STEPS_2D, pred_objectives="x_start",
+                        dynamic_thresholding=False, p2_loss_weight_gamma=0.0,
+                        cond_drop_prob=0.0, min_bound=(0.0 - mean) / std, norm="z-score",
+                        spatial_dims=2)
+        x = torch.randn(lowres.shape, generator=gen, device=dev)
+        t = torch.full((SLICES_2D,), 0.5, device=dev)
+        log_snr = imagen.noise_schedulers[1].get_condition(t)
+        call = lambda: unet(x, t, log_snr, lowres_cond_img=lowres)  # noqa: E731
+        with torch.no_grad():
+            kernels.reset_launch_counts()
+            out_k = call()
+            torch.cuda.synchronize()
+            per_forward = kernels.launch_counts()
+            fwd_ms = cuda_time_ms(call, iters=5, warmup=1)
+            unet.use_ops(kernels.PLAIN)
+            out_p = call()
+            plain_ms = cuda_time_ms(call, iters=2, warmup=0)
+            unet.use_ops(kernels.KERNELS)
+        rel = ((out_k - out_p).abs().max() / out_p.abs().max()).item()
+        print(f"UNet2D {SERVE_2D}: {sum(p.numel() for p in unet.parameters())} parameters; "
+              f"forward of {SLICES_2D} x {EDGE_2D}^2: launches {per_forward}, out "
+              f"{tuple(out_k.shape)} finite {bool(torch.isfinite(out_k).all())}, "
+              f"max_rel_err_vs_plain {rel:.3e} (tol {FORWARD_REL_TOL}); ms per forward: "
+              f"kernels {fwd_ms:.3f} plain {plain_ms:.3f}", flush=True)
+        if per_forward != SERVE_2D_COUNTS:
+            raise AssertionError(f"serve-2d: launches per forward {per_forward}, expected "
+                                 f"{SERVE_2D_COUNTS}")
+        if not (torch.isfinite(out_k).all() and rel <= FORWARD_REL_TOL):
+            raise AssertionError("serve-2d: the forward through the kernels disagrees with "
+                                 "the plain path")
+        del out_k, out_p
+        noise = gaussian_noise(torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = imagen.sample(batch_size=SLICES_2D, noise=noise, start_at_unet_number=2,
+                            start_image_or_video=lowres)
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+        served = kernels.launch_counts()
+        want = {k: STEPS_2D * n for k, n in SERVE_2D_COUNTS.items()}
+        print(f"sampler call ({STEPS_2D} ancestral steps, {SLICES_2D} slices of {EDGE_2D}^2, "
+              f"bf16): {call_s:.3f} s per call, {call_s * 1e3 / STEPS_2D:.3f} ms per NFE; "
+              f"output {tuple(out.shape)} finite {bool(torch.isfinite(out).all())}; launches "
+              f"{served}; peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
+              flush=True)
+        if served != want:
+            raise AssertionError(f"serve-2d launches {served}, expected {want}")
+        if out.shape != (SLICES_2D, EDGE_2D, EDGE_2D, 1) or not torch.isfinite(out).all():
+            raise AssertionError("serve-2d: the samples are not finite slices of the input's "
+                                 "shape")
+        return served
+
+    def train_2d():
+        """quality_run_2d's own trainer (``build_trainer_2d``, its
+        ``SliceIQTDataset``) at its default width on the card: TRAIN_2D_STEPS
+        steps of TRAIN_2D_BATCH crops of TRAIN_2D_CROP^2 from two seeded
+        128^3 phantoms; every loss finite; s per step."""
+        from diffusioniqt_tpu_torch import quality_run_2d
+
+        pairs = [generate_pair(PHANTOM_EDGE, seed=i) for i in range(PHANTOMS)]
+        mean, std = population_stats([lr for _, lr in pairs])
+        trainer = quality_run_2d.build_trainer_2d(TRAIN_2D_DIM, TRAIN_2D_CROP, 1000, mean, std,
+                                                  2e-4, dev)
+        trainer.add_train_dataset(quality_run_2d.SliceIQTDataset(pairs, mean, std,
+                                                                 crop=TRAIN_2D_CROP, seed=0),
+                                  batch_size=TRAIN_2D_BATCH)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        losses, step_s = [], []
+        for _ in range(TRAIN_2D_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(trainer.train_step(unet_number=2))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        med = sorted(step_s[1:])[len(step_s[1:]) // 2]
+        print(f"train-2d: UNet2D dim {TRAIN_2D_DIM}, {TRAIN_2D_BATCH} crops of "
+              f"{TRAIN_2D_CROP}^2 per step, bf16; losses {' '.join(f'{v:.4f}' for v in losses)}; "
+              f"s per step (median of steps 2-{TRAIN_2D_STEPS}) {med:.4f}; step seconds "
+              f"{' '.join(f'{v:.3f}' for v in step_s)}; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launches "
+              f"{kernels.launch_counts()}", flush=True)
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError("train-2d: a loss is not finite")
+
     cfg = load_config(os.path.join(ROOT, FLAGSHIP_CONFIG))
     cfg_attn = load_config(os.path.join(ROOT, ATTN_CONFIG))
     cfg_vit = load_config(os.path.join(ROOT, ATTN_CONFIG))
@@ -2187,6 +2419,8 @@ def main() -> int:
     served_eff, _, _, serve_eff_s = serve(cfg_eff, EFFICIENT_COUNTS)
     print(f"serve-efficient {serve_eff_s:.3f} s against the serve phase's {serve_s:.3f} s "
           f"(8 windows, {cfg.train.timesteps} steps)", flush=True)
+    phase("serve-2d")
+    served_2d = serve_2d()
     phase("edm-step")
     edm_step(cfg_edm_step)
     phase("edm-merged")
@@ -2209,6 +2443,8 @@ def main() -> int:
     gated, gate_evaluated = quality_phase()
     phase("train-remat-conv")
     train_remat_conv()
+    phase("train-2d")
+    train_2d()
     # config/config.yaml's training, with the cuDNN TF32 setting the
     # training entry point runs with (torch's default; the kernel checks
     # above hold fp32 references with it off)
@@ -2273,6 +2509,16 @@ def main() -> int:
             "library_ms_max": head["library_ms_max"], "library": LIBRARY[name],
             "shape": "x".join(str(v) for v in head["shape"]), **extra,
         })
+    # flash's rows: the attention config's (the headline) and serve-2d's
+    flash = next(r for r in line if r["name"] == "flash_attention")
+    flash["launches_by_path"]["serve-2d"] = served_2d["flash_attention"]
+    flash["shapes"] = [
+        {**{k: r[k] for k in ("shape", "max_abs_err", "ms", "ms_min", "ms_max", "plain_ms",
+                              "bound_ms", "bound_by", "library_ms", "library_ms_min",
+                              "library_ms_max")},
+         "launches": (served_attn if r["shape"][1:] == [1728, 64] else served_2d)[
+             "flash_attention"]}
+        for r in results["flash_attention"]]
     line[0]["small_edge"] = [{k: r[k] for k in ("shape", "factor", "max_abs_err", "ms", "ms_min",
                                               "ms_max", "plain_ms", "bound_ms", "bound_by",
                                               "library_ms", "library_ms_min", "library_ms_max")}

@@ -10,6 +10,8 @@ imagen_pytorch3D.py:222-357, after @crowsonkb's v-diffusion).
                        uniform or exponentially weighted towards t = 0
   q_sample           — diffuse x0 to time t (the training loss, the EDM
                        lowres noise aug)
+  q_sample_from_to   — renoise from time t to an earlier, noisier one (the
+                       ancestral sampler's inpainting resample)
   q_posterior        — DDPM ancestral posterior, continuous-time form
   predict_start_*    — invert the noise / v parameterisations
 """
@@ -123,6 +125,18 @@ class GaussianDiffusionContinuousTimes:
         log_snr = self.log_snr(t).to(x_start.dtype)
         alpha, sigma = log_snr_to_alpha_sigma(right_pad_dims_to(x_start, log_snr))
         return alpha * x_start + sigma * noise, log_snr, alpha, sigma
+
+    def q_sample_from_to(self, x_from, from_t, to_t, noise):
+        """Renoise ``x_from`` at time ``from_t`` to the noisier ``to_t``
+        (reference :324-344; JAX schedules.py:143-160); a float time is
+        taken for every row."""
+        batch = x_from.shape[0]
+        from_t, to_t = (torch.full((batch,), t, dtype=x_from.dtype, device=x_from.device)
+                        if isinstance(t, float) else t for t in (from_t, to_t))
+        alpha, sigma = log_snr_to_alpha_sigma(right_pad_dims_to(x_from, self.log_snr(from_t)))
+        alpha_to, sigma_to = log_snr_to_alpha_sigma(
+            right_pad_dims_to(x_from, self.log_snr(to_t)))
+        return x_from * (alpha_to / alpha) + noise * (sigma_to * alpha - sigma * alpha_to) / alpha
 
     def q_posterior(self, x_start, x_t, t, t_next=None):
         """Posterior q(x_s | x_t, x0) mean / variance / clipped log variance

@@ -13,6 +13,8 @@
     one per sub-volume, the EDM loss weight, and the lowres conditioning
     clean (``lowres_noise_aug`` off, the IQT path), noise-augmented, or
     made by down-up-resizing the target when none is given
+  * ``cond_images`` passed to the U-Net in the loss and in every sampler
+    forward, which concatenates them before its input
 
 Randomness is injected as in ``diffusion/gaussian.py``: the sampler takes
 ``noise(shape) -> tensor`` (``NoiseFn``) and draws, per cascade stage, in
@@ -45,25 +47,17 @@ from diffusioniqt_tpu_torch.core.schedules import (
     right_pad_dims_to,
 )
 from diffusioniqt_tpu_torch.diffusion.gaussian import (
+    Imagen,
     NoiseFn,
     clamp_to_range,
+    identity,
+    normalize_neg_one_to_one,
     standard_normal,
     threshold_x_start,
+    unnormalize_zero_to_one,
 )
 from diffusioniqt_tpu_torch.ops.volume import resize_volume
 from diffusioniqt_tpu_torch.utils.misc import cast_tuple, default
-
-
-def normalize_neg_one_to_one(img):
-    return img * 2 - 1
-
-
-def unnormalize_zero_to_one(img):
-    return (img + 1) * 0.5
-
-
-def identity(img):
-    return img
 
 
 class ElucidatedImagen:
@@ -143,13 +137,14 @@ class ElucidatedImagen:
     def preconditioned_network_forward(self, unet, noised_images, sigma, hp: EDMParams, *,
                                        clamp: bool = False, dynamic_threshold: bool = True,
                                        cond_scale: float = 1.0, lowres_cond_img=None,
-                                       self_cond=None):
+                                       cond_images=None, self_cond=None):
         """EDM eq. (7) (reference :329-358). ``cond_scale != 1`` mixes a
         second, null-conditioned evaluation into the raw network output
         before the c_skip / c_out recombination (JAX elucidated.py:227-237);
         the IQT U-Net ignores ``cond_drop_prob``, so both evaluations agree.
         ``self_cond`` is the x0 estimate a self-conditioned U-Net is given
-        (None: the U-Net's zeros)."""
+        (None: the U-Net's zeros); ``cond_images`` go to the U-Net, which
+        concatenates them before its input (JAX elucidated.py:204-209)."""
         batch = noised_images.shape[0]
         sigma = torch.as_tensor(sigma, dtype=torch.float32, device=noised_images.device)
         if sigma.dim() == 0:
@@ -157,11 +152,10 @@ class ElucidatedImagen:
         padded_sigma = right_pad_dims_to(noised_images, sigma)
         c_noise = hp.c_noise(sigma)
         net_in = hp.c_in(padded_sigma) * noised_images
-        extra = {} if self_cond is None else {"self_cond": self_cond}
-        net_out = unet(net_in, c_noise, c_noise, lowres_cond_img=lowres_cond_img, **extra)
+        kw = Imagen._unet_kwargs(lowres_cond_img, cond_images, self_cond)
+        net_out = unet(net_in, c_noise, c_noise, **kw)
         if cond_scale != 1.0:
-            null_out = unet(net_in, c_noise, c_noise, lowres_cond_img=lowres_cond_img,
-                            cond_drop_prob=1.0, **extra)
+            null_out = unet(net_in, c_noise, c_noise, cond_drop_prob=1.0, **kw)
             net_out = null_out + (net_out - null_out) * cond_scale
         out = hp.c_skip(padded_sigma) * noised_images + hp.c_out(padded_sigma) * net_out
         if not clamp:
@@ -174,7 +168,7 @@ class ElucidatedImagen:
     @torch.no_grad()
     def one_unet_sample(self, unet, shape: Tuple[int, ...], *, noise: NoiseFn,
                         hp: EDMParams, clamp: bool = True, dynamic_threshold: bool = True,
-                        cond_scale: float = 1.0, lowres_cond_img=None,
+                        cond_scale: float = 1.0, lowres_cond_img=None, cond_images=None,
                         inpaint_images=None, inpaint_masks=None,
                         inpaint_resample_times: int = 5, init_images=None,
                         skip_steps: Optional[int] = None, sigma_min: Optional[float] = None,
@@ -212,7 +206,8 @@ class ElucidatedImagen:
             inpaint_masks = resize_volume(inpaint_masks.float(), shape[1])
 
         fwd = dict(hp=hp, clamp=clamp, dynamic_threshold=dynamic_threshold,
-                   cond_scale=cond_scale, lowres_cond_img=lowres_cond_img)
+                   cond_scale=cond_scale, lowres_cond_img=lowres_cond_img,
+                   cond_images=cond_images)
         n_steps = sigma_cur.shape[0]
         self_cond = getattr(unet, "self_cond", False)
         x_start = torch.zeros_like(images)
@@ -253,8 +248,9 @@ class ElucidatedImagen:
 
     # ------------------------------------------------------------------
     @torch.no_grad()
-    def sample(self, *, batch_size: int = 1, noise: NoiseFn, inpaint_images=None,
-               inpaint_masks=None, inpaint_resample_times: int = 5, init_images=None,
+    def sample(self, *, batch_size: int = 1, noise: NoiseFn, cond_images=None,
+               inpaint_images=None, inpaint_masks=None, inpaint_resample_times: int = 5,
+               init_images=None,
                skip_steps=None, sigma_min=None, sigma_max=None,
                cond_scale: Union[float, Sequence[float]] = 1.0,
                lowres_sample_noise_level: Optional[float] = None,
@@ -311,7 +307,8 @@ class ElucidatedImagen:
                 unet, shape, noise=noise, hp=self.hparams[index], clamp=True,
                 dynamic_threshold=self.dynamic_thresholding[index],
                 cond_scale=cond_scale[index], lowres_cond_img=lowres_cond_img,
-                inpaint_images=inpaint_images, inpaint_masks=inpaint_masks,
+                cond_images=cond_images, inpaint_images=inpaint_images,
+                inpaint_masks=inpaint_masks,
                 inpaint_resample_times=inpaint_resample_times, init_images=unet_init,
                 skip_steps=skip_steps[index], sigma_min=sigma_min[index],
                 sigma_max=sigma_max[index])
@@ -322,7 +319,8 @@ class ElucidatedImagen:
 
     # ------------------------------------------------------------------
     def forward(self, images, lowres_img=None, *, unet_number: Optional[int] = None,
-                generator: Optional[torch.Generator] = None, sigmas=None, noise=None,
+                cond_images=None, generator: Optional[torch.Generator] = None, sigmas=None,
+                noise=None,
                 aug_times=None, aug_noise=None, return_outputs: bool = False):
         """EDM training loss (reference :712-882; JAX elucidated.py:558-658):
         the scalar loss, or ``(loss, denoised, noised_images, lowres_noisy)``
@@ -362,7 +360,8 @@ class ElucidatedImagen:
         sigmas, noise = draws["sigmas"], draws["noise"]
         noised_images = images + right_pad_dims_to(images, sigmas) * noise
         denoised = self.preconditioned_network_forward(
-            unet, noised_images, sigmas, hp, lowres_cond_img=lowres_noisy)
+            unet, noised_images, sigmas, hp, lowres_cond_img=lowres_noisy,
+            cond_images=cond_images)
         losses = ((denoised - images) ** 2).reshape(batch, -1).mean(dim=-1)
         loss = (losses * hp.loss_weight(sigmas)).mean()
         if return_outputs:

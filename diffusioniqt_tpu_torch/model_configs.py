@@ -3,20 +3,22 @@
 
 The same JSON schemas as the JAX package, so a file written by either
 package's ``cli.py config`` loads in the other: a U-Net stage
-(:class:`UnetConfig`, kinds ``unet3d`` and ``null``), the Gaussian and EDM
+(:class:`UnetConfig`, kinds ``unet3d``, ``unet2d`` and ``null``), the Gaussian and EDM
 cascade wrappers (:class:`ImagenConfig`, :class:`ElucidatedImagenConfig`)
 and the trainer (:class:`ImagenTrainerConfig`). Each ``create`` takes the
 ``device`` the modules go to (``cuda`` unless told otherwise; raises if
 CUDA is asked for and missing).
 
-A U-Net's fields that a JSON leaves out take the JAX ``UNet3D``'s defaults
-(``models/unet3d.py::JAX_DEFAULTS``), as the JAX ``create`` does; the
+A ``unet3d`` stage's fields that a JSON leaves out take the JAX ``UNet3D``'s
+defaults (``models/unet3d.py::JAX_DEFAULTS``), as the JAX ``create`` does
+(a ``unet2d`` stage's are the port's ``UNet2D``'s, which are the JAX
+ones); the
 cascade then sets each stage's conditioning as the JAX wrappers'
 ``cast_model_parameters`` does (stage 1 unconditioned, later stages
 lowres-conditioned, ``channels`` and ``channels_out`` the wrapper's). The
 compute dtype is ``kwargs["dtype"]`` (``"bfloat16"`` / ``"float32"``) when
 given, else bf16 on the card, whose kernels take bf16, and fp32 on the CPU.
-Kinds ``unet2d`` and ``video`` are not ported yet (ROADMAP.md §1).
+Kind ``video`` is not ported yet (ROADMAP.md §1).
 """
 
 from __future__ import annotations
@@ -54,7 +56,7 @@ class UnetConfig:
     dim: int = 64
     dim_mults: Tuple[int, ...] = (1, 2, 4)
     channels: int = 1
-    kind: str = "unet3d"  # 'unet3d' | 'null' ('unet2d' | 'video' not ported yet)
+    kind: str = "unet3d"  # 'unet3d' | 'unet2d' | 'null' ('video' not ported yet)
     kwargs: Dict[str, Any] = field(default_factory=dict)
 
     @classmethod
@@ -69,23 +71,24 @@ class UnetConfig:
     def create(self, device="cuda", **overrides):
         """The stage's module on ``device``; ``overrides`` (the cascade's
         ``lowres_cond``, ``channels``, ``channels_out``) win over the JSON."""
+        from diffusioniqt_tpu_torch.models.unet2d import UNet2D
         from diffusioniqt_tpu_torch.models.unet3d import JAX_DEFAULTS, NullUnet, UNet3D
 
         device = resolve_device(device)
         if self.kind == "null":
             return NullUnet().to(device)
-        if self.kind in ("unet2d", "video"):
+        if self.kind == "video":
             raise NotImplementedError(
-                f"U-Net kind {self.kind!r} is not ported yet (ROADMAP.md §1: models/unet2d.py, "
-                "unet_video.py)")
-        if self.kind != "unet3d":
+                "U-Net kind 'video' is not ported yet (ROADMAP.md §1: unet_video.py)")
+        if self.kind not in ("unet3d", "unet2d"):
             raise ValueError(f"unknown U-Net kind {self.kind!r}")
-        kw = _tuples(_signature_kwargs(UNet3D.__init__, self.kwargs))
+        klass, defaults = ((UNet3D, JAX_DEFAULTS) if self.kind == "unet3d" else (UNet2D, {}))
+        kw = _tuples(_signature_kwargs(klass.__init__, self.kwargs))
         dtype = kw.pop("dtype", None)
         kw["dtype"] = (_DTYPES[dtype] if dtype is not None
                        else torch.bfloat16 if device.type == "cuda" else torch.float32)
-        model = UNet3D(**{**JAX_DEFAULTS, "dim": self.dim, "dim_mults": self.dim_mults,
-                          "channels": self.channels, **kw, **overrides})
+        model = klass(**{**defaults, "dim": self.dim, "dim_mults": self.dim_mults,
+                         "channels": self.channels, **kw, **overrides})
         return model.to(device)
 
 
@@ -102,10 +105,8 @@ def _cascade(unets: List[dict], channels: int, device) -> list:
 
 @dataclass
 class ImagenConfig:
-    """Schema for the cascade wrapper (reference configs.py:68-106).
-    ``cond_drop_prob`` is read and unused, as the IQT U-Net ignores it in
-    both packages; ``auto_normalize_img`` must stay off (the port's
-    Gaussian wrapper has no [0, 1] rescaling: the IQT data is z-scored)."""
+    """Schema for the cascade wrapper (reference configs.py:68-106), passed
+    to ``Imagen`` as the JAX ``create`` passes it."""
 
     unets: List[dict] = field(default_factory=list)
     image_sizes: Tuple[int, ...] = (32,)
@@ -128,15 +129,14 @@ class ImagenConfig:
     def create(self, device="cuda"):
         from diffusioniqt_tpu_torch.diffusion.gaussian import Imagen
 
-        if self.auto_normalize_img:
-            raise ValueError("auto_normalize_img: the port's Gaussian wrapper works on "
-                             "z-scored data and has no [0, 1] rescaling")
         return Imagen(
             _cascade(self.unets, self.channels, device), image_sizes=self.image_sizes,
             channels=self.channels, timesteps=self.timesteps,
             noise_schedules=self.noise_schedules, pred_objectives=self.pred_objectives,
-            loss_type=self.loss_type, dynamic_thresholding=self.dynamic_thresholding,
-            min_bound=self.min_bound, norm=self.norm, batch_sample=self.batch_sample)
+            loss_type=self.loss_type, cond_drop_prob=self.cond_drop_prob,
+            auto_normalize_img=self.auto_normalize_img,
+            dynamic_thresholding=self.dynamic_thresholding, min_bound=self.min_bound,
+            norm=self.norm, batch_sample=self.batch_sample)
 
 
 @dataclass

@@ -35,15 +35,16 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from diffusioniqt_tpu_torch.models.blocks import ChanLayerNorm, Dense, PointwiseConv
+from diffusioniqt_tpu_torch.models.blocks import ChanLayerNorm, Dense, LecunInit, PointwiseConv
 from diffusioniqt_tpu_torch.ops.attention import scaled_dot_product_attention
 from diffusioniqt_tpu_torch.ops.kernels import KERNELS
 from diffusioniqt_tpu_torch.ops.volume import upsample_trilinear
 from diffusioniqt_tpu_torch.utils.misc import Mish, mish
 
 
-class ChannelsLastConv3d(nn.Conv3d):
-    """``nn.Conv3d`` applied to a channels-last tensor in its dtype."""
+class ChannelsLastConv3d(LecunInit, nn.Conv3d):
+    """``nn.Conv3d`` applied to a channels-last tensor in its dtype (flax's
+    initialisers; a depthwise kernel's fan_in is its extent, as in flax)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)

@@ -13,6 +13,14 @@ reads a port ``state_dict`` directly:
   CrossEmbedLayer       convs.{i} (one conv per kernel size, smallest first)
   ChanLayerNorm         g
 
+Fresh modules draw their parameters as the JAX modules' flax initialisers
+do: every conv and dense kernel ``lecun_normal`` (a normal of variance
+1 / fan_in truncated at two standard deviations, :func:`lecun_normal_`),
+every bias zero, GroupNorm and LayerNorm scales one and biases zero. The
+special cases keep theirs: the learned sinusoidal weights and the ViT
+positions normal(1), the pixel-shuffle conv's ICNR over a ``kaiming_uniform``
+base, the deconv's ``lecun_normal`` with fan_in over its input channels.
+
 Dense layers and 1x1 convs run in the activation's dtype (the JAX
 modules' ``dtype=compute_dtype``) with fp32 parameters cast per call; every
 3^3 conv of a Block goes through the kernels of ``ops/kernels``. The
@@ -41,7 +49,41 @@ from diffusioniqt_tpu_torch.ops.volume import pixel_shuffle_3d, pixel_unshuffle_
 from diffusioniqt_tpu_torch.utils.misc import Mish, mish
 
 
-class Dense(nn.Linear):
+# flax's truncated normal: the standard deviation of a unit normal cut at
+# +-2, by which ``variance_scaling`` divides its scale (jax initializers)
+TRUNCATED_NORMAL_STD = 0.87962566103423978
+
+
+def lecun_normal_(weight: torch.Tensor, fan_in: Optional[int] = None) -> torch.Tensor:
+    """flax ``lecun_normal`` in place: ``variance_scaling(1, "fan_in",
+    "truncated_normal")``, a normal of standard deviation
+    ``sqrt(1 / fan_in) / TRUNCATED_NORMAL_STD`` cut at two of them, so
+    that the kept values have variance ``1 / fan_in``. ``fan_in`` defaults
+    to a torch conv or linear weight's ``in_channels / groups`` times its
+    kernel extent, which is flax's count for the same layer."""
+    fan_in = weight[0].numel() if fan_in is None else fan_in
+    std = math.sqrt(1.0 / fan_in) / TRUNCATED_NORMAL_STD
+    with torch.no_grad():
+        return nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std)
+
+
+class LecunInit:
+    """Mixin for ``nn.Linear`` / ``nn.Conv*`` subclasses: the flax
+    ``nn.Dense`` / ``nn.Conv`` initialisers (``lecun_normal`` kernel, zero
+    bias) in place of torch's ``kaiming_uniform_(a=sqrt(5))``."""
+
+    def reset_parameters(self) -> None:
+        lecun_normal_(self.weight)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+
+class Conv3d(LecunInit, nn.Conv3d):
+    """``nn.Conv3d`` with the flax initialisers; its weight is read by the
+    kernels, not by its ``forward``."""
+
+
+class Dense(LecunInit, nn.Linear):
     """``nn.Linear`` computed in the input's dtype."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -49,7 +91,7 @@ class Dense(nn.Linear):
         return F.linear(x, self.weight.to(x.dtype), bias)
 
 
-class PointwiseConv(nn.Conv3d):
+class PointwiseConv(LecunInit, nn.Conv3d):
     """1x1x1 ``nn.Conv3d`` (weight ``(Cout, Cin, 1, 1, 1)``) applied to a
     channels-last tensor in its dtype."""
 
@@ -62,7 +104,7 @@ class PointwiseConv(nn.Conv3d):
         return F.linear(x, w.to(x.dtype), bias)
 
 
-class SameConv(nn.Conv3d):
+class SameConv(LecunInit, nn.Conv3d):
     """k^3 ``nn.Conv3d`` with stride 1 applied to a channels-last tensor in
     its dtype; ``padding`` voxels of zeros on every side (``(k - 1) // 2``
     by default: flax ``padding="SAME"`` at an odd kernel)."""
@@ -111,8 +153,12 @@ class DeconvUpsample(nn.Module):
 
     def __init__(self, dim_in: int, dim_out: int):
         super().__init__()
-        self.deconv = nn.Sequential(nn.ConvTranspose3d(dim_in, dim_out, 3, stride=2,
-                                                       padding=1, output_padding=1))
+        conv = nn.ConvTranspose3d(dim_in, dim_out, 3, stride=2, padding=1, output_padding=1)
+        # the JAX kernel's lecun_normal(in_axis=-2) counts fan_in over the
+        # input channels (blocks.py:383-390); torch's layout is (in, out, k^3)
+        lecun_normal_(conv.weight, fan_in=dim_in * 27)
+        nn.init.zeros_(conv.bias)
+        self.deconv = nn.Sequential(conv)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         conv = self.deconv[0]
@@ -183,7 +229,7 @@ class Block(nn.Module):
                  factor: int = 3):
         super().__init__()
         self.groupnorm = nn.GroupNorm(groups, dim_in)
-        self.project = nn.Conv3d(dim_in, dim_out, 3)
+        self.project = Conv3d(dim_in, dim_out, 3)
         self.groups = groups
         self.factor = factor
         self.ops = KERNELS
@@ -263,7 +309,8 @@ class PixelShuffleUpsample(nn.Module):
     def __init__(self, dim_in: int, dim_out: int):
         super().__init__()
         conv = PointwiseConv(dim_in, dim_out * 8)
-        # ICNR: every 2^3 sub-position of an output channel starts equal
+        # ICNR: every 2^3 sub-position of an output channel starts equal,
+        # over flax's kaiming_uniform (torch's with a=0: U(+-sqrt(6 / fan_in)))
         base = torch.empty(dim_out, dim_in, 1, 1, 1)
         nn.init.kaiming_uniform_(base)
         with torch.no_grad():

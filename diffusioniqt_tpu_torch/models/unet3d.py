@@ -68,6 +68,7 @@ from torch.utils.checkpoint import checkpoint
 
 from diffusioniqt_tpu_torch.models.attention import AttentionTransformerBlock, ViT3D
 from diffusioniqt_tpu_torch.models.blocks import (
+    Conv3d,
     CrossEmbedLayer,
     DeconvUpsample,
     Dense,
@@ -181,7 +182,7 @@ class UNet3D(nn.Module):
         if init_cross_embed:
             self.init_conv = CrossEmbedLayer(in_ch, init_dim, init_cross_embed_kernel_sizes)
         elif self._kernel_stem:
-            self.init_conv = nn.Conv3d(in_ch, init_dim, 3)
+            self.init_conv = Conv3d(in_ch, init_dim, 3)
         else:
             self.init_conv = SameConv(in_ch, init_dim, init_conv_kernel_size)
         self._init_packed = PackedWeight()

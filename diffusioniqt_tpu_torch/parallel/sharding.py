@@ -104,6 +104,33 @@ def param_shardings(module: torch.nn.Module, mesh: DeviceMesh) -> Dict[str, tupl
     return {name: (Replicate(),) * mesh.ndim for name, _ in module.named_parameters()}
 
 
+def map_batch_tensors(kwargs: dict, fn: Callable) -> dict:
+    """``fn`` over every batch-major tensor of sampling keyword arguments:
+    each tensor value, and each tensor in a list or tuple value (the
+    per-unet ``init_images``); None and other values are kept (the JAX
+    trainer's ``_map_array_kwargs``)."""
+    def one(v):
+        if isinstance(v, torch.Tensor):
+            return fn(v)
+        if isinstance(v, (list, tuple)):
+            return type(v)(one(u) for u in v)
+        return v
+    return {k: one(v) for k, v in kwargs.items()}
+
+
+def map_sample_outputs(out, kwargs: dict, batch_fn: Callable, step_fn: Callable):
+    """``batch_fn`` over the batch-major outputs of ``sample(**kwargs)`` and
+    ``step_fn`` over its step-major ``(T, B, ...)`` trajectories, as the
+    ``return_all_outputs`` / ``return_trajectory`` flags shape them (the
+    JAX trainer's ``_map_sample_outputs``)."""
+    def head(h):
+        return ([batch_fn(o) for o in h] if kwargs.get("return_all_outputs", False)
+                else batch_fn(h))
+    if kwargs.get("return_trajectory", False):
+        return (head(out[0]), *(step_fn(t) for t in out[1:]))
+    return head(out)
+
+
 def sharded_sample(sample: Callable, mesh: Optional[DeviceMesh], *, batch_size: int,
                    noise: Callable, group: int = 1, **kwargs):
     """``sample(batch_size=..., noise=..., **kwargs)`` with its batch spread
@@ -117,7 +144,8 @@ def sharded_sample(sample: Callable, mesh: Optional[DeviceMesh], *, batch_size: 
     draws (``batch_size`` rows) and keeps its rows of the padded batch, so
     every rank consumes its generator as the one-process sampler does and
     the result equals the one-process result. The outputs are gathered to
-    every rank in order and the padding cut off."""
+    every rank in order (trajectories along their batch axis) and the
+    padding cut off."""
     if mesh is None:
         return sample(batch_size=batch_size, noise=noise, **kwargs)
     if batch_size % group:
@@ -126,8 +154,7 @@ def sharded_sample(sample: Callable, mesh: Optional[DeviceMesh], *, batch_size: 
     padded = -(-batch_size // (group * n)) * group * n
     rows = local_batch_slice(padded, n, data_rank(mesh))
     per = rows.stop - rows.start
-    kwargs = {k: pad_rows(v, padded)[rows] if isinstance(v, torch.Tensor) else v
-              for k, v in kwargs.items()}
+    kwargs = map_batch_tensors(kwargs, lambda v: pad_rows(v, padded)[rows])
 
     def local_noise(shape):
         if shape[0] != per:
@@ -135,9 +162,9 @@ def sharded_sample(sample: Callable, mesh: Optional[DeviceMesh], *, batch_size: 
         return pad_rows(noise((batch_size,) + tuple(shape[1:])), padded)[rows]
 
     out = sample(batch_size=per, noise=local_noise, **kwargs)
-    if isinstance(out, (list, tuple)):
-        return [all_gather_rows(o, mesh)[:batch_size] for o in out]
-    return all_gather_rows(out, mesh)[:batch_size]
+    return map_sample_outputs(
+        out, kwargs, lambda o: all_gather_rows(o, mesh)[:batch_size],
+        lambda t: all_gather_rows(t.transpose(0, 1), mesh)[:batch_size].transpose(0, 1))
 
 
 class _SumGradOverRanks(torch.autograd.Function):

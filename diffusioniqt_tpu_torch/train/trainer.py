@@ -552,11 +552,18 @@ class ImagenTrainer:
                use_non_ema: bool = False, noise=None, **kwargs):
         """Sampling with the EMA unets by default (reference trainer.sample,
         :1083-1097), chunked by ``max_batch_size`` rounded down to whole
-        sub-volume groups; ``start_image_or_video`` is sliced per chunk.
-        ``noise`` defaults to the trainer's generator. With a mesh, each
-        chunk is spread over the data ranks and gathered back to every rank
+        sub-volume groups; every batch-major tensor argument
+        (``start_image_or_video``, ``cond_images``, each unet's
+        ``init_images``, the inpainting images and masks) is sliced per
+        chunk, and the chunks' outputs (trajectories along their batch axis)
+        are concatenated. ``return_all_unet_outputs`` is the JAX trainer's
+        alias of ``return_all_outputs`` (JAX trainer.py:853-854). ``noise``
+        defaults to the trainer's generator. With a mesh, each chunk is
+        spread over the data ranks and gathered back to every rank
         (``parallel/sharding.py::sharded_sample``), equal to the one-process
         result."""
+        if "return_all_unet_outputs" in kwargs:
+            kwargs["return_all_outputs"] = kwargs.pop("return_all_unet_outputs")
         imagen = self._sampling_imagen(use_ema=not use_non_ema)
         noise = noise or gaussian_noise(self.generator)
         group = self._sample_group_size()
@@ -569,13 +576,20 @@ class ImagenTrainer:
             max_batch_size = max(max_batch_size // group, 1) * group
         if max_batch_size is None or batch_size <= max_batch_size:
             return run(batch_size, **kwargs)
-        start = kwargs.pop("start_image_or_video", None)
         outs = []
         for lo in range(0, batch_size, max_batch_size):
             hi = min(lo + max_batch_size, batch_size)
-            chunk = None if start is None else start[lo:hi]
-            outs.append(run(hi - lo, start_image_or_video=chunk, **kwargs))
-        return torch.cat(outs, dim=0)
+            outs.append(run(hi - lo, **sharding.map_batch_tensors(kwargs, lambda v: v[lo:hi])))
+
+        def cat(parts, dim=0):
+            if isinstance(parts[0], (list, tuple)):  # one output per unet
+                return [torch.cat(p, dim=dim) for p in zip(*parts)]
+            return torch.cat(parts, dim=dim)
+
+        if kwargs.get("return_trajectory", False):
+            return (cat([o[0] for o in outs]), cat([o[1] for o in outs], 1),
+                    cat([o[2] for o in outs], 1))
+        return cat(outs)
 
     # ------------------------------------------------------------------
     def state_bundle(self) -> Dict[str, Any]:

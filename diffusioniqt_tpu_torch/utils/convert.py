@@ -7,7 +7,8 @@ weights into its flax ``UNet3D``, and reference ``.pt`` files load into the
 port with ``load_state_dict``. :func:`state_dict_from_jax_params` is the
 inverse of ``convert_iqt_unet_state_dict`` for the models the port builds:
 it turns a flax ``UNet3D`` parameter tree (numpy arrays, or anything
-``np.asarray`` takes) into a port ``state_dict``. :func:`adam_state_from_optax`
+``np.asarray`` takes) into a port ``state_dict``;
+:func:`unet2d_state_dict_from_jax_params` does the same for ``UNet2D``. :func:`adam_state_from_optax`
 maps optax Adam's ``mu`` / ``nu`` trees, which have the parameters' names,
 the same way onto ``torch.optim.Adam``'s ``exp_avg`` / ``exp_avg_sq``.
 
@@ -224,6 +225,67 @@ def state_dict_from_jax_params(params: Dict[str, Any]) -> Dict[str, torch.Tensor
             _resnet_block(take(name), f"ups.{m.group(1)}.2.{m.group(2)}", out)
         elif name in ("mid_block", "final_res_block"):
             _resnet_block(take(name), name, out)
+        elif name == "final_conv":
+            _conv(take(name), name, out)
+
+    unknown = sorted(set(p) - handled)
+    if unknown:
+        raise KeyError(f"parameter groups the port has no module for: {unknown}")
+    return out
+
+
+def _resnet_block_2d(p: Dict[str, Any], key: str, out: Dict[str, torch.Tensor]) -> None:
+    """flax ``ResnetBlock2D`` -> port ``ResnetBlock2D``: flax GroupNorm
+    ``scale`` / ``bias`` -> ``groupnorm.weight`` / ``.bias``."""
+    if "Dense_0" in p:
+        _dense(p["Dense_0"], f"{key}.time_mlp.1", out)
+    for i in (0, 1):
+        blk = p[f"Block2D_{i}"]
+        _conv(blk["Conv_0"], f"{key}.block{i + 1}.project", out)
+        _layer_norm(blk["GroupNorm_0"], f"{key}.block{i + 1}.groupnorm", out)
+    if "SE2D_0" in p:
+        _dense(p["SE2D_0"]["Dense_0"], f"{key}.se.fc.0", out)
+        _dense(p["SE2D_0"]["Dense_1"], f"{key}.se.fc.2", out)
+    if "Conv_0" in p:
+        _conv(p["Conv_0"], f"{key}.res_conv", out)
+
+
+def unet2d_state_dict_from_jax_params(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax ``UNet2D`` variables (``{"params": ...}`` or the inner tree) ->
+    port ``UNet2D`` ``state_dict`` (fp32 CPU tensors). The top-level names
+    are the same in both (``init_conv``, ``down{i}_init``, ``down{i}_attn``,
+    ``down{i}_block{j}``, ``down{i}_post``, ``mid_attn``, ``mid_block``,
+    ``up{i}_upsample``, ``up{i}_init``, ``up{i}_block{j}``,
+    ``final_res_block``, ``final_conv``); the time embedding's flax
+    ``LearnedSinusoidalPosEmb_0`` / ``Dense_0`` / ``Dense_1`` go to
+    ``to_time_hiddens.{0,1}`` / ``to_time_cond.0``. Raises ``KeyError`` on a
+    parameter group the port has no module for."""
+    p = params.get("params", params)
+    out: Dict[str, torch.Tensor] = {}
+    handled = set()
+
+    def take(name):
+        handled.add(name)
+        return p[name]
+
+    _conv(take("init_conv"), "init_conv", out)
+    out["to_time_hiddens.0.weights"] = _t(take("LearnedSinusoidalPosEmb_0")["weights"])
+    _dense(take("Dense_0"), "to_time_hiddens.1", out)
+    _dense(take("Dense_1"), "to_time_cond.0", out)
+    for name in sorted(p):
+        if re.fullmatch(r"(down|up)\d+_(init|block\d+)|mid_block|final_res_block", name):
+            _resnet_block_2d(take(name), name, out)
+        elif re.fullmatch(r"down\d+_attn|mid_attn", name):
+            attn = take(name)
+            _chan_ln(attn["ChanLayerNorm_0"], f"{name}.norm", out)
+            _conv(attn["Conv_0"], f"{name}.to_qkv", out)
+            _conv(attn["Conv_1"], f"{name}.to_out", out)
+            _chan_ln(attn["ChanLayerNorm_1"], f"{name}.out_norm", out)
+        elif re.fullmatch(r"down\d+_post", name):
+            post = take(name)  # the pixel-unshuffle's conv, or the last level's 1x1
+            _conv(post.get("Conv_0", post), f"{name}.conv" if "Conv_0" in post else name, out)
+        elif re.fullmatch(r"up\d+_upsample", name):
+            _conv(take(name)["Conv_0"], f"{name}.conv", out)
         elif name == "final_conv":
             _conv(take(name), name, out)
 

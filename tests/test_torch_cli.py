@@ -1,7 +1,8 @@
 """The port's config-driven factories (``diffusioniqt_tpu_torch/model_configs.py``)
 and CLI (``diffusioniqt_tpu_torch/cli.py``) on the CPU: every U-Net kind,
 the JSON that the JAX ``cli.py config`` writes loading into a port model
-whose converted parameters have the JAX model's tree, and ``config`` ->
+whose converted parameters have the JAX model's tree, a ``unet2d`` stage,
+and ``config`` ->
 ``train`` -> ``sample`` at dim 8 (the JAX ``tests/test_cli_entry.py``
 config)."""
 
@@ -22,6 +23,7 @@ from diffusioniqt_tpu_torch import cli
 from diffusioniqt_tpu_torch import model_configs as tmc
 from diffusioniqt_tpu_torch.diffusion.elucidated import ElucidatedImagen
 from diffusioniqt_tpu_torch.diffusion.gaussian import Imagen
+from diffusioniqt_tpu_torch.models.unet2d import UNet2D
 from diffusioniqt_tpu_torch.models.unet3d import NullUnet, UNet3D
 
 torch.set_num_threads(1)
@@ -59,9 +61,14 @@ def test_unet_config_kinds():
     assert unet.mid_block is not None and unet.dtype == torch.float32
     assert tmc.UnetConfig.from_dict({"dim": 8, "kwargs": {"dtype": "bfloat16"}}).create(
         "cpu").dtype == torch.bfloat16
-    for kind in ("unet2d", "video"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tmc.UnetConfig(kind=kind).create("cpu")
+    # kind unet2d builds the port's UNet2D with the JSON's fields
+    unet2d = tmc.UnetConfig.from_dict({"kind": "unet2d", "dim": 8, "dim_mults": [1, 2],
+                                       "num_resnet_blocks": 1, "att_type": "softmax",
+                                       "layer_attns": [False, True]}).create("cpu")
+    assert isinstance(unet2d, UNet2D) and unet2d.down_attn == [False, True]
+    assert unet2d.dtype == torch.float32 and not unet2d.lowres_cond
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tmc.UnetConfig(kind="video").create("cpu")
     with pytest.raises(ValueError, match="unknown"):
         tmc.UnetConfig(kind="nope").create("cpu")
 
@@ -76,8 +83,14 @@ def test_wrappers_and_trainer_from_dicts():
     for elucidated in (False, True):
         trainer = tmc.ImagenTrainerConfig.from_dict(_tiny(elucidated)).create("cpu")
         assert isinstance(trainer.imagen, ElucidatedImagen) == elucidated
-    with pytest.raises(ValueError, match="auto_normalize_img"):
-        tmc.ImagenConfig.from_dict({**raw["imagen"], "auto_normalize_img": True}).create("cpu")
+    # auto_normalize_img and cond_drop_prob reach the wrapper, as in the JAX create
+    normed = tmc.ImagenConfig.from_dict({**raw["imagen"], "auto_normalize_img": True,
+                                         "cond_drop_prob": 0.2}).create("cpu")
+    x = torch.tensor([0.0, 0.25, 1.0])
+    assert torch.equal(normed.normalize_img(x), x * 2 - 1)
+    assert torch.equal(normed.unnormalize_img(x), (x + 1) * 0.5)
+    assert normed.cond_drop_prob == 0.2 and normed.can_classifier_guidance
+    assert torch.equal(imagen.normalize_img(x), x) and not imagen.can_classifier_guidance
 
 
 def test_jax_cli_config_loads_into_the_port(tmp_path):

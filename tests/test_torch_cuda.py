@@ -287,10 +287,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
 
 
 @pytest.mark.parametrize("d", [32, 64, 128])
-@pytest.mark.parametrize("n", [64, 100, 129, 1728])
+@pytest.mark.parametrize("n", [64, 100, 129, 1728, 3600])
 def test_flash_attention_matches_plain(dev, n, d):
     """n = 64 and 100: one partial 128-row tile of queries and keys; 129:
-    one full tile and one row; 1728: the main path's 13.5 tiles. B = 16
+    one full tile and one row; 1728: the main path's 13.5 tiles; 3600: the
+    2D slice U-Net's 60^2 tokens, ragged in query and key tiles. B = 16
     with a ragged n catches rows of one head read as the next head's."""
     g = torch.Generator(device=dev).manual_seed(n + d)
     q, k, v = (torch.randn((16, n, d), generator=g, device=dev).to(torch.bfloat16)
@@ -299,6 +300,27 @@ def test_flash_attention_matches_plain(dev, n, d):
     got = kernels.flash_attention(q, k, v, d ** -0.5)
     assert kernels.launch_counts()["flash_attention"] == 1
     _close(got, kernels.attention_plain(q, k, v, d ** -0.5))
+
+
+def test_unet2d_softmax_attention_through_the_kernel(dev):
+    """A small softmax-attention UNet2D (bf16): its two attention slots
+    launch the flash kernel once each per forward, and the forward agrees
+    with the plain path's."""
+    from diffusioniqt_tpu_torch.models.unet2d import UNet2D
+
+    torch.manual_seed(0)
+    unet = UNet2D(dim=32, dim_mults=(1, 2), num_resnet_blocks=1, lowres_cond=True,
+                  att_type="softmax", layer_attns=(False, True), attend_at_middle=True,
+                  dtype=torch.bfloat16).to(dev).eval()
+    g = torch.Generator(device=dev).manual_seed(4)
+    x, lowres = (torch.randn((4, 40, 40, 1), generator=g, device=dev) for _ in range(2))
+    t = torch.full((4,), 0.5, device=dev)
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        got = unet(x, t, t, lowres_cond_img=lowres)
+        assert kernels.launch_counts()["flash_attention"] == 2
+        want = unet.use_ops(kernels.PLAIN)(x, t, t, lowres_cond_img=lowres)
+    _close(got, want, 5e-2)
 
 
 def test_flash_attention_more_keys_than_queries(dev):

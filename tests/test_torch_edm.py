@@ -128,14 +128,15 @@ def test_preconditioned_forward_matches_jax(pair, clamp, dynamic, cond_scale, sc
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-5)
 
 
-def _jax_heun(jimagen, params, lowres, noise, hp, skip, self_cond=False):
+def _jax_heun(jimagen, params, lowres, noise, hp, skip, self_cond=False, cond_images=None):
     """The JAX sampler's Heun loop (elucidated.py:279-409) from its public
     functions, with the noise given; with ``self_cond`` the x0 carry of
-    elucidated.py:306,347-372,411."""
+    elucidated.py:306,347-372,411; ``cond_images`` to every forward."""
     sigmas = hp.sample_schedule()
     gammas = hp.gammas(sigmas)
     s_cur, s_next, g_cur = sigmas[:-1][skip:], sigmas[1:][skip:], gammas[:-1][skip:]
-    fwd = dict(clamp=True, dynamic_threshold=False, lowres_cond_img=jnp.asarray(lowres))
+    fwd = dict(clamp=True, dynamic_threshold=False, lowres_cond_img=jnp.asarray(lowres),
+               cond_images=None if cond_images is None else jnp.asarray(cond_images))
     unet = jimagen.unets[1]
     img = s_cur[0] * jnp.asarray(noise[0])
     x_start = jnp.zeros_like(img)
@@ -229,6 +230,49 @@ def test_heun_loop_self_cond_matches_jax_loop():
     dropped = timagen.one_unet_sample(_NoSelfCond(port), SHAPE, noise=_noise_from(noise),
                                       **sample)
     assert np.abs(dropped.numpy() - want).max() > 100 * tol
+
+
+def test_cond_images_through_edm_loss_and_heun_loop():
+    """A U-Net with ``cond_images_channels`` 2: ``cond_images`` reach it in
+    the EDM loss (against the JAX ``forward`` with its own sigma and noise
+    draws, elucidated.py:568-650) and in every forward of 4 Heun steps
+    (against the JAX loop of :func:`_jax_heun`), shared weights, within
+    1e-4 of the largest output; the same loop without them differs."""
+    kw = dict(UNET_KW, cond_images_channels=2)
+    jimagen = JElucidated([JNullUnet(), JUNet3D(**kw, att_type="linear", dtype=jnp.float32)],
+                          cond_drop_prob=0.0, **EDM_KW)
+    junet = jimagen.unets[1]
+    x, lowres, cond = _rand(SHAPE, 50), _rand(SHAPE, 51), _rand(SHAPE[:-1] + (2,), 52)
+    zero_t = jnp.zeros((B,))
+    params = junet.init(jax.random.PRNGKey(5), jnp.asarray(x), zero_t, zero_t,
+                        lowres_cond_img=jnp.asarray(lowres), cond_images=jnp.asarray(cond))
+    port = UNet3D(**kw).eval()
+    port.load_state_dict(state_dict_from_jax_params(jax.device_get(params)))
+    timagen = ElucidatedImagen([NullUnet(), port], **EDM_KW)
+    hp = jimagen.hparams[1]
+
+    key = jax.random.PRNGKey(9)
+    want = jimagen.forward([None, params], key, jnp.asarray(x), jnp.asarray(lowres),
+                           unet_number=2, cond_images=jnp.asarray(cond))
+    _, _, _, k_sigma, k_noise = jax.random.split(key, 5)
+    sigmas = np.asarray(hp.noise_distribution(k_sigma, B))
+    noise = np.asarray(jax.random.normal(k_noise, SHAPE))
+    with torch.no_grad():
+        got = timagen.forward(torch.from_numpy(x), torch.from_numpy(lowres), unet_number=2,
+                              cond_images=torch.from_numpy(cond),
+                              sigmas=torch.from_numpy(sigmas), noise=torch.from_numpy(noise))
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-4)
+
+    draws = [_rand(SHAPE, 400 + i) for i in range(5)]
+    want = _jax_heun(jimagen, params, lowres, draws, hp, 0, cond_images=cond)
+    sample = dict(batch_size=B, start_at_unet_number=2,
+                  start_image_or_video=torch.from_numpy(lowres))
+    got = timagen.sample(noise=_noise_from(draws), cond_images=torch.from_numpy(cond), **sample)
+    tol = 1e-4 * np.abs(want).max()
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=tol)
+    other = timagen.sample(noise=_noise_from(draws), cond_images=torch.from_numpy(-cond),
+                           **sample)
+    assert np.abs(other.numpy() - want).max() > 100 * tol
 
 
 def test_lowres_noise_aug_q_sample_matches_jax():

@@ -150,7 +150,13 @@ def _sample_valid(state, mesh):
     tg = _trainer(state, edm=False, mesh=mesh)
     hr, lr = _rand((3 * B, EDGE, EDGE, EDGE, 1), 30), _rand((3 * B, EDGE, EDGE, EDGE, 1), 31)
     tg.add_valid_dataset([(hr[i], lr[i]) for i in range(3 * B)], batch_size=2 * B)
-    return {"whole": whole, "chunked": chunked, "valid": tg.valid_step(unet_number=2)}
+    # the ancestral trajectory, (steps, rows, ...), gathered on its row axis
+    tg.imagen.noise_schedulers[1] = type(tg.imagen.noise_schedulers[1])(timesteps=3)
+    traj = tg.sample(batch_size=3 * B, start_image_or_video=torch.from_numpy(lr),
+                     start_at_unet_number=2, return_trajectory=True,
+                     return_all_unet_outputs=True)
+    return {"whole": whole, "chunked": chunked, "valid": tg.valid_step(unet_number=2),
+            "traj": traj}
 
 
 def _sample_valid_rank(device, state):
@@ -436,9 +442,14 @@ def test_lpips_term_two_ranks_equal_one_process():
     and its gradient goes to the rank that holds it. 2 steps and a sharded
     validation sweep against the one-process run: the losses within 1e-5
     relative, the first step's gradients within 1e-5 of each tensor's
-    largest entry, the parameters by :func:`_assert_params_close`."""
-    torch.manual_seed(0)
-    state = _state(UNet3D(**UNET_KW))
+    largest entry, the parameters by :func:`_assert_params_close`. The
+    weights are the file's shared ones (``runs``): the port's fresh init
+    draws the SE gates' dense layers without bias, and at dim 8 (one hidden
+    unit) one gate is nearly dead, its gradient all rounding noise."""
+    from diffusioniqt_tpu_torch.utils.convert import state_dict_from_jax_params
+    from tests.test_torch_train import _init_params, _jax_unet
+
+    state = state_dict_from_jax_params(_init_params(_jax_unet(), seed=0))
     batches = _batches()[:2]
     ranks = _launch(_lpips_rank, state, batches)
     one = _lpips_run(state, None, batches)
@@ -456,7 +467,8 @@ def test_lpips_term_two_ranks_equal_one_process():
 def test_sharded_sample_and_valid_step_equal_one_process():
     """(f) EMA sampling of 5 groups over 2 ranks (padded to 6 groups and cut
     back; in chunks of 2 groups the last chunk is one group, padded to two)
-    equals the one-process sample; (g) the validation sweep (one sharded
+    equals the one-process sample, and so does a 3-step ancestral call of 3
+    groups with its trajectory (padded to 4 groups); (g) the validation sweep (one sharded
     batch of 2 groups, one whole batch of 1 group) returns the one-process
     loss, outputs and metrics; on both ranks. Tolerance: 1e-5 relative,
     arrays within 1e-5 of their largest entry: CPU convolutions pick their
@@ -471,6 +483,12 @@ def test_sharded_sample_and_valid_step_equal_one_process():
             assert got[key].shape == (5 * B, EDGE, EDGE, EDGE, 1)
             torch.testing.assert_close(got[key], one[key], rtol=1e-5,
                                        atol=1e-5 * float(one[key].abs().max()))
+        (head,), *steps = got["traj"]
+        (w_head,), *w_steps = one["traj"]
+        assert head.shape == (3 * B, EDGE, EDGE, EDGE, 1)
+        for a, w in ((head, w_head), *zip(steps, w_steps)):
+            assert a.shape == w.shape
+            torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-5 * float(w.abs().max()))
         loss, preds, noisy, (hrs, lows), ssim, psnr = got["valid"]
         w_loss, w_preds, w_noisy, (w_hrs, w_lows), w_ssim, w_psnr = one["valid"]
         np.testing.assert_allclose([loss, ssim, psnr], [w_loss, w_ssim, w_psnr], rtol=1e-5)

@@ -147,9 +147,12 @@ def test_gate_step_loss_from_port_and_jax_initialisers(jax_tool):
     ``init_params`` converted by ``state_dict_from_jax_params``, on the same
     batch and the same draws. Prints both losses (``-s``). Neither init
     reaches r5's step-1 scale: each loss is finite and under a quarter of
-    r5's 13.136 (1.1582 and 2.3694 measured), and the two are within a
-    factor of 3 of each other (2.05 measured), where r5 stood 9x above the
-    port's step-1 loss."""
+    r5's 13.136, and the two are within a factor of 3 of each other, where
+    r5 stood 9x above the port's step-1 loss. Measured since the port draws
+    the flax initialisers (``models/blocks.py::lecun_normal_``): 2.0283
+    from the port's init against 2.3694 from the JAX one (1.17x; another
+    draw of the same distributions); with torch's defaults it was 1.1582
+    (2.05x)."""
     import jax
 
     from diffusioniqt_tpu.diffusion.elucidated import elucidated_imagen_from_config as j_edm

@@ -230,3 +230,221 @@ def test_sample_needs_start_image_for_stage_two():
                 image_sizes=(4, 4), channels=1, timesteps=2)
     with pytest.raises(ValueError, match="starting image"):
         t.sample(batch_size=27, noise=lambda s: torch.zeros(s), start_at_unet_number=2)
+
+
+# ---------------------------------------------------------------------------
+# the wrapper's remaining options (JAX gaussian.py:70-97, 201-209, 287-621)
+# ---------------------------------------------------------------------------
+# A pair of small functions standing in for a U-Net, one in each package,
+# that reads every input a U-Net call gets: the noisy image, the log-SNR,
+# the lowres conditioning and the conditioning images (both dropped in
+# proportion to cond_drop_prob, so classifier-free guidance has something
+# to mix) and the self-conditioning x0. The JAX wrapper calls ``apply`` on
+# it and the port's wrapper calls it, so each test below runs the JAX
+# function itself (its ``lax.scan`` loop included) with the noise it draws
+# from its keys, and the port's with the same arrays.
+TOY = dict(a=0.8, b=0.1, c=0.6, d=0.3, e=0.25)
+
+
+class _JToy:
+    lowres_cond = True
+
+    def __init__(self, self_cond=False):
+        self.self_cond = self_cond
+
+    def cast_model_parameters(self, **_):
+        return self
+
+    def __call__(self, *args, **kwargs):
+        return self.apply(None, *args, **kwargs)
+
+    def apply(self, params, x, t, noise_cond, *, lowres_cond_img=None, cond_images=None,
+              self_cond=None, cond_drop_prob=0.0, deterministic=True, rngs=None):
+        keep = 1.0 - cond_drop_prob
+        out = TOY["a"] * jnp.tanh(x) + TOY["b"] * noise_cond.reshape((-1,) + (1,) * (x.ndim - 1))
+        if lowres_cond_img is not None:
+            out = out + TOY["c"] * keep * lowres_cond_img
+        if cond_images is not None:
+            out = out + TOY["d"] * keep * cond_images.mean(axis=-1, keepdims=True)
+        if self_cond is not None:
+            out = out + TOY["e"] * self_cond
+        return out
+
+
+class _TToy:
+    lowres_cond = True
+
+    def __init__(self, self_cond=False):
+        self.self_cond = self_cond
+
+    def __call__(self, x, t, noise_cond, *, lowres_cond_img=None, cond_images=None,
+                 self_cond=None, cond_drop_prob=0.0):
+        keep = 1.0 - cond_drop_prob
+        out = TOY["a"] * torch.tanh(x) + TOY["b"] * noise_cond.reshape((-1,) + (1,) * (x.dim() - 1))
+        if lowres_cond_img is not None:
+            out = out + TOY["c"] * keep * lowres_cond_img
+        if cond_images is not None:
+            out = out + TOY["d"] * keep * cond_images.mean(dim=-1, keepdim=True)
+        if self_cond is not None:
+            out = out + TOY["e"] * self_cond
+        return out
+
+
+OPT_SHAPE = (3, 6, 6, 6, 1)
+OPT_KW = dict(image_sizes=(6, 6), channels=1, timesteps=8, pred_objectives="noise",
+              dynamic_thresholding=False, min_bound=-3.0, norm="z-score")
+
+
+def _toy_pair(self_cond=False, **kw):
+    kw = {**OPT_KW, **kw}
+    return (JImagen([JNullUnet(), _JToy(self_cond)], **kw),
+            TImagen([NullUnet(), _TToy(self_cond)], **kw))
+
+
+def _jax_sample_draws(key, shape, n_pairs, resample_times=1, inpainting=False):
+    """The draws of the JAX ``Imagen.sample`` for its one sampled stage
+    (gaussian.py:464, 314-315, 338-375, 295), in the port's ``NoiseFn``
+    order: the initial image; per step and resample round the inpaint
+    noise (inpainting only), the step's noise, the renoise (inpainting,
+    every round but the last)."""
+    _, sub = jax.random.split(key)
+    key, init_key = jax.random.split(sub)
+    draws = [jax.random.normal(init_key, shape, jnp.float32)]
+    for _ in range(n_pairs):
+        for r in reversed(range(resample_times)):
+            key, k_inpaint, k_sample, k_renoise = jax.random.split(key, 4)
+            if inpainting:
+                draws.append(jax.random.normal(k_inpaint, shape))
+            draws.append(jax.random.normal(k_sample, shape, jnp.float32))
+            if inpainting and r != 0:
+                draws.append(jax.random.normal(k_renoise, shape))
+    return [np.asarray(d) for d in draws]
+
+
+def _close(got, want, rel=1e-5):
+    want = np.asarray(want)
+    np.testing.assert_allclose(np.asarray(got), want, rtol=0, atol=rel * np.abs(want).max())
+
+
+@pytest.mark.parametrize("option", ["cond_images", "cond_scale", "init_skip", "inpaint",
+                                    "trajectory", "auto_normalize", "use_self_cond"])
+def test_sample_options_match_jax_sample(option):
+    """Each sampling option through the JAX ``Imagen.sample`` and the port's,
+    on the toy U-Net, the same weights and the JAX loop's own noise:
+    ``cond_images``; ``cond_scale`` 3 (guidance mixed with a null call);
+    ``init_images`` plus ``skip_steps`` 3 (every third (t, t_next) pair and
+    the last: 4 of 8); inpainting with 3 resample rounds and the renoise;
+    ``return_trajectory`` (the steps' images and x0 stacked); the
+    ``auto_normalize_img`` unnormalisation; a self-conditioned U-Net."""
+    lowres = _rand(OPT_SHAPE, 20)
+    kw, wrap, n_pairs, rounds = {}, {}, 8, 1
+    if option == "cond_images":
+        kw["cond_images"] = _rand(OPT_SHAPE[:-1] + (2,), 21)
+    elif option == "cond_scale":
+        kw["cond_scale"] = 3.0
+        wrap["cond_drop_prob"] = 0.2
+    elif option == "init_skip":
+        kw.update(init_images=_rand(OPT_SHAPE, 22, 0.5), skip_steps=3)
+        n_pairs = 4
+    elif option == "inpaint":
+        mask = (np.random.default_rng(23).random(OPT_SHAPE) > 0.5).astype(np.float32)
+        kw.update(inpaint_images=_rand(OPT_SHAPE, 24), inpaint_masks=mask,
+                  inpaint_resample_times=3)
+        rounds = 3
+    elif option == "trajectory":
+        kw["return_trajectory"] = True
+    elif option == "auto_normalize":
+        wrap["auto_normalize_img"] = True
+    jimagen, timagen = _toy_pair(self_cond=option == "use_self_cond", **wrap)
+    key = jax.random.PRNGKey(11)
+    common = dict(batch_size=OPT_SHAPE[0], start_at_unet_number=2)
+    want = jimagen.sample([None, None], key, start_image_or_video=jnp.asarray(lowres),
+                          **common, **{k: jnp.asarray(v) if isinstance(v, np.ndarray) else v
+                                       for k, v in kw.items()})
+    draws = _jax_sample_draws(key, OPT_SHAPE, n_pairs, rounds, option == "inpaint")
+    noise = _noise_from(draws)
+    got = timagen.sample(noise=noise, start_image_or_video=torch.from_numpy(lowres),
+                         **common, **{k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+                                      for k, v in kw.items()})
+    if option == "trajectory":
+        assert got[1].shape == got[2].shape == (8,) + OPT_SHAPE
+        for g, w in zip(got, want):
+            _close(g.numpy(), w)
+    else:
+        _close(got.numpy(), want)
+    with pytest.raises(StopIteration):  # every draw of the JAX loop taken, no more
+        noise(OPT_SHAPE)
+
+
+def test_cond_scale_needs_guidance():
+    """A ``cond_scale`` other than 1 needs a wrapper trained with
+    ``cond_drop_prob > 0`` (JAX gaussian.py:232)."""
+    _, timagen = _toy_pair(cond_drop_prob=0.0)
+    with pytest.raises(ValueError, match="cond_drop_prob"):
+        timagen.sample(batch_size=3, noise=torch.randn, start_at_unet_number=2,
+                       start_image_or_video=torch.zeros(OPT_SHAPE), cond_scale=2.0)
+
+
+@pytest.mark.parametrize("objective,gamma,k,normalize", [
+    ("noise", 0.5, 2.0, False), ("x_start", 1.0, 1.0, True), ("v", 0.0, 1.0, True)])
+def test_p_losses_options_match_jax(objective, gamma, k, normalize):
+    """The loss with ``cond_images``, ``cond_drop_prob`` 0.3 (the toy reads
+    it), p2 weighting with ``p2_loss_weight_k``, and ``auto_normalize_img``
+    (images and lowres to [-1, 1]) against the JAX ``p_losses``; and
+    ``forward`` with the JAX ``forward``'s own draws (gaussian.py:603-606,
+    518-519)."""
+    jimagen, timagen = _toy_pair(cond_drop_prob=0.3, p2_loss_weight_k=k,
+                                 auto_normalize_img=normalize, pred_objectives=objective,
+                                 p2_loss_weight_gamma=gamma)
+    x0, lowres, noise = (_rand(OPT_SHAPE, s) for s in (30, 31, 32))
+    cond = _rand(OPT_SHAPE[:-1] + (3,), 33)
+    times = np.asarray([0.1, 0.5, 0.9], np.float32)
+    sched = (jimagen.noise_schedulers[1], timagen.noise_schedulers[1])
+    want = jimagen.p_losses(_JToy(), None, jax.random.PRNGKey(0), jnp.asarray(x0),
+                            jnp.asarray(times), noise_scheduler=sched[0],
+                            lowres_cond_img=jnp.asarray(lowres), cond_images=jnp.asarray(cond),
+                            noise=jnp.asarray(noise), pred_objective=objective,
+                            p2_loss_weight_gamma=gamma)
+    got = timagen.p_losses(_TToy(), torch.from_numpy(x0), torch.from_numpy(times),
+                           noise_scheduler=sched[1], lowres_cond_img=torch.from_numpy(lowres),
+                           cond_images=torch.from_numpy(cond), noise=torch.from_numpy(noise),
+                           pred_objective=objective, p2_loss_weight_gamma=gamma)
+    for g, w in zip(got, want):
+        _close(g.numpy(), w)
+
+    key = jax.random.PRNGKey(4)
+    jloss = jimagen.forward([None, None], key, jnp.asarray(x0), jnp.asarray(lowres),
+                            unet_number=2, cond_images=jnp.asarray(cond))[0]
+    key, t_key = jax.random.split(key)
+    j_times = sched[0].sample_random_times(t_key, OPT_SHAPE[0])
+    j_noise = jax.random.normal(jax.random.split(key)[1], OPT_SHAPE)
+    tloss = timagen.forward(torch.from_numpy(x0), torch.from_numpy(lowres), unet_number=2,
+                            cond_images=torch.from_numpy(cond),
+                            times=torch.from_numpy(np.asarray(j_times)),
+                            noise=torch.from_numpy(np.asarray(j_noise)))[0]
+    _close(tloss.numpy(), jloss)
+
+
+def test_only_train_unet_number_refuses_another_unet():
+    jimagen, timagen = _toy_pair(only_train_unet_number=1)
+    x = torch.zeros(OPT_SHAPE)
+    with pytest.raises(ValueError, match="trains unet 1 only"):
+        timagen.forward(x, x, unet_number=2, generator=torch.Generator())
+    with pytest.raises(AssertionError):
+        jimagen.forward([None, None], jax.random.PRNGKey(0), jnp.zeros(OPT_SHAPE),
+                        jnp.zeros(OPT_SHAPE), unet_number=2)
+    _, ok = _toy_pair(only_train_unet_number=2)
+    assert torch.isfinite(ok.forward(x, x, unet_number=2, generator=torch.Generator())[0])
+
+
+def test_q_sample_from_to_matches_jax():
+    js, ts = JSched("cosine", 20), TSched("cosine", 20)
+    x, eps = _rand((3, 2, 2, 2, 1), 40), _rand((3, 2, 2, 2, 1), 41)
+    t_from, t_to = np.asarray([0.2, 0.5, 0.0], np.float32), np.asarray([0.3, 0.9, 0.05], np.float32)
+    want = js.q_sample_from_to(jnp.asarray(x), jnp.asarray(t_from), jnp.asarray(t_to),
+                               jnp.asarray(eps))
+    got = ts.q_sample_from_to(*map(torch.from_numpy, (x, t_from, t_to, eps)))
+    _close(got.numpy(), want)
+    want = js.q_sample_from_to(jnp.asarray(x), 0.25, 0.75, jnp.asarray(eps))
+    got = ts.q_sample_from_to(torch.from_numpy(x), 0.25, 0.75, torch.from_numpy(eps))
+    _close(got.numpy(), want)

@@ -819,3 +819,46 @@ def test_valid_step_sample_scores_ema_samples(runs):
     assert preds.shape == noisy.shape == hrs.shape == low.shape == SHAPE
     again = tr.valid_step(unet_number=2)  # reseeded: the same draws every call
     assert again[0] == loss and np.isfinite([ssim, psnr]).all()
+
+
+@pytest.mark.parametrize("trajectory", [False, True])
+def test_trainer_sample_chunks_every_tensor_argument(trajectory):
+    """``ImagenTrainer.sample`` in chunks of ``max_batch_size``: every
+    batch-major tensor argument (the start images, ``cond_images``, each
+    unet's ``init_images``) is sliced per chunk, as the JAX trainer's
+    ``_map_array_kwargs`` slices them (trainer.py:709-723), the outputs and
+    trajectories are concatenated on their batch axis, and
+    ``return_all_unet_outputs`` is the JAX alias of ``return_all_outputs``
+    (trainer.py:853-854): equal, bit for bit, to the wrapper's own calls on
+    the chunks with the same noise stream."""
+    from diffusioniqt_tpu_torch.diffusion.gaussian import gaussian_noise
+    from diffusioniqt_tpu_torch.models.unet2d import UNet2D
+
+    torch.manual_seed(0)
+    unet = UNet2D(dim=8, dim_mults=(1, 2), num_resnet_blocks=1, lowres_cond=True,
+                  resnet_groups=4, cond_images_channels=2)
+    imagen = Imagen([NullUnet(), unet], image_sizes=(8, 8), channels=1, timesteps=3,
+                    pred_objectives="x_start", dynamic_thresholding=False, cond_drop_prob=0.0,
+                    spatial_dims=2)
+    trainer = ImagenTrainer(None, imagen, use_ema=False)
+    rows = [torch.from_numpy(_rand((5, 8, 8, c), s)) for c, s in ((1, 60), (2, 61), (1, 62))]
+    lowres, cond, init = rows
+    kw = dict(start_at_unet_number=2, return_trajectory=trajectory)
+    got = trainer.sample(batch_size=5, max_batch_size=2, start_image_or_video=lowres,
+                         cond_images=cond, init_images=(None, init),
+                         noise=gaussian_noise(torch.Generator().manual_seed(3)),
+                         return_all_unet_outputs=True, **kw)
+    noise = gaussian_noise(torch.Generator().manual_seed(3))
+    parts = [imagen.sample(batch_size=hi - lo, noise=noise, start_image_or_video=lowres[lo:hi],
+                           cond_images=cond[lo:hi], init_images=(None, init[lo:hi]),
+                           return_all_outputs=True, **kw)
+             for lo, hi in ((0, 2), (2, 4), (4, 5))]
+    if trajectory:
+        assert len(got) == 3 and got[1].shape == (3, 5, 8, 8, 1)
+        torch.testing.assert_close(got[0][0], torch.cat([p[0][0] for p in parts]), rtol=0, atol=0)
+        for i in (1, 2):
+            torch.testing.assert_close(got[i], torch.cat([p[i] for p in parts], dim=1),
+                                       rtol=0, atol=0)
+    else:
+        assert isinstance(got, list) and len(got) == 1 and got[0].shape == (5, 8, 8, 1)
+        torch.testing.assert_close(got[0], torch.cat([p[0] for p in parts]), rtol=0, atol=0)
