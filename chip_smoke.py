@@ -31,7 +31,8 @@ Phases, each of which raises (and exits non-zero) on failure:
                 spread PERF.md records for it (fails outside it, widened by
                 BRICK_ROUTE_MARGIN, on a card at the recorded power limit);
                 flash attention at the attention config's (64, 1728, 64) and
-                at serve-2d's (128, 3600, 32)
+                at serve-2d's (128, 3600, 32), and at attn-context's
+                (64, Nq 1728, Nk 1744, 64)
   forward       the full-width ``config/eval_config.yaml`` UNet3D (seeded
                 random weights, bf16) on one 27 x 32^3 group, through the
                 kernels and through the plain versions; launches per forward
@@ -198,6 +199,35 @@ Phases, each of which raises (and exits non-zero) on failure:
                 flash attentions, nothing else), then one 20-step ancestral
                 call (launches exactly 40 flash): s per call, ms per NFE, finite
                 slices of the input's shape
+  attn-context  the attention config's first SoftMaxAttention slot (64
+                channels, patch 8 over the 96^3 merged window: 12^3 tokens,
+                8 heads of 64), seeded, given a 16-token, 768-wide text
+                context (``hash_text_encode``), on 8 windows in bf16:
+                through the kernel (flash at Nq 1728, Nk 1744: launched
+                exactly once) and the plain version within FORWARD_REL_TOL;
+                ms per call, and its device time by kernel
+  video-forward  ``Unet3DVideo`` (VIDEO_UNET: dim 64, mults (1, 2, 4, 8),
+                RGB, the class's defaults otherwise: text width 768, 8 heads
+                of 64, cross-attention at every level, middle attention,
+                causal temporal attention with its relative bias, the
+                cross-embed stem, Perceiver pooling, global-context gates),
+                seeded (its zero-initialised gates and final conv drawn),
+                bf16 compute: one forward of 2 videos of 16 frames at 64^2
+                with 16-word texts padded to 256 tokens, held against the
+                same weights in fp32 within FORWARD_REL_TOL, with time and
+                with ``ignore_time``; parameters, ms per forward, peak
+                memory, the bf16 forward's device time by kernel and busy
+                share; no hand-written kernel launches (the JAX module
+                runs none)
+  serve-video   ``ElucidatedImagen([that U-Net], image_sizes=(64,),
+                channels=3)``: one ``sample(video_frames=16, text_embeds,
+                text_mask, cond_scale=3.0)`` at the default 32 Heun steps
+                (63 forwards, each beside its null-text forward): finite
+                videos of the asked shape; s per call, ms per forward
+  video-loss    the EDM loss of 2 such videos with their texts and its
+                backward: the wrapper resizes the frame axis to 64 too, as
+                the JAX ``forward`` does (printed: the frames the U-Net was
+                given); the loss and every gradient finite
   train-2d      ``quality_run_2d``'s trainer at its default width (dim 24,
                 linear attention type, no slot on) on the card: 10 steps of 8
                 crops of 96^2 from two seeded 128^3 phantoms; every loss
@@ -236,8 +266,9 @@ small-edge kernel as its own row, ``fused_block_small``
 (``csrc/fused_block_small.cu``, its reduction kernel counted in the same
 launch), launched in serve-efficient, headed by the (216, 4^3, 256->256)
 shape, every shape of SMALL_EDGE_SHAPES in its ``shapes`` list; flash
-attention's ``shapes`` list holds its serve-attn and serve-2d rows, each
-with its launches); the last line is ``{"ok": true, "device": {...}}``. Imports
+attention's ``shapes`` list holds its serve-attn, serve-2d and
+attn-context rows, each with its launches; every kernel's
+``launches_by_path`` has the video phases' zeros); the last line is ``{"ok": true, "device": {...}}``. Imports
 nothing of JAX or of ``diffusioniqt_tpu``. Exits non-zero without CUDA.
 """
 
@@ -326,11 +357,41 @@ SERVE_2D_COUNTS = {"halo": 0, "conv3d": 0, "fused_block": 0, "fused_block_small"
 # train-2d: quality_run_2d's trainer (tools/quality_run_2d.py:88-92: dim 24,
 # linear attention type with no slot on) on 96^2 crops, batch 8, this many steps
 TRAIN_2D_DIM, TRAIN_2D_CROP, TRAIN_2D_BATCH, TRAIN_2D_STEPS = 24, 96, 8, 10
-# (batch, heads, tokens, head dim) of every softmax attention the serve
-# phases launch: the attention config's slots (8 windows x 8 heads, 12^3
-# patch tokens, head dim 64) and serve-2d's (16 slices x 8 heads, 60^2
-# tokens, head dim 32: not a multiple of the kernel's query or key tile)
-FLASH_SHAPES = [(WINDOWS, 8, 1728, 64), (SLICES_2D, 8, (EDGE_2D // 4) ** 2, 32)]
+# attn-context: the attention config's first slot (level 0 of the merged
+# 96^3 window: 64 channels, patch 8, 12^3 tokens, 8 heads of 64) given a
+# text context of this many tokens of this width (hash_text_encode, the
+# T5-base width), on the serve batch of 8 windows; it launches flash once
+CONTEXT_TOKENS, CONTEXT_DIM = 16, 768
+CONTEXT_COUNTS = {"halo": 0, "conv3d": 0, "fused_block": 0, "fused_block_small": 0,
+                  "flash_attention": 1}
+# (batch, heads, query tokens, key tokens, head dim) of every softmax
+# attention the serve phases launch: the attention config's slots (8
+# windows x 8 heads, 12^3 patch tokens, head dim 64), serve-2d's (16 slices
+# x 8 heads, 60^2 tokens, head dim 32: not a multiple of the kernel's query
+# or key tile) and attn-context's (the slot's 12^3 queries against its
+# tokens and the 16 text tokens)
+FLASH_SHAPES = [(WINDOWS, 8, 1728, 1728, 64),
+                (SLICES_2D, 8, (EDGE_2D // 4) ** 2, (EDGE_2D // 4) ** 2, 32),
+                (WINDOWS, 8, 1728, 1728 + CONTEXT_TOKENS, 64)]
+# the text-conditioned video cell (video-forward, serve-video, video-loss):
+# Unet3DVideo at the width of the imagen-pytorch README's Imagen-Video
+# example (dim 64, mults (1, 2, 4, 8), RGB) with the class's defaults
+# otherwise: text width 768 (google/t5-v1_1-base), 8 heads of 64,
+# cross-attention at every level, attention at the middle, causal temporal
+# attention with its relative bias, the cross-embed stem (3, 7, 15),
+# Perceiver pooling to 32 latents, global-context gates; 2 videos of 16
+# frames at 64^2, each with a 16-word text (hash_text_encode) padded to
+# max_text_len 256; bf16 compute, fp32 parameters. It runs no hand-written
+# kernel: the JAX module leaves it all to XLA
+VIDEO_UNET = dict(dim=64, dim_mults=(1, 2, 4, 8), channels=3)
+VIDEO_BATCH, VIDEO_FRAMES, VIDEO_EDGE, VIDEO_TEXT_LEN, VIDEO_WORDS = 2, 16, 64, 256, 16
+VIDEO_TEXTS = ["an axial flair slice of an adult brain with periventricular white matter "
+               "lesions in both hemispheres",
+               "a sagittal t1 weighted sweep across the midline showing the corpus callosum "
+               "cerebellum and fourth ventricle"]
+VIDEO_COND_SCALE = 3.0
+NO_COUNTS = {"halo": 0, "conv3d": 0, "fused_block": 0, "fused_block_small": 0,
+             "flash_attention": 0}
 REPLACES = {
     "halo": "diffusioniqt_tpu/ops/pallas/halo.py:103",
     "conv3d": "diffusioniqt_tpu/ops/pallas/conv3d.py:83",
@@ -339,7 +400,7 @@ REPLACES = {
     "flash_attention": "diffusioniqt_tpu/ops/pallas/flash_attention.py:90",
 }
 HEADLINE = {"halo": (32, 64), "conv3d": (32, 2, 64), "fused_block": (32, 64, 64),
-            "flash_attention": (1728, 64)}
+            "flash_attention": (1728, 1728, 64)}
 # factor 1 (config/config.yaml's SAME convs) at its 27-sub-volume microbatch:
 # the halo at the heaviest activation, and the heaviest fused Block
 HALO_F1_SHAPE, FUSED_F1_SHAPE = (32, 64), (32, 64, 64)
@@ -1087,23 +1148,25 @@ def main() -> int:
         raise AssertionError(f"fused_block brick route: {brick['ms']:.4f} ms outside "
                              f"{lo}-{hi} ms widened by {BRICK_ROUTE_MARGIN:.0%}")
 
-    for nb, heads, n, d in FLASH_SHAPES:
+    for nb, heads, nq, nk, d in FLASH_SHAPES:
         bh = nb * heads
-        q, k, v = (torch.randn((bh, n, d), generator=gen, device=dev).to(torch.bfloat16)
-                   for _ in range(3))
+        q = torch.randn((bh, nq, d), generator=gen, device=dev).to(torch.bfloat16)
+        k, v = (torch.randn((bh, nk, d), generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(2))
         scale = d ** -0.5
         got = kernels.flash_attention(q, k, v, scale)
         want = kernels.attention_plain(q, k, v, scale)
         torch.cuda.synchronize()
-        stats = compare("flash_attention", (bh, n, d), got, want, FLASH_TOL)
+        stats = compare("flash_attention", (bh, nq, nk, d), got, want, FLASH_TOL)
         # the library yardstick: one SDPA call over (batch, heads, N, D)
-        q4, k4, v4 = (a.view(nb, heads, n, d) for a in (q, k, v))
+        q4 = q.view(nb, heads, nq, d)
+        k4, v4 = (a.view(nb, heads, nk, d) for a in (k, v))
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        record("flash_attention", (bh, n, d), stats,
+        record("flash_attention", (bh, nq, nk, d), stats,
                timed(lambda: kernels.flash_attention(q, k, v, scale)),
                cuda_time_ms(lambda: kernels.attention_plain(q, k, v, scale), iters=3),
                timed(lambda: sdpa(q4, k4, v4, scale=scale)),
-               bound_ms(4.0 * bh * n * n * d, nbytes(q, k, v, got)))
+               bound_ms(4.0 * bh * nq * nk * d, nbytes(q, k, v, got)))
         del q, k, v, q4, k4, v4, got, want
     print(f"kernels seconds {time.perf_counter() - t0:.1f}", flush=True)
     if "--kernels-only" in sys.argv[1:]:
@@ -2342,6 +2405,211 @@ def main() -> int:
                                  "shape")
         return served
 
+    def attn_context():
+        """The attention config's first SoftMaxAttention slot (level 0,
+        patch 8 over the 96^3 merged window: 12^3 tokens, 8 heads of 64),
+        seeded, given a CONTEXT_TOKENS-token, CONTEXT_DIM-wide text context
+        from ``hash_text_encode``, on the serve batch of 8 windows in bf16:
+        through the kernel (flash at Nq 1728 against Nk 1744, launched
+        exactly once) and through the plain version, within
+        FORWARD_REL_TOL. Returns the launches."""
+        from diffusioniqt_tpu_torch.models.attention import SoftMaxAttention
+        from diffusioniqt_tpu_torch.utils.t5 import hash_text_encode
+
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            slot = SoftMaxAttention(64, dim_head=64, heads=8, patch_size=8, patch=True,
+                                    context_dim=CONTEXT_DIM).to(dev).eval()
+        x = torch.randn((WINDOWS, 96, 96, 96, 64), generator=gen, device=dev).to(torch.bfloat16)
+        words = " ".join(VIDEO_TEXTS).split()
+        texts = [" ".join(words[i:i + CONTEXT_TOKENS]) for i in range(WINDOWS)]
+        context = hash_text_encode(texts, dim=CONTEXT_DIM, max_length=CONTEXT_TOKENS,
+                                   device=dev)
+        call = lambda: slot(x, context=context)  # noqa: E731
+        with torch.no_grad():
+            kernels.reset_launch_counts()
+            out_k = call()
+            torch.cuda.synchronize()
+            launched = kernels.launch_counts()
+            k_ms = cuda_time_ms(call, iters=5, warmup=1)
+            profile_forward("attn-context slot", call)
+            slot.ops = kernels.PLAIN
+            out_p = call()
+            p_ms = cuda_time_ms(call, iters=2, warmup=0)
+            slot.ops = kernels.KERNELS
+        rel = ((out_k.float() - out_p.float()).abs().max() / out_p.float().abs().max()).item()
+        print(f"SoftMaxAttention slot (64 ch, patch 8, 8 x 64 heads, context {CONTEXT_TOKENS} x "
+              f"{CONTEXT_DIM}) on {WINDOWS} x 96^3: launches {launched}, out "
+              f"{tuple(out_k.shape)} finite {bool(torch.isfinite(out_k).all())}, "
+              f"max_rel_err_vs_plain {rel:.3e} (tol {FORWARD_REL_TOL}); ms per call: kernel "
+              f"{k_ms:.3f} plain {p_ms:.3f}", flush=True)
+        if launched != CONTEXT_COUNTS:
+            raise AssertionError(f"attn-context: launches {launched}, expected {CONTEXT_COUNTS}")
+        if not (torch.isfinite(out_k).all() and rel <= FORWARD_REL_TOL):
+            raise AssertionError("attn-context: the slot through the kernel disagrees with the "
+                                 "plain path")
+        return launched
+
+    def video_unet():
+        """VIDEO_UNET from torch.manual_seed(0), the JAX initialisers, but
+        with the zero-initialised temporal-attention gates set to 0.5 and
+        the final conv drawn like the others: at init the output is zero."""
+        from diffusioniqt_tpu_torch.models.blocks import lecun_normal_
+        from diffusioniqt_tpu_torch.models.unet_video import Unet3DVideo
+
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            unet = Unet3DVideo(**VIDEO_UNET, dtype=torch.bfloat16)
+            with torch.no_grad():
+                for name, p in unet.named_parameters():
+                    if name.endswith("out_gate"):
+                        p.fill_(0.5)
+                lecun_normal_(unet.final_conv.weight)
+        return unet.to(dev).eval()
+
+    def video_text():
+        """Each video's VIDEO_WORDS-word text, embedded by ``hash_text_encode``
+        and padded to VIDEO_TEXT_LEN tokens, with its mask."""
+        from diffusioniqt_tpu_torch.utils.t5 import hash_text_encode
+
+        assert all(len(text.split()) == VIDEO_WORDS for text in VIDEO_TEXTS)
+        return hash_text_encode(VIDEO_TEXTS[:VIDEO_BATCH], dim=768, max_length=VIDEO_TEXT_LEN,
+                                return_attn_mask=True, device=dev)
+
+    def video_forward(unet):
+        """One forward of VIDEO_BATCH videos of VIDEO_FRAMES x VIDEO_EDGE^2
+        with their texts in bf16, held against the same weights in fp32
+        within FORWARD_REL_TOL, with time and with ``ignore_time``; no
+        hand-written kernel launches. Returns the launches."""
+        emb, mask = video_text()
+        x = torch.randn((VIDEO_BATCH, VIDEO_FRAMES, VIDEO_EDGE, VIDEO_EDGE, 3), generator=gen,
+                        device=dev)
+        t = torch.tensor([0.7, -1.3], device=dev)
+        launched = {}
+        for ignore_time in (False, True):
+            call = lambda: unet(x, t, t, text_embeds=emb, text_mask=mask,  # noqa: E731
+                                ignore_time=ignore_time)
+            with torch.no_grad():
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                kernels.reset_launch_counts()
+                out = call()
+                torch.cuda.synchronize()
+                launched = kernels.launch_counts()
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                ms = cuda_time_ms(call, iters=5, warmup=1)
+                if not ignore_time:
+                    profile_forward("video-forward bf16", call)
+                unet.dtype = torch.float32
+                want = call()
+                ms32 = cuda_time_ms(call, iters=2, warmup=0)
+                unet.dtype = torch.bfloat16
+            rel = ((out - want).abs().max() / want.abs().max()).item()
+            print(f"Unet3DVideo {VIDEO_UNET} ignore_time={ignore_time}: "
+                  f"{sum(p.numel() for p in unet.parameters())} parameters; forward of "
+                  f"{VIDEO_BATCH} x {VIDEO_FRAMES} x {VIDEO_EDGE}^2 with {VIDEO_TEXT_LEN} text "
+                  f"tokens: out {tuple(out.shape)} finite {bool(torch.isfinite(out).all())}, "
+                  f"max|out| {want.abs().max().item():.3e}, bf16 vs fp32 max_rel_err {rel:.3e} "
+                  f"(tol {FORWARD_REL_TOL}); ms per forward bf16 {ms:.3f} fp32 {ms32:.3f}; "
+                  f"peak memory {peak:.2f} GiB; launches {launched}", flush=True)
+            if launched != NO_COUNTS:
+                raise AssertionError(f"video-forward launched hand-written kernels: {launched}")
+            if not (torch.isfinite(out).all() and rel <= FORWARD_REL_TOL
+                    and out.shape == x.shape):
+                raise AssertionError("video-forward: the bf16 forward disagrees with fp32")
+        return launched
+
+    def serve_video(unet):
+        """``ElucidatedImagen([unet], image_sizes=(VIDEO_EDGE,), channels=3)``
+        at its default 32 Heun steps: ``sample(video_frames=VIDEO_FRAMES,
+        text_embeds, text_mask, cond_scale=VIDEO_COND_SCALE)``, 63 forwards
+        each beside its null-text forward; finite videos of the asked
+        shape, no hand-written kernel. Returns the call's launches."""
+        from diffusioniqt_tpu_torch.diffusion.elucidated import ElucidatedImagen
+
+        emb, mask = video_text()
+        edm = ElucidatedImagen([unet], image_sizes=(VIDEO_EDGE,), channels=3)
+        forwards = []
+        hook = unet.register_forward_pre_hook(lambda m, a: forwards.append(a[0].shape))
+        noise = gaussian_noise(torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            out = edm.sample(batch_size=VIDEO_BATCH, noise=noise, video_frames=VIDEO_FRAMES,
+                             text_embeds=emb, text_mask=mask, cond_scale=VIDEO_COND_SCALE)
+            torch.cuda.synchronize()
+        finally:
+            hook.remove()
+        call_s = time.perf_counter() - t0
+        served = kernels.launch_counts()
+        steps = edm.hparams[0].num_sample_steps
+        print(f"EDM video sampler call ({steps} Heun steps, cond_scale {VIDEO_COND_SCALE}, "
+              f"{VIDEO_BATCH} x {VIDEO_FRAMES} x {VIDEO_EDGE}^2, bf16): {call_s:.3f} s per call, "
+              f"{len(forwards)} forwards, {call_s * 1e3 / len(forwards):.3f} ms per forward; "
+              f"output {tuple(out.shape)} finite {bool(torch.isfinite(out).all())} in "
+              f"[{out.min().item():.3f}, {out.max().item():.3f}]; launches {served}; peak "
+              f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
+        if served != NO_COUNTS:
+            raise AssertionError(f"serve-video launched hand-written kernels: {served}")
+        if len(forwards) != 2 * (2 * steps - 1):
+            raise AssertionError(f"serve-video: {len(forwards)} forwards, expected "
+                                 f"{2 * (2 * steps - 1)}")
+        if (out.shape != (VIDEO_BATCH, VIDEO_FRAMES, VIDEO_EDGE, VIDEO_EDGE, 3)
+                or not torch.isfinite(out).all()):
+            raise AssertionError("serve-video: the samples are not finite videos of the "
+                                 "asked shape")
+        return served
+
+    def video_loss(unet):
+        """The EDM loss of VIDEO_BATCH videos of VIDEO_FRAMES frames at
+        VIDEO_EDGE^2 with their texts and its backward (bf16, seeded
+        draws): the wrapper resizes every axis between the batch and the
+        channels to the stage's size, as the JAX ``forward`` does, so the
+        U-Net is given VIDEO_EDGE frames; the loss and every gradient
+        finite. Returns the launches."""
+        from diffusioniqt_tpu_torch.diffusion.elucidated import ElucidatedImagen
+
+        emb, mask = video_text()
+        edm = ElucidatedImagen([unet], image_sizes=(VIDEO_EDGE,), channels=3)
+        videos = torch.rand((VIDEO_BATCH, VIDEO_FRAMES, VIDEO_EDGE, VIDEO_EDGE, 3),
+                            generator=gen, device=dev)
+        frames = []
+        hook = unet.register_forward_pre_hook(lambda m, a: frames.append(a[0].shape[1]))
+        unet.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            loss = edm.forward(videos, text_embeds=emb, text_mask=mask,
+                               generator=torch.Generator(device=dev).manual_seed(0))
+            loss.backward()
+            torch.cuda.synchronize()
+        finally:
+            hook.remove()
+        step_s = time.perf_counter() - t0
+        launched = kernels.launch_counts()
+        missing = [n for n, p in unet.named_parameters() if p.grad is None]
+        bad = [n for n, p in unet.named_parameters()
+               if p.grad is not None and not torch.isfinite(p.grad).all()]
+        gnorm = torch.sqrt(sum((p.grad.float() ** 2).sum() for p in unet.parameters()
+                               if p.grad is not None)).item()
+        print(f"EDM video loss of {VIDEO_BATCH} x {VIDEO_FRAMES} x {VIDEO_EDGE}^2: the U-Net "
+              f"was given {frames} frames; loss {loss.item():.5f}, gradient norm {gnorm:.4e}, "
+              f"{len(missing)} parameters without a gradient, {len(bad)} with a non-finite "
+              f"one; forward + backward {step_s:.3f} s; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launches {launched}",
+              flush=True)
+        unet.zero_grad(set_to_none=True)
+        if launched != NO_COUNTS:
+            raise AssertionError(f"video-loss launched hand-written kernels: {launched}")
+        if frames != [VIDEO_EDGE] or not math.isfinite(loss.item()) or missing or bad:
+            raise AssertionError(f"video-loss: frames {frames}, loss {loss.item()}, without a "
+                                 f"gradient {missing[:5]}, non-finite {bad[:5]}")
+        return launched
+
     def train_2d():
         """quality_run_2d's own trainer (``build_trainer_2d``, its
         ``SliceIQTDataset``) at its default width on the card: TRAIN_2D_STEPS
@@ -2421,6 +2689,17 @@ def main() -> int:
           f"(8 windows, {cfg.train.timesteps} steps)", flush=True)
     phase("serve-2d")
     served_2d = serve_2d()
+    phase("attn-context")
+    served_context = attn_context()
+    video = video_unet()
+    phase("video-forward")
+    served_video = {"video-forward": video_forward(video)}
+    phase("serve-video")
+    served_video["serve-video"] = serve_video(video)
+    phase("video-loss")
+    served_video["video-loss"] = video_loss(video)
+    del video
+    torch.cuda.empty_cache()
     phase("edm-step")
     edm_step(cfg_edm_step)
     phase("edm-merged")
@@ -2499,7 +2778,9 @@ def main() -> int:
                                  "quality": gated[name], "quality-eval": gate_evaluated[name],
                                  **{k: c["launches"][name] for k, c in cells.items()},
                                  "ddp-train (rank 0)": ddp_trained[name],
-                                 "ddp-serve (rank 0)": ddp_served[name]},
+                                 "ddp-serve (rank 0)": ddp_served[name],
+                                 "attn-context": served_context[name],
+                                 **{k: c[name] for k, c in served_video.items()}},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "tolerance": head["tol"],
             "ms": head["ms"], "ms_min": head["ms_min"], "ms_max": head["ms_max"],
@@ -2509,15 +2790,17 @@ def main() -> int:
             "library_ms_max": head["library_ms_max"], "library": LIBRARY[name],
             "shape": "x".join(str(v) for v in head["shape"]), **extra,
         })
-    # flash's rows: the attention config's (the headline) and serve-2d's
+    # flash's rows: the attention config's (the headline), serve-2d's and
+    # attn-context's (Nk = Nq + 16 text tokens), each with its phase's launches
     flash = next(r for r in line if r["name"] == "flash_attention")
     flash["launches_by_path"]["serve-2d"] = served_2d["flash_attention"]
+    flash_phase = {(1728, 1728, 64): served_attn, (3600, 3600, 32): served_2d,
+                   (1728, 1728 + CONTEXT_TOKENS, 64): served_context}
     flash["shapes"] = [
         {**{k: r[k] for k in ("shape", "max_abs_err", "ms", "ms_min", "ms_max", "plain_ms",
                               "bound_ms", "bound_by", "library_ms", "library_ms_min",
                               "library_ms_max")},
-         "launches": (served_attn if r["shape"][1:] == [1728, 64] else served_2d)[
-             "flash_attention"]}
+         "launches": flash_phase[tuple(r["shape"][1:])]["flash_attention"]}
         for r in results["flash_attention"]]
     line[0]["small_edge"] = [{k: r[k] for k in ("shape", "factor", "max_abs_err", "ms", "ms_min",
                                               "ms_max", "plain_ms", "bound_ms", "bound_by",
@@ -2536,7 +2819,9 @@ def main() -> int:
         "launches": served_eff["fused_block_small"],
         "launches_by_path": {"serve-efficient": served_eff["fused_block_small"],
                              "preset-srunet256 sampler call": served_srunet["fused_block_small"],
-                             "forward-efficient": EFFICIENT_COUNTS["fused_block_small"]},
+                             "forward-efficient": EFFICIENT_COUNTS["fused_block_small"],
+                             "attn-context": served_context["fused_block_small"],
+                             **{k: c["fused_block_small"] for k, c in served_video.items()}},
         "max_abs_err": max(r["max_abs_err"] for r in small), "tolerance": head["tol"],
         "ms": head["ms"], "ms_min": head["ms_min"], "ms_max": head["ms_max"],
         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],

@@ -15,6 +15,11 @@
     made by down-up-resizing the target when none is given
   * ``cond_images`` passed to the U-Net in the loss and in every sampler
     forward, which concatenates them before its input
+  * text conditioning (``text_embeds`` / ``text_mask``) and the lowres
+    noise level, passed to a U-Net whose forward takes them (the video
+    U-Net; JAX elucidated.py:211-219), and video sampling
+    (``video_frames``: ``(B, F, size, size, C)``, each stage's input
+    resized on H and W only)
 
 Randomness is injected as in ``diffusion/gaussian.py``: the sampler takes
 ``noise(shape) -> tensor`` (``NoiseFn``) and draws, per cascade stage, in
@@ -37,6 +42,7 @@ else draws them from the trainer's generator in that order.
 from __future__ import annotations
 
 import dataclasses
+import inspect
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
@@ -56,7 +62,7 @@ from diffusioniqt_tpu_torch.diffusion.gaussian import (
     threshold_x_start,
     unnormalize_zero_to_one,
 )
-from diffusioniqt_tpu_torch.ops.volume import resize_volume
+from diffusioniqt_tpu_torch.ops.volume import resize, resize_volume
 from diffusioniqt_tpu_torch.utils.misc import cast_tuple, default
 
 
@@ -134,14 +140,30 @@ class ElucidatedImagen:
         return len(self.unets)
 
     # ------------------------------------------------------------------
+    @staticmethod
+    def _conditioning(unet, lowres_cond_img, cond_images, self_cond, lowres_noise_times,
+                      text_embeds, text_mask) -> dict:
+        """The U-Net call's conditioning: the lowres noise level to a U-Net
+        whose forward takes one, the text (with its mask) to one that takes
+        text, and only when there is text (JAX elucidated.py:211-219)."""
+        kw = Imagen._unet_kwargs(lowres_cond_img, cond_images, self_cond)
+        takes = inspect.signature(getattr(unet, "forward", unet)).parameters
+        if "lowres_noise_times" in takes:
+            kw["lowres_noise_times"] = lowres_noise_times
+        if "text_embeds" in takes and text_embeds is not None:
+            kw.update(text_embeds=text_embeds, text_mask=text_mask)
+        return kw
+
     def preconditioned_network_forward(self, unet, noised_images, sigma, hp: EDMParams, *,
                                        clamp: bool = False, dynamic_threshold: bool = True,
                                        cond_scale: float = 1.0, lowres_cond_img=None,
-                                       cond_images=None, self_cond=None):
+                                       lowres_noise_times=None, cond_images=None,
+                                       text_embeds=None, text_mask=None, self_cond=None):
         """EDM eq. (7) (reference :329-358). ``cond_scale != 1`` mixes a
-        second, null-conditioned evaluation into the raw network output
-        before the c_skip / c_out recombination (JAX elucidated.py:227-237);
-        the IQT U-Net ignores ``cond_drop_prob``, so both evaluations agree.
+        second, null-conditioned evaluation (``cond_drop_prob=1``: a text
+        U-Net's null text) into the raw network output before the c_skip /
+        c_out recombination (JAX elucidated.py:227-237); the IQT U-Net
+        ignores ``cond_drop_prob``, so both evaluations agree.
         ``self_cond`` is the x0 estimate a self-conditioned U-Net is given
         (None: the U-Net's zeros); ``cond_images`` go to the U-Net, which
         concatenates them before its input (JAX elucidated.py:204-209)."""
@@ -152,7 +174,8 @@ class ElucidatedImagen:
         padded_sigma = right_pad_dims_to(noised_images, sigma)
         c_noise = hp.c_noise(sigma)
         net_in = hp.c_in(padded_sigma) * noised_images
-        kw = Imagen._unet_kwargs(lowres_cond_img, cond_images, self_cond)
+        kw = self._conditioning(unet, lowres_cond_img, cond_images, self_cond,
+                                lowres_noise_times, text_embeds, text_mask)
         net_out = unet(net_in, c_noise, c_noise, **kw)
         if cond_scale != 1.0:
             null_out = unet(net_in, c_noise, c_noise, cond_drop_prob=1.0, **kw)
@@ -168,8 +191,9 @@ class ElucidatedImagen:
     @torch.no_grad()
     def one_unet_sample(self, unet, shape: Tuple[int, ...], *, noise: NoiseFn,
                         hp: EDMParams, clamp: bool = True, dynamic_threshold: bool = True,
-                        cond_scale: float = 1.0, lowres_cond_img=None, cond_images=None,
-                        inpaint_images=None, inpaint_masks=None,
+                        cond_scale: float = 1.0, lowres_cond_img=None,
+                        lowres_noise_times=None, cond_images=None, text_embeds=None,
+                        text_mask=None, inpaint_images=None, inpaint_masks=None,
                         inpaint_resample_times: int = 5, init_images=None,
                         skip_steps: Optional[int] = None, sigma_min: Optional[float] = None,
                         sigma_max: Optional[float] = None):
@@ -207,7 +231,8 @@ class ElucidatedImagen:
 
         fwd = dict(hp=hp, clamp=clamp, dynamic_threshold=dynamic_threshold,
                    cond_scale=cond_scale, lowres_cond_img=lowres_cond_img,
-                   cond_images=cond_images)
+                   lowres_noise_times=lowres_noise_times, cond_images=cond_images,
+                   text_embeds=text_embeds, text_mask=text_mask)
         n_steps = sigma_cur.shape[0]
         self_cond = getattr(unet, "self_cond", False)
         x_start = torch.zeros_like(images)
@@ -260,13 +285,17 @@ class ElucidatedImagen:
                text_embeds=None, text_mask=None):
         """Cascade EDM sampling (reference :536-702; JAX elucidated.py:450-555).
         ``start_image_or_video`` is the lowres input of the first sampled
-        stage when ``start_at_unet_number > 1``."""
-        if video_frames is not None:
-            raise NotImplementedError("video sampling needs models/unet_video.py, "
-                                      "which is not ported yet")
-        if text_embeds is not None or text_mask is not None:
-            raise NotImplementedError("text conditioning needs the T5 encoder, "
-                                      "which is not ported yet")
+        stage when ``start_at_unet_number > 1``. ``video_frames`` samples
+        ``(B, video_frames, size, size, C)`` videos, resizing a stage's
+        lowres and init inputs on H and W only, by ``jax.image.resize``'s
+        "nearest" (JAX elucidated.py:477-481); ``text_embeds`` /
+        ``text_mask`` go to every stage that takes text."""
+
+        def _resize(img, size):
+            if video_frames is not None:
+                return resize(img, (img.shape[0], img.shape[1], size, size, img.shape[-1]))
+            return resize_volume(img, size)
+
         num_unets = self.num_unets
         cond_scale = cast_tuple(cond_scale, num_unets)
         init_images = [None if im is None else self.normalize_img(im)
@@ -283,31 +312,35 @@ class ElucidatedImagen:
                                  f"out of range for {num_unets} unets")
             if start_image_or_video is None:
                 raise ValueError("starting image must be supplied if only doing upscaling")
-            img = resize_volume(start_image_or_video,
-                                self.image_sizes[start_at_unet_number - 2])
+            img = _resize(start_image_or_video, self.image_sizes[start_at_unet_number - 2])
 
         outputs = []
         for unet_number in range(start_at_unet_number, num_unets + 1):
             index = unet_number - 1
             unet = self.unets[index]
             size = self.image_sizes[index]
-            lowres_cond_img = None
+            lowres_cond_img = lowres_noise_times = None
             if getattr(unet, "lowres_cond", False):
-                lowres_cond_img = self.normalize_img(resize_volume(img, size))
+                lowres_cond_img = self.normalize_img(_resize(img, size))
+                times = torch.full((batch_size,), level if self.lowres_noise_aug else 0.0,
+                                   dtype=torch.float32, device=lowres_cond_img.device)
+                lowres_noise_times = self.lowres_noise_schedule.get_condition(times)
                 if self.lowres_noise_aug:
-                    times = torch.full((batch_size,), level, dtype=torch.float32,
-                                       device=lowres_cond_img.device)
                     lowres_cond_img, *_ = self.lowres_noise_schedule.q_sample(
                         lowres_cond_img, times, noise(tuple(lowres_cond_img.shape)))
             unet_init = init_images[index]
             if unet_init is not None:
-                unet_init = resize_volume(unet_init, size)
-            shape = (batch_size,) + (size,) * self.spatial_dims + (self.channels,)
+                unet_init = _resize(unet_init, size)
+            if video_frames is not None:
+                shape = (batch_size, video_frames, size, size, self.channels)
+            else:
+                shape = (batch_size,) + (size,) * self.spatial_dims + (self.channels,)
             img = self.one_unet_sample(
                 unet, shape, noise=noise, hp=self.hparams[index], clamp=True,
                 dynamic_threshold=self.dynamic_thresholding[index],
                 cond_scale=cond_scale[index], lowres_cond_img=lowres_cond_img,
-                cond_images=cond_images, inpaint_images=inpaint_images,
+                lowres_noise_times=lowres_noise_times, cond_images=cond_images,
+                text_embeds=text_embeds, text_mask=text_mask, inpaint_images=inpaint_images,
                 inpaint_masks=inpaint_masks,
                 inpaint_resample_times=inpaint_resample_times, init_images=unet_init,
                 skip_steps=skip_steps[index], sigma_min=sigma_min[index],
@@ -319,8 +352,8 @@ class ElucidatedImagen:
 
     # ------------------------------------------------------------------
     def forward(self, images, lowres_img=None, *, unet_number: Optional[int] = None,
-                cond_images=None, generator: Optional[torch.Generator] = None, sigmas=None,
-                noise=None,
+                cond_images=None, text_embeds=None, text_mask=None,
+                generator: Optional[torch.Generator] = None, sigmas=None, noise=None,
                 aug_times=None, aug_noise=None, return_outputs: bool = False):
         """EDM training loss (reference :712-882; JAX elucidated.py:558-658):
         the scalar loss, or ``(loss, denoised, noised_images, lowres_noisy)``
@@ -332,7 +365,10 @@ class ElucidatedImagen:
         off (the IQT path, at noise time 0), else it is noised at one time
         per call or, with ``per_sample_random_aug_noise_level``, per sample.
         Draws not given come from ``generator`` in the order of
-        :meth:`training_draws`."""
+        :meth:`training_draws`. ``images`` are resized to the stage's size
+        on every axis between the batch and the channels, as the JAX
+        ``forward`` does with ``resize_volume`` (elucidated.py:623): a
+        ``(B, F, H, W, C)`` video's frame axis too."""
         if self.num_unets > 1 and unet_number is None:
             raise ValueError("unet_number is required with more than one unet")
         index = (unet_number or 1) - 1
@@ -351,17 +387,20 @@ class ElucidatedImagen:
             generator, images.shape, None if lowres_cond_img is None else lowres_cond_img.shape,
             unet_number=unet_number, sigmas=sigmas, noise=noise, aug_times=aug_times,
             aug_noise=aug_noise)
-        lowres_noisy = None
+        lowres_noisy = lowres_times = None
         if lowres_cond_img is not None:
             lowres_noisy = self.normalize_img(lowres_cond_img)
+            lowres_times = torch.zeros((batch,), dtype=torch.float32, device=images.device)
             if self.lowres_noise_aug:
+                lowres_times = draws["aug_times"]
                 lowres_noisy = self.lowres_noise_schedule.q_sample(
-                    lowres_noisy, draws["aug_times"], draws["aug_noise"])[0]
+                    lowres_noisy, lowres_times, draws["aug_noise"])[0]
         sigmas, noise = draws["sigmas"], draws["noise"]
         noised_images = images + right_pad_dims_to(images, sigmas) * noise
         denoised = self.preconditioned_network_forward(
             unet, noised_images, sigmas, hp, lowres_cond_img=lowres_noisy,
-            cond_images=cond_images)
+            lowres_noise_times=self.lowres_noise_schedule.get_condition(lowres_times),
+            cond_images=cond_images, text_embeds=text_embeds, text_mask=text_mask)
         losses = ((denoised - images) ** 2).reshape(batch, -1).mean(dim=-1)
         loss = (losses * hp.loss_weight(sigmas)).mean()
         if return_outputs:

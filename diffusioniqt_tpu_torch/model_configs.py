@@ -3,22 +3,22 @@
 
 The same JSON schemas as the JAX package, so a file written by either
 package's ``cli.py config`` loads in the other: a U-Net stage
-(:class:`UnetConfig`, kinds ``unet3d``, ``unet2d`` and ``null``), the Gaussian and EDM
-cascade wrappers (:class:`ImagenConfig`, :class:`ElucidatedImagenConfig`)
-and the trainer (:class:`ImagenTrainerConfig`). Each ``create`` takes the
+(:class:`UnetConfig`, kinds ``unet3d``, ``unet2d``, ``video`` and ``null``),
+the Gaussian and EDM cascade wrappers (:class:`ImagenConfig`,
+:class:`ElucidatedImagenConfig`) and the trainer (:class:`ImagenTrainerConfig`).
+Each ``create`` takes the
 ``device`` the modules go to (``cuda`` unless told otherwise; raises if
 CUDA is asked for and missing).
 
 A ``unet3d`` stage's fields that a JSON leaves out take the JAX ``UNet3D``'s
 defaults (``models/unet3d.py::JAX_DEFAULTS``), as the JAX ``create`` does
-(a ``unet2d`` stage's are the port's ``UNet2D``'s, which are the JAX
-ones); the
+(a ``unet2d`` or ``video`` stage's are the port's ``UNet2D``'s or
+``Unet3DVideo``'s, which are the JAX ones); the
 cascade then sets each stage's conditioning as the JAX wrappers'
 ``cast_model_parameters`` does (stage 1 unconditioned, later stages
 lowres-conditioned, ``channels`` and ``channels_out`` the wrapper's). The
 compute dtype is ``kwargs["dtype"]`` (``"bfloat16"`` / ``"float32"``) when
 given, else bf16 on the card, whose kernels take bf16, and fp32 on the CPU.
-Kind ``video`` is not ported yet (ROADMAP.md §1).
 """
 
 from __future__ import annotations
@@ -56,7 +56,7 @@ class UnetConfig:
     dim: int = 64
     dim_mults: Tuple[int, ...] = (1, 2, 4)
     channels: int = 1
-    kind: str = "unet3d"  # 'unet3d' | 'unet2d' | 'null' ('video' not ported yet)
+    kind: str = "unet3d"  # 'unet3d' | 'unet2d' | 'video' | 'null'
     kwargs: Dict[str, Any] = field(default_factory=dict)
 
     @classmethod
@@ -73,16 +73,16 @@ class UnetConfig:
         ``lowres_cond``, ``channels``, ``channels_out``) win over the JSON."""
         from diffusioniqt_tpu_torch.models.unet2d import UNet2D
         from diffusioniqt_tpu_torch.models.unet3d import JAX_DEFAULTS, NullUnet, UNet3D
+        from diffusioniqt_tpu_torch.models.unet_video import Unet3DVideo
 
         device = resolve_device(device)
         if self.kind == "null":
             return NullUnet().to(device)
-        if self.kind == "video":
-            raise NotImplementedError(
-                "U-Net kind 'video' is not ported yet (ROADMAP.md §1: unet_video.py)")
-        if self.kind not in ("unet3d", "unet2d"):
+        kinds = {"unet3d": (UNet3D, JAX_DEFAULTS), "unet2d": (UNet2D, {}),
+                 "video": (Unet3DVideo, {})}
+        if self.kind not in kinds:
             raise ValueError(f"unknown U-Net kind {self.kind!r}")
-        klass, defaults = ((UNet3D, JAX_DEFAULTS) if self.kind == "unet3d" else (UNet2D, {}))
+        klass, defaults = kinds[self.kind]
         kw = _tuples(_signature_kwargs(klass.__init__, self.kwargs))
         dtype = kw.pop("dtype", None)
         kw["dtype"] = (_DTYPES[dtype] if dtype is not None

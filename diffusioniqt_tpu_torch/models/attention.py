@@ -25,11 +25,20 @@ the ViT's ``drop_p`` after its attention and each residual branch and
 ``forward_drop_p`` in its feed-forward. Dropout slots hold no parameters,
 so the names still match the reference ``state_dict`` (``to_q.{1,2}``,
 ``to_out.{0,1}``, ``layers.{d}.1.{0,1,3,4}``, ViT
-``block.{0,1}.fn.{0,1}``, ``reconstruction.{0,3,4}``, ...). The text
-``context`` path is not ported and raises.
+``block.{0,1}.fn.{0,1}``, ``reconstruction.{0,3,4}``, ...).
+
+Linear and softmax attention built with ``context_dim`` take a text
+``context`` ``(B, L, context_dim)`` (JAX attention.py:162-171, 222-231):
+its LayerNorm (flax's, eps 1e-6) and a dense layer without bias
+(``to_context.{0,1}``) give per-head keys and values that follow the
+voxel tokens', so softmax attention sends Nq = N queries against
+Nk = N + L keys to the flash kernel. ``ViT3D`` takes no context, as in the
+JAX package, and refuses one.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -145,7 +154,8 @@ class _VoxelAttention(nn.Module):
     ``(B*h, N, d)`` heads."""
 
     def __init__(self, dim: int, dim_head: int = 32, heads: int = 8,
-                 patch_size: int = 2, patch: bool = False, dropout: float = 0.05):
+                 patch_size: int = 2, patch: bool = False, dropout: float = 0.05,
+                 context_dim: Optional[int] = None):
         super().__init__()
         inner_dim = dim_head * heads
         self.heads = heads
@@ -158,19 +168,28 @@ class _VoxelAttention(nn.Module):
         self.to_out = nn.Sequential(PointwiseConv(inner_dim, dim, bias=False),
                                     ChanLayerNorm(dim))
         self.reconstruct = PatchReconstruct(dim, patch_size) if patch else None
+        self.to_context = (nn.Sequential(LayerNorm(context_dim),
+                                         Dense(context_dim, inner_dim * 2, bias=False))
+                           if context_dim is not None else None)
 
     def attend(self, q, k, v) -> torch.Tensor:
         raise NotImplementedError
 
     def forward(self, fmap: torch.Tensor, context=None) -> torch.Tensor:
-        if context is not None:
-            raise NotImplementedError("attention over a text context is not ported")
         if self.patch_embed is not None:
             fmap = self.patch_embed(fmap)
         spatial = fmap.shape[1:4]
         fmap = self.norm(fmap)
         q, k, v = (_split_heads(proj(fmap), self.heads)
                    for proj in (self.to_q, self.to_k, self.to_v))
+        if context is not None:
+            if self.to_context is None:
+                raise ValueError("a text context needs the module built with context_dim")
+            # the LayerNorm on the context as given, the projection in the
+            # activations' dtype
+            ctx = self.to_context[1](self.to_context[0](context).to(fmap.dtype))
+            ck, cv = (_split_heads(t, self.heads) for t in ctx.chunk(2, dim=-1))
+            k, v = torch.cat([k, ck], dim=-2), torch.cat([v, cv], dim=-2)
         out = _merge_heads(self.attend(q, k, v), self.heads, spatial)
         out = self.to_out(mish(out))
         if self.reconstruct is not None:
@@ -222,9 +241,11 @@ class AttentionTransformerBlock(nn.Module):
 
     def __init__(self, dim: int, att_type: str = "linear", depth: int = 1,
                  heads: int = 8, dim_head: int = 32, ff_mult: float = 2.0,
-                 patch_size: int = 2, patch: bool = False, use_flash: bool = True):
+                 patch_size: int = 2, patch: bool = False, use_flash: bool = True,
+                 context_dim: Optional[int] = None):
         super().__init__()
-        kw = dict(dim_head=dim_head, heads=heads, patch_size=patch_size, patch=patch)
+        kw = dict(dim_head=dim_head, heads=heads, patch_size=patch_size, patch=patch,
+                  context_dim=context_dim)
         self.layers = nn.ModuleList()
         for _ in range(depth):
             attn = (LinearAttention(dim, **kw) if att_type == "linear"
@@ -371,7 +392,7 @@ class ViT3D(nn.Module):
 
     def forward(self, x: torch.Tensor, context=None) -> torch.Tensor:
         if context is not None:
-            raise NotImplementedError("attention over a text context is not ported")
+            raise ValueError("ViT3D takes no text context (as the JAX ViT3D)")
         tok = self.patch_embedding(x)
         for layer in self.transformer_encoder.layers:
             tok = layer(tok)

@@ -12,6 +12,7 @@ reads a port ``state_dict`` directly:
   DeconvUpsample        deconv.0 (ConvTranspose3d, torch layout (in, out, 3, 3, 3))
   CrossEmbedLayer       convs.{i} (one conv per kernel size, smallest first)
   ChanLayerNorm         g
+  GlobalContext         to_k, net.{0,2}
 
 Fresh modules draw their parameters as the JAX modules' flax initialisers
 do: every conv and dense kernel ``lecun_normal`` (a normal of variance
@@ -320,3 +321,25 @@ class PixelShuffleUpsample(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return pixel_shuffle_3d(self.net(x), scale=2)
+
+
+class GlobalContext(nn.Module):
+    """Attention-pooled squeeze-excitation (JAX blocks.py:500-518,
+    reference imagen_pytorch3D.py:634-659): a 1x1 conv to one channel
+    whose softmax over every position of a sample pools the input, then
+    1x1 -> Mish -> 1x1 -> sigmoid, a ``(B, 1, .., 1, C)`` gate. Any
+    channels-last rank (the video U-Net's ``(B, F, H, W, C)``); the
+    softmax in fp32."""
+
+    def __init__(self, dim_in: int, dim_out: int):
+        super().__init__()
+        hidden = max(3, dim_out // 2)
+        self.to_k = PointwiseConv(dim_in, 1)
+        self.net = nn.Sequential(PointwiseConv(dim_in, hidden), Mish(),
+                                 PointwiseConv(hidden, dim_out), nn.Sigmoid())
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c = x.shape[0], x.shape[-1]
+        weights = torch.softmax(self.to_k(x).reshape(b, -1).float(), dim=-1).to(x.dtype)
+        pooled = torch.einsum("bn,bnc->bc", weights, x.reshape(b, -1, c))
+        return self.net(pooled).reshape(b, *([1] * (x.dim() - 2)), -1)

@@ -166,6 +166,30 @@ def _linear_weights(n_in: int, n_out: int, device) -> torch.Tensor:
     return torch.where(inside[None, :], w, torch.zeros_like(w))
 
 
+def resize(x: torch.Tensor, shape, method: str = "nearest") -> torch.Tensor:
+    """``jax.image.resize(x, shape, method)`` for the methods the JAX
+    package calls: every axis whose size changes is resized on its own,
+    ``"nearest"`` taking source ``floor((i + 0.5) * n_in / n_out)`` (torch's
+    ``nearest-exact``), ``"trilinear"`` / ``"linear"`` by
+    :func:`_linear_weights` (antialiased when downsampling). Returns ``x``
+    itself when the shape already matches."""
+    if tuple(x.shape) == tuple(shape):
+        return x
+    if method not in ("nearest", "trilinear", "linear"):
+        raise ValueError(f"unknown resize method {method}")
+    out = x if (method == "nearest" or x.is_floating_point()) else x.float()
+    for axis, (n_in, n_out) in enumerate(zip(x.shape, shape)):
+        if n_in == n_out:
+            continue
+        if method == "nearest":
+            pos = torch.arange(n_out, dtype=torch.float32, device=x.device) + 0.5
+            out = out.index_select(axis, torch.floor(pos * n_in / n_out).long())
+        else:
+            w = _linear_weights(n_in, n_out, x.device).to(out.dtype)
+            out = torch.movedim(torch.movedim(out, axis, -1) @ w, -1, axis)
+    return out
+
+
 def resize_volume(x: torch.Tensor, target_size: int, method: str = "nearest",
                   clamp_range=None) -> torch.Tensor:
     """Spatially resize a channels-last volume (B, ..., C) to edge
@@ -178,19 +202,7 @@ def resize_volume(x: torch.Tensor, target_size: int, method: str = "nearest",
     spatial = x.shape[1:-1]
     if all(s == target_size for s in spatial):
         return x
-    if method not in ("nearest", "trilinear", "linear"):
-        raise ValueError(f"unknown resize method {method}")
-    out = x if (method == "nearest" or x.is_floating_point()) else x.float()
-    for axis, n_in in enumerate(spatial, start=1):
-        if n_in == target_size:
-            continue
-        if method == "nearest":
-            pos = (torch.arange(target_size, dtype=torch.float32, device=x.device) + 0.5)
-            idx = torch.floor(pos * n_in / target_size).long()
-            out = out.index_select(axis, idx)
-        else:
-            w = _linear_weights(n_in, target_size, x.device).to(out.dtype)
-            out = torch.movedim(torch.movedim(out, axis, -1) @ w, -1, axis)
+    out = resize(x, (x.shape[0], *(target_size,) * len(spatial), x.shape[-1]), method)
     if clamp_range is not None:
         out = torch.clamp(out, clamp_range[0], clamp_range[1])
     return out

@@ -31,6 +31,7 @@ import argparse
 import json
 import os
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -84,16 +85,19 @@ class SliceIQTDataset:
 
 
 def build_trainer_2d(dim: int, crop: int, timesteps: int, mean: float, std: float,
-                     lr_rate: float, device, seed: int = 0) -> ImagenTrainer:
+                     lr_rate: float, device, seed: int = 0,
+                     dtype: Optional[torch.dtype] = None) -> ImagenTrainer:
     """The JAX tool's ``build_trainer_2d``: ``UNet2D`` (weights drawn under
     ``torch.manual_seed(seed)``) behind a ``NullUnet`` stage in an ancestral
     ``Imagen`` of ``spatial_dims=2`` (x_start, no dynamic thresholding, no
     p2 weighting, no [0, 1] rescaling, no conditioning dropout, the
     z-score ``min_bound``), trained one microbatch a step with the EMA from
-    step 100, every 10th step; bf16 compute on the card, fp32 on the CPU
-    (the JAX tool picks by backend)."""
+    step 100, every 10th step. ``dtype`` is the compute dtype, as the JAX
+    tool's ``dtype`` argument; by default bf16 on the card and fp32 on the
+    CPU (the JAX CLI picks by backend, and so does :func:`main`)."""
     device = resolve_device(device)
-    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    if dtype is None:
+        dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     cfg = Config()
     cfg.train.batch_sample = False
     cfg.train.boundary = False

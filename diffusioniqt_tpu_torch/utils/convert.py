@@ -8,7 +8,8 @@ port with ``load_state_dict``. :func:`state_dict_from_jax_params` is the
 inverse of ``convert_iqt_unet_state_dict`` for the models the port builds:
 it turns a flax ``UNet3D`` parameter tree (numpy arrays, or anything
 ``np.asarray`` takes) into a port ``state_dict``;
-:func:`unet2d_state_dict_from_jax_params` does the same for ``UNet2D``. :func:`adam_state_from_optax`
+:func:`unet2d_state_dict_from_jax_params` does the same for ``UNet2D`` and
+:func:`video_state_dict_from_jax_params` for ``Unet3DVideo``. :func:`adam_state_from_optax`
 maps optax Adam's ``mu`` / ``nu`` trees, which have the parameters' names,
 the same way onto ``torch.optim.Adam``'s ``exp_avg`` / ``exp_avg_sq``.
 
@@ -28,7 +29,7 @@ kernel ``(in, out)`` -> torch Linear ``(out, in)``; flax LayerNorm
 Attention slots (``down{i}_attn`` -> ``downs.{i}.2``, ``mid_attn``) take
 the reference's names for all three families: LinearAttention /
 SoftMaxAttention ``layers.{d}.0.{norm, to_q.{1,2}, to_k, to_v,
-to_out.{0,1}, patch_embed.*, reconstruct.{1,2}}`` with ChanFeedForward
+to_out.{0,1}, patch_embed.*, reconstruct.{1,2}, to_context.{0,1}}`` with ChanFeedForward
 ``layers.{d}.1.{0,1,3,4}``; ViT3D ``patch_embedding.*``,
 ``transformer_encoder.layers.{d}.block.*``, ``reconstruction.{0,3,4}``.
 """
@@ -96,6 +97,9 @@ def _voxel_attention(p: Dict[str, Any], key: str,
         _conv(p[f"_QKVConv_{i}"]["Conv_1"], f"{key}.{proj}.2", out)
     _conv(p["Conv_0"], f"{key}.to_out.0", out)
     _chan_ln(p["ChanLayerNorm_1"], f"{key}.to_out.1", out)
+    if "LayerNorm_0" in p:  # the text context's norm and projection
+        _layer_norm(p["LayerNorm_0"], f"{key}.to_context.0", out)
+        _dense(p["Dense_0"], f"{key}.to_context.1", out)
 
 
 def _chan_feed_forward(p: Dict[str, Any], key: str,
@@ -381,4 +385,231 @@ def medicalnet_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Te
                 walk(sub, f"{key}.")
 
     walk(p, "")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the video U-Net (models/unet_video.py)
+# ---------------------------------------------------------------------------
+
+class _Tree:
+    """A flax parameter tree flattened to ``"a/b/kernel"`` paths, each
+    marked as it is read, so a converter can fail on what it left unread."""
+
+    def __init__(self, params: Dict[str, Any]):
+        self.flat: Dict[str, Any] = {}
+        self.read: set = set()
+
+        def walk(tree, prefix):
+            for name, sub in tree.items():
+                if isinstance(sub, dict) or hasattr(sub, "items"):
+                    walk(sub, f"{prefix}{name}/")
+                else:
+                    self.flat[f"{prefix}{name}"] = sub
+
+        walk(params.get("params", params), "")
+
+    def has(self, path: str) -> bool:
+        return path in self.flat or any(k.startswith(path + "/") for k in self.flat)
+
+    def count(self, path: str) -> int:
+        """How many of ``path_0``, ``path_1``, ... the tree holds."""
+        n = 0
+        while self.has(f"{path}_{n}"):
+            n += 1
+        return n
+
+    def get(self, path: str) -> np.ndarray:
+        self.read.add(path)
+        return np.asarray(self.flat[path])
+
+    def conv(self, path: str, key: str, out) -> None:
+        kernel = self.get(f"{path}/kernel")
+        nd = kernel.ndim - 2
+        out[f"{key}.weight"] = _t(kernel.transpose(nd + 1, nd, *range(nd)))
+        if f"{path}/bias" in self.flat:
+            out[f"{key}.bias"] = _t(self.get(f"{path}/bias"))
+
+    def dense(self, path: str, key: str, out) -> None:
+        out[f"{key}.weight"] = _t(self.get(f"{path}/kernel").T)
+        if f"{path}/bias" in self.flat:
+            out[f"{key}.bias"] = _t(self.get(f"{path}/bias"))
+
+    def norm(self, path: str, key: str, out) -> None:
+        """flax LayerNorm / GroupNorm ``scale`` / ``bias``."""
+        out[f"{key}.weight"] = _t(self.get(f"{path}/scale"))
+        out[f"{key}.bias"] = _t(self.get(f"{path}/bias"))
+
+    def param(self, path: str, key: str, out) -> None:
+        out[key] = _t(self.get(path))
+
+
+def _v_attention(p: _Tree, path: str, key: str, out) -> None:
+    """``VideoAttention``, its flax children in creation order: the input
+    TokenLayerNorm, q and kv Denses, ``null_kv``, the context LayerNorm and
+    Dense, the relative position bias and ``null_attn_bias``, the output
+    Dense, then ``out_norm_zero`` + ``out_gate_zero`` or a TokenLayerNorm."""
+    p.param(f"{path}/TokenLayerNorm_0/g", f"{key}.norm.g", out)
+    p.dense(f"{path}/Dense_0", f"{key}.to_q", out)
+    p.dense(f"{path}/Dense_1", f"{key}.to_kv", out)
+    p.param(f"{path}/null_kv", f"{key}.null_kv", out)
+    dense = 2
+    if p.has(f"{path}/LayerNorm_0"):
+        p.norm(f"{path}/LayerNorm_0", f"{key}.to_context.0", out)
+        p.dense(f"{path}/Dense_2", f"{key}.to_context.1", out)
+        dense = 3
+    if p.has(f"{path}/DynamicPositionBias_0"):
+        dpb = f"{path}/DynamicPositionBias_0"
+        n = p.count(f"{dpb}/Dense")
+        for i in range(n):  # Dense, TokenLayerNorm, SiLU per hidden layer
+            p.dense(f"{dpb}/Dense_{i}", f"{key}.rel_pos_bias.mlp.{3 * i}", out)
+            if i < n - 1:
+                p.param(f"{dpb}/TokenLayerNorm_{i}/g", f"{key}.rel_pos_bias.mlp.{3 * i + 1}.g",
+                        out)
+        p.param(f"{path}/null_attn_bias", f"{key}.null_attn_bias", out)
+    p.dense(f"{path}/Dense_{dense}", f"{key}.to_out", out)
+    if p.has(f"{path}/out_gate_zero"):
+        p.param(f"{path}/out_norm_zero/g", f"{key}.out_norm.g", out)
+        p.param(f"{path}/out_gate_zero", f"{key}.out_gate", out)
+    else:
+        p.param(f"{path}/TokenLayerNorm_1/g", f"{key}.out_norm.g", out)
+
+
+def _v_cross_attention(p: _Tree, path: str, key: str, out) -> None:
+    for i, name in enumerate(("norm", "norm_context")):
+        p.param(f"{path}/TokenLayerNorm_{i}/g", f"{key}.{name}.g", out)
+    p.dense(f"{path}/Dense_0", f"{key}.to_q", out)
+    p.dense(f"{path}/Dense_1", f"{key}.to_kv", out)
+    p.param(f"{path}/null_kv", f"{key}.null_kv", out)
+    p.dense(f"{path}/Dense_2", f"{key}.to_out", out)
+    p.param(f"{path}/TokenLayerNorm_2/g", f"{key}.out_norm.g", out)
+
+
+def _v_resnet(p: _Tree, path: str, key: str, out) -> None:
+    """``VideoResnetBlock``: time Dense, VideoBlock_0, cross-attention,
+    VideoBlock_1, GlobalContext, the 1x1 residual conv."""
+    if p.has(f"{path}/Dense_0"):
+        p.dense(f"{path}/Dense_0", f"{key}.time_mlp.1", out)
+    for i in (0, 1):
+        blk, k = f"{path}/VideoBlock_{i}", f"{key}.block{i + 1}"
+        p.norm(f"{blk}/GroupNorm_0", f"{k}.groupnorm", out)
+        p.conv(f"{blk}/PseudoConv3d_0/spatial", f"{k}.project.spatial", out)
+        if p.has(f"{blk}/PseudoConv3d_0/temporal"):
+            p.conv(f"{blk}/PseudoConv3d_0/temporal", f"{k}.project.temporal", out)
+    if p.has(f"{path}/VideoCrossAttention_0"):
+        _v_cross_attention(p, f"{path}/VideoCrossAttention_0", f"{key}.cross_attn", out)
+    if p.has(f"{path}/GlobalContext_0"):
+        for i, name in enumerate(("to_k", "net.0", "net.2")):
+            p.conv(f"{path}/GlobalContext_0/Conv_{i}", f"{key}.gca.{name}", out)
+    if p.has(f"{path}/Conv_0"):
+        p.conv(f"{path}/Conv_0", f"{key}.res_conv", out)
+
+
+def _v_transformer(p: _Tree, path: str, key: str, out) -> None:
+    """``VideoTransformerBlock``: per depth d an attention (VideoAttention_d,
+    or VideoCrossAttention_d when linear) and the feed-forward's
+    ChanLayerNorm_{2d, 2d+1} and Dense_{2d, 2d+1}."""
+    for d in range(max(p.count(f"{path}/VideoAttention"),
+                       p.count(f"{path}/VideoCrossAttention"))):
+        k = f"{key}.layers.{d}"
+        if p.has(f"{path}/VideoAttention_{d}"):
+            _v_attention(p, f"{path}/VideoAttention_{d}", f"{k}.0", out)
+        else:
+            _v_cross_attention(p, f"{path}/VideoCrossAttention_{d}", f"{k}.0", out)
+        p.param(f"{path}/ChanLayerNorm_{2 * d}/g", f"{k}.1.0.g", out)
+        p.dense(f"{path}/Dense_{2 * d}", f"{k}.1.1", out)
+        p.param(f"{path}/ChanLayerNorm_{2 * d + 1}/g", f"{k}.1.3.g", out)
+        p.dense(f"{path}/Dense_{2 * d + 1}", f"{k}.1.4", out)
+
+
+def _v_perceiver(p: _Tree, path: str, key: str, out) -> None:
+    """``PerceiverResampler``: ``pos_emb``, ``latents``, the mean-pooled
+    latents' TokenLayerNorm_0 + Dense_0, then per layer d
+    PerceiverAttention_d and its feed-forward (a TokenLayerNorm, two
+    Denses)."""
+    p.param(f"{path}/pos_emb", f"{key}.pos_emb", out)
+    p.param(f"{path}/latents", f"{key}.latents", out)
+    depth = p.count(f"{path}/PerceiverAttention")
+    pooled = p.count(f"{path}/TokenLayerNorm") - depth  # 1 with mean-pooled latents
+    if pooled:
+        p.param(f"{path}/TokenLayerNorm_0/g", f"{key}.to_latents_from_mean_pooled.0.g", out)
+        p.dense(f"{path}/Dense_0", f"{key}.to_latents_from_mean_pooled.1", out)
+    for d in range(depth):
+        att, k = f"{path}/PerceiverAttention_{d}", f"{key}.layers.{d}"
+        for i, name in enumerate(("norm", "norm_latents")):
+            p.norm(f"{att}/LayerNorm_{i}", f"{k}.0.{name}", out)
+        for i, name in enumerate(("to_q", "to_kv", "to_out")):
+            p.dense(f"{att}/Dense_{i}", f"{k}.0.{name}", out)
+        p.norm(f"{att}/LayerNorm_2", f"{k}.0.out_norm", out)
+        p.param(f"{path}/TokenLayerNorm_{pooled + d}/g", f"{k}.1.0.g", out)
+        p.dense(f"{path}/Dense_{pooled + 2 * d}", f"{k}.1.1", out)
+        p.dense(f"{path}/Dense_{pooled + 2 * d + 1}", f"{k}.1.3", out)
+
+
+def video_state_dict_from_jax_params(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax ``Unet3DVideo`` variables (``{"params": ...}`` or the inner tree)
+    -> port ``Unet3DVideo`` ``state_dict`` (fp32 CPU tensors).
+
+    The JAX module names its stages (``down{i}_init``, ``mid_attn``, ...,
+    which the port keeps) but leaves the rest to flax's automatic names,
+    numbered per class in creation order: at the top ``Conv_{i}`` (the
+    init conv, one per cross-embed kernel), ``TemporalPEG_0`` /
+    ``TemporalAttention_0`` (the init temporal layers),
+    ``LearnedSinusoidalPosEmb_{0,1}``, ``Dense_0..2`` (time hiddens, time
+    tokens, time cond), ``Dense_3..5`` (their lowres counterparts), then
+    the text Dense, ``PerceiverResampler_0``, ``LayerNorm_0`` and two
+    Denses, and the conditioning ``LayerNorm``. This walks them in that
+    order, and raises ``KeyError`` if any JAX parameter is left unread."""
+    p = _Tree(params)
+    out: Dict[str, torch.Tensor] = {}
+    for i in range(p.count("Conv")):
+        p.conv(f"Conv_{i}", f"init_conv.{i}", out)
+    if p.has("TemporalPEG_0"):
+        p.conv("TemporalPEG_0/Conv_0", "init_temporal_peg", out)
+        _v_attention(p, "TemporalAttention_0/VideoAttention_0", "init_temporal_attn.attn", out)
+    p.param("LearnedSinusoidalPosEmb_0/weights", "to_time_hiddens.0.weights", out)
+    p.dense("Dense_0", "to_time_hiddens.1", out)
+    p.dense("Dense_1", "to_time_tokens", out)
+    p.dense("Dense_2", "to_time_cond", out)
+    dense = 3
+    if p.has("LearnedSinusoidalPosEmb_1"):
+        p.param("LearnedSinusoidalPosEmb_1/weights", "to_lowres_time_hiddens.0.weights", out)
+        p.dense("Dense_3", "to_lowres_time_hiddens.1", out)
+        p.dense("Dense_4", "to_lowres_time_tokens", out)
+        p.dense("Dense_5", "to_lowres_time_cond", out)
+        dense = 6
+    layer_norm = 0
+    if p.has("null_text_embed"):
+        p.dense(f"Dense_{dense}", "text_to_cond", out)
+        p.param("null_text_embed", "null_text_embed", out)
+        if p.has("PerceiverResampler_0"):
+            _v_perceiver(p, "PerceiverResampler_0", "attn_pool", out)
+        p.norm("LayerNorm_0", "to_text_non_attn_cond.0", out)
+        p.dense(f"Dense_{dense + 1}", "to_text_non_attn_cond.1", out)
+        p.dense(f"Dense_{dense + 2}", "to_text_non_attn_cond.3", out)
+        p.param("null_text_hidden", "null_text_hidden", out)
+        layer_norm = 1
+    p.norm(f"LayerNorm_{layer_norm}", "norm_cond", out)
+
+    names = sorted({path.split("/")[0] for path in p.flat})
+    for name in names:
+        if re.fullmatch(r"(down|up)\d+_(init|block\d+)|mid_block[12]|init_resnet_block"
+                        r"|final_res_block", name):
+            _v_resnet(p, name, name, out)
+        elif re.fullmatch(r"(down|up)\d+_attn", name):
+            _v_transformer(p, name, name, out)
+        elif name == "mid_attn":
+            _v_attention(p, name, name, out)
+        elif re.fullmatch(r"(down|up|mid)\d*_peg", name):
+            p.conv(f"{name}/Conv_0", name, out)
+        elif re.fullmatch(r"(down|up|mid)\d*_tattn", name):
+            _v_attention(p, f"{name}/VideoAttention_0", f"{name}.attn", out)
+        elif re.fullmatch(r"down\d+_(pre|post|tdown)|up\d+_(tup|upsample)", name):
+            p.conv(f"{name}/Conv_0", f"{name}.conv", out)
+        elif re.fullmatch(r"down\d+_post_[ab]|final_conv", name):
+            p.conv(name, name, out)
+
+    unread = sorted(set(p.flat) - p.read)
+    if unread:
+        raise KeyError(f"JAX parameters the converter left unread: {unread}")
     return out

@@ -36,6 +36,7 @@ from diffusioniqt_tpu_torch.ops import kernels
 from diffusioniqt_tpu_torch.ops.attention import attention_plain, scaled_dot_product_attention
 from diffusioniqt_tpu_torch.ops.kernels.flash_attention import check_flash_args, flash_attention
 from diffusioniqt_tpu_torch.ops.volume import upsample_trilinear
+from diffusioniqt_tpu_torch.utils import convert as port_convert
 from diffusioniqt_tpu_torch.utils.convert import state_dict_from_jax_params
 
 torch.set_num_threads(1)
@@ -160,8 +161,39 @@ def test_voxel_attention(att_type, patch):
     want = cls_j(12, dim_head=8, heads=3, patch_size=2, patch=patch, dtype=jnp.float32).apply(
         {"params": tc._attention(_sd(port), "m")}, jnp.asarray(x))
     _close(port(torch.from_numpy(x)), want)
-    with pytest.raises(NotImplementedError):
+    # built without context_dim, the module refuses a text context
+    with pytest.raises(ValueError, match="context_dim"):
         port(torch.from_numpy(x), context=torch.zeros(2, 3, 12))
+
+
+@pytest.mark.parametrize("att_type", ["linear", "softmax"])
+@pytest.mark.parametrize("patch", [False, True])
+def test_voxel_attention_with_text_context(att_type, patch):
+    """The text context's LayerNorm and bias-free projection give per-head
+    keys and values after the voxel tokens' (JAX attention.py:162-171,
+    222-231): softmax attention takes Nq = N queries against Nk = N + L
+    keys (the flash kernel's plain version here)."""
+    cls_t = ta.LinearAttention if att_type == "linear" else ta.SoftMaxAttention
+    cls_j = ja.LinearAttention if att_type == "linear" else ja.SoftMaxAttention
+    port = _randomize(cls_t(12, dim_head=8, heads=3, patch_size=2, patch=patch,
+                            context_dim=10), 21)
+    x, ctx = _rand((2, 4, 6, 4, 12), 22), _rand((2, 5, 10), 23)
+    sd = _sd(port)
+    params = tc._attention(sd, "m")
+    params["LayerNorm_0"] = {"scale": sd["m.to_context.0.weight"].numpy(),
+                             "bias": sd["m.to_context.0.bias"].numpy()}
+    params["Dense_0"] = {"kernel": sd["m.to_context.1.weight"].numpy().T}
+    want = cls_j(12, dim_head=8, heads=3, patch_size=2, patch=patch, context_dim=10,
+                 dtype=jnp.float32).apply({"params": params}, jnp.asarray(x),
+                                          context=jnp.asarray(ctx))
+    _close(port(torch.from_numpy(x), context=torch.from_numpy(ctx)), want,
+           rtol=0, atol=1e-4 * np.abs(np.asarray(want)).max())
+    # the flax tree converts back to the same state dict
+    back = {}
+    port_convert._voxel_attention(params, "m", back)
+    assert set(back) == set(sd)
+    for key, val in sd.items():
+        torch.testing.assert_close(back[key], val)
 
 
 def test_chan_feed_forward():

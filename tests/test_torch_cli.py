@@ -25,6 +25,7 @@ from diffusioniqt_tpu_torch.diffusion.elucidated import ElucidatedImagen
 from diffusioniqt_tpu_torch.diffusion.gaussian import Imagen
 from diffusioniqt_tpu_torch.models.unet2d import UNet2D
 from diffusioniqt_tpu_torch.models.unet3d import NullUnet, UNet3D
+from diffusioniqt_tpu_torch.models.unet_video import Unet3DVideo
 
 torch.set_num_threads(1)
 
@@ -67,8 +68,14 @@ def test_unet_config_kinds():
                                        "layer_attns": [False, True]}).create("cpu")
     assert isinstance(unet2d, UNet2D) and unet2d.down_attn == [False, True]
     assert unet2d.dtype == torch.float32 and not unet2d.lowres_cond
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmc.UnetConfig(kind="video").create("cpu")
+    # kind video builds the port's Unet3DVideo with the JSON's fields, and
+    # the cascade's cast (stage 2 lowres-conditioned) reaches it
+    video = tmc.UnetConfig.from_dict({"kind": "video", "dim": 8, "dim_mults": [1, 2],
+                                      "channels": 1, "text_embed_dim": 16,
+                                      "temporal_strides": [1, 2]}).create(
+        "cpu", lowres_cond=True, channels=1, channels_out=1)
+    assert isinstance(video, Unet3DVideo) and video.lowres_cond
+    assert video.total_temporal_divisor == 2 and video.dtype == torch.float32
     with pytest.raises(ValueError, match="unknown"):
         tmc.UnetConfig(kind="nope").create("cpu")
 

@@ -331,6 +331,76 @@ def test_flash_attention_more_keys_than_queries(dev):
     _close(kernels.flash_attention(q, k, v, 0.125), kernels.attention_plain(q, k, v, 0.125))
 
 
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("nq,nk", [(1728, 1744), (1744, 1728), (100, 116), (116, 100),
+                                   (3600, 3616)])
+def test_flash_attention_with_other_key_counts(dev, nq, nk, d):
+    """Nk != Nq both ways (a text context adds keys: 12^3 voxel tokens and
+    16 text tokens), with ragged query and key tiles."""
+    g = torch.Generator(device=dev).manual_seed(nq * 7 + nk + d)
+    q = torch.randn((16, nq, d), generator=g, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((16, nk, d), generator=g, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    kernels.reset_launch_counts()
+    got = kernels.flash_attention(q, k, v, d ** -0.5)
+    assert kernels.launch_counts()["flash_attention"] == 1 and got.shape == q.shape
+    _close(got, kernels.attention_plain(q, k, v, d ** -0.5))
+
+
+def test_softmax_attention_with_text_context_through_the_kernel(dev):
+    """A SoftMaxAttention slot given a text context launches flash once, at
+    Nq = N voxel tokens against Nk = N + L keys, and agrees with the plain
+    path."""
+    from diffusioniqt_tpu_torch.models.attention import SoftMaxAttention
+
+    torch.manual_seed(0)
+    slot = SoftMaxAttention(32, dim_head=64, heads=4, patch_size=2, patch=True,
+                            context_dim=48).to(dev).eval()
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((2, 24, 24, 24, 32), generator=g, device=dev).to(torch.bfloat16)
+    ctx = torch.randn((2, 7, 48), generator=g, device=dev)
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        got = slot(x, context=ctx)
+        assert kernels.launch_counts()["flash_attention"] == 1
+        slot.ops = kernels.PLAIN
+        want = slot(x, context=ctx)
+    _close(got, want, 5e-2)
+
+
+def test_video_unet_on_the_card_equals_its_cpu_forward(dev):
+    """A small text-conditioned Unet3DVideo (every gate and the final conv
+    drawn) in fp32 on the card, TF32 off, within 1e-4 of the largest entry
+    of its CPU forward; it launches no hand-written kernel."""
+    from diffusioniqt_tpu_torch.models.unet_video import Unet3DVideo
+
+    torch.manual_seed(0)
+    unet = Unet3DVideo(dim=16, dim_mults=(1, 2), num_resnet_blocks=1, channels=1,
+                       attn_dim_head=8, attn_heads=2, layer_attns=(False, True),
+                       text_embed_dim=32, max_text_len=8, attn_pool_num_latents=4,
+                       temporal_strides=(1, 2)).eval()
+    with torch.no_grad():
+        for name, p in unet.named_parameters():
+            if name.endswith("out_gate") or name.startswith("final_conv"):
+                p.normal_(0.0, 0.5)
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn((2, 4, 16, 16, 1), generator=g)
+    t = torch.tensor([0.3, -1.0])
+    text = torch.randn((2, 6, 32), generator=g)
+    mask = torch.tensor([[True] * 6, [True] * 4 + [False] * 2])
+    with torch.no_grad():
+        want = unet(x, t, t, text_embeds=text, text_mask=mask)
+        card = copy.deepcopy(unet).to(dev)
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            torch.backends.cuda.matmul.allow_tf32 = False
+            kernels.reset_launch_counts()
+            got = card(x.to(dev), t.to(dev), t.to(dev), text_embeds=text.to(dev),
+                       text_mask=mask.to(dev)).cpu()
+    assert not any(kernels.launch_counts().values())
+    assert want.abs().max() > 0
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * want.abs().max().item())
+
+
 def test_flash_attention_refuses_what_the_kernel_does_not_take(dev):
     q = torch.randn((4, 64, 48), device=dev).to(torch.bfloat16)
     with pytest.raises(ValueError, match="head dim 48"):

@@ -285,12 +285,19 @@ def test_lowres_noise_aug_q_sample_matches_jax():
 
 
 def test_unported_sample_options_raise(pair):
+    """The sample options that once raised: text goes only to a U-Net whose
+    forward takes it (JAX elucidated.py:211-219), so the IQT UNet3D's
+    sample is unchanged by it; ``video_frames`` samples ``(B, F, size,
+    size, C)``, here F = size, the same volumes. The video U-Net's paths
+    are in ``tests/test_torch_video_edm.py``."""
     timagen = pair[2]
-    lowres = torch.zeros(SHAPE)
-    for kw in ({"video_frames": 4}, {"text_embeds": torch.zeros(B, 2, 8)}):
-        with pytest.raises(NotImplementedError):
-            timagen.sample(batch_size=B, noise=torch.randn, start_at_unet_number=2,
-                           start_image_or_video=lowres, **kw)
+    lowres = torch.from_numpy(_rand(SHAPE, 7))
+    noise = [_rand(SHAPE, 200 + i) for i in range(5)]
+    kw = dict(batch_size=B, start_at_unet_number=2, start_image_or_video=lowres)
+    plain = timagen.sample(noise=_noise_from(noise), **kw)
+    for extra in ({"video_frames": EDGE}, {"text_embeds": torch.zeros(B, 2, 8)}):
+        got = timagen.sample(noise=_noise_from(noise), **kw, **extra)
+        torch.testing.assert_close(got, plain, rtol=0, atol=0)
 
 
 def test_config_chooses_the_sampler():

@@ -1,8 +1,9 @@
 """The port's fresh parameters against the JAX package's flax initialisers
 (``models/blocks.py::lecun_normal_`` and ``LecunInit``): on a narrow
 UNet3D (softmax attention slots, the mid ResnetBlock, the deconv upsample)
-and a narrow UNet2D (softmax and linear attention, the pixel-shuffle
-upsample), each tensor of a fresh port module beside the same tensor of a
+a narrow UNet2D (softmax and linear attention, the pixel-shuffle
+upsample) and a narrow text-conditioned Unet3DVideo (temporal stride 2, a
+transformer block, the Perceiver, global-context gates), each tensor of a fresh port module beside the same tensor of a
 JAX ``init`` converted to the port's names:
 
   * every tensor the JAX init zeroes (conv and dense biases, norm biases)
@@ -13,7 +14,12 @@ JAX ``init`` converted to the port's names:
   * no kernel entry lies beyond the initialiser's bound: two standard
     deviations of flax's truncated normal, ``2 sqrt(1 / fan_in) /
     0.8796``, or ``sqrt(6 / fan_in)`` for the pixel-shuffle conv's
-    ``kaiming_uniform`` ICNR base; the JAX tensors stay within it too."""
+    ``kaiming_uniform`` ICNR base; the JAX tensors stay within it too;
+  * the video U-Net's temporal convs are the identity at their last tap,
+    as the JAX ``_identity_temporal_init``, and its normal(1) tensors
+    (``null_kv``, ``null_attn_bias``, ``null_text_embed``,
+    ``null_text_hidden``, the Perceiver's ``latents`` and ``pos_emb``)
+    have, pooled, a standard deviation within 10% of 1."""
 
 import math
 
@@ -25,12 +31,15 @@ import torch
 
 from diffusioniqt_tpu.models.unet2d import UNet2D as JUNet2D
 from diffusioniqt_tpu.models.unet3d import UNet3D as JUNet3D
+from diffusioniqt_tpu.models.unet_video import Unet3DVideo as JUnet3DVideo
 from diffusioniqt_tpu_torch.models.blocks import TRUNCATED_NORMAL_STD
 from diffusioniqt_tpu_torch.models.unet2d import UNet2D
 from diffusioniqt_tpu_torch.models.unet3d import UNet3D
+from diffusioniqt_tpu_torch.models.unet_video import Unet3DVideo
 from diffusioniqt_tpu_torch.utils.convert import (
     state_dict_from_jax_params,
     unet2d_state_dict_from_jax_params,
+    video_state_dict_from_jax_params,
 )
 
 torch.set_num_threads(1)
@@ -44,6 +53,13 @@ UNET3D = dict(dim=16, init_dim=16, num_resnet_blocks=1, dim_mults=(1, 2), channe
 UNET2D = dict(dim=16, dim_mults=(1, 2), num_resnet_blocks=1, channels=1, lowres_cond=True,
               resnet_groups=4, att_type="softmax", layer_attns=(False, True),
               attend_at_middle=True, attn_heads=2, attn_dim_head=16)
+VIDEO = dict(dim=16, dim_mults=(1, 2), num_resnet_blocks=1, channels=1, resnet_groups=4,
+             attn_dim_head=8, attn_heads=2, layer_attns=(False, True),
+             layer_cross_attns=(False, True), init_cross_embed=False, init_conv_kernel_size=3,
+             text_embed_dim=32, max_text_len=8, attn_pool_num_latents=4,
+             temporal_strides=(1, 2))
+NORMAL_1 = ("null_kv", "null_attn_bias", "null_text_embed", "null_text_hidden", "latents",
+            "pos_emb")
 
 
 def _fan_in(key: str, w: torch.Tensor) -> int:
@@ -53,7 +69,7 @@ def _fan_in(key: str, w: torch.Tensor) -> int:
 
 
 def _is_icnr(key: str) -> bool:
-    return ".net.0." in key or "_upsample.conv." in key
+    return ".net.0." in key or "_upsample.conv." in key or "_tup.conv." in key
 
 
 def _check(port: torch.nn.Module, jax_sd: dict) -> int:
@@ -63,7 +79,9 @@ def _check(port: torch.nn.Module, jax_sd: dict) -> int:
     for key, want in jax_sd.items():
         got = port_sd[key].float()
         want = want.float()
-        if torch.all(want == 0):
+        if key.endswith("temporal.weight"):  # the identity at the last tap
+            assert torch.equal(got, want), key
+        elif torch.all(want == 0):
             assert torch.all(got == 0), key
         elif torch.all(want == 1):
             assert torch.all(got == 1), key
@@ -101,3 +119,19 @@ def test_unet2d_draws_the_jax_initialisers():
         jax.random.PRNGKey(0), x, t, t, lowres_cond_img=x)
     jax_sd = unet2d_state_dict_from_jax_params(jax.device_get(params))
     assert _check(UNet2D(**UNET2D), jax_sd) >= 10
+
+
+def test_unet3d_video_draws_the_jax_initialisers():
+    x = jnp.zeros((1, 4, 16, 16, 1))
+    t = jnp.zeros((1,))
+    params = jax.jit(JUnet3DVideo(**VIDEO, dtype=jnp.float32).init)(
+        jax.random.PRNGKey(0), x, t, t, text_embeds=jnp.zeros((1, 8, 32)))
+    jax_sd = video_state_dict_from_jax_params(jax.device_get(params))
+    port = Unet3DVideo(**VIDEO)
+    assert _check(port, jax_sd) >= 10
+    port_sd = port.state_dict()
+    for sd in (port_sd, jax_sd):
+        pooled = torch.cat([v.flatten() for k, v in sd.items() if k.endswith(NORMAL_1)])
+        assert pooled.numel() > 4096 and abs(pooled.std().item() - 1.0) < 0.1
+    assert not any(port_sd[k].any() for k in port_sd if k.endswith("out_gate"))
+    assert not port_sd["final_conv.weight"].any() and not port_sd["final_conv.bias"].any()
