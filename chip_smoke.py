@@ -32,7 +32,10 @@ Phases, each of which raises (and exits non-zero) on failure:
                 BRICK_ROUTE_MARGIN, on a card at the recorded power limit);
                 flash attention at the attention config's (64, 1728, 64) and
                 at serve-2d's (128, 3600, 32), and at attn-context's
-                (64, Nq 1728, Nk 1744, 64)
+                (64, Nq 1728, Nk 1744, 64); the fused Block at the column
+                shards of tensor parallelism (TP_FUSED_SHAPES: Cout / M 32
+                and 16 at 32^3, and the shard shapes tp-train launches) and
+                the small-edge route at (216, 4^3, 256->128)
   forward       the full-width ``config/eval_config.yaml`` UNet3D (seeded
                 random weights, bf16) on one 27 x 32^3 group, through the
                 kernels and through the plain versions; launches per forward
@@ -154,6 +157,31 @@ Phases, each of which raises (and exits non-zero) on failure:
                 the same global noise (and the difference one process
                 shows between 108 and 216 rows per call is printed)
 
+  tp-train      tensor-parallel training (the trainer's DP x TP branch: the
+                column split of ``parallel/sharding.py``): the EDM flagship at
+                full width over a (data 1, model 2) mesh of 2 gloo ranks
+                sharing the card (gloo stages every collective through the
+                host: correctness and overhead, not speed), 2 steps of 2
+                crops of 96^3 in 2 microbatches of 27 x 32^3, the EMA every
+                step. Held against the 1-rank trainer on the same weights,
+                batches and draws: every loss within DDP_LOSS_REL_TOL of the
+                free-running 1-rank trainer's, and step 2's also of the
+                1-rank step from the mesh run's bundle of step 1 (saved
+                under TP: the shards gathered); that bundle against the
+                1-rank state after step 1 (parameters and EMA within
+                TP_STEP1_LR_BOUND lr,
+                Adam's first moments by the gradient criteria); the
+                gradients of step 1 and of step 2 from that bundle gathered
+                whole by ddp-train's criteria; the replicated parameters
+                bitwise equal in each model group; the fused Block's launches exactly the 1-rank
+                run's shapes at Cout / 2 (66 parameters sharded, 38 Blocks);
+                the all-gathers and all-reduces per microbatch (count,
+                bytes), peak memory per rank
+  tp-serve      one EDM call (TP_SERVE_STEPS Heun steps) of one 96^3 window
+                through ``ImagenTrainer.sample`` over the same 2 ranks,
+                within DDP_SERVE_REL_TOL of the 1-rank call on the same
+                weights and noise, the same launches at Cout / 2
+
   forward-efficient  ``config/eval_config.yaml`` with ``Train.efficient: True``
                 (a pixel-unshuffle before every level, levels at 16^3, 8^3
                 and 4^3; every up level upsamples) at full width: one
@@ -250,6 +278,20 @@ the plain composition, which gathers nothing.
 serve, ddp-train and ddp-serve, and prints no result line: the data-parallel
 path and what it is held against, for a run on a machine with several
 cards.
+``python3 chip_smoke.py --tp-only`` runs, after the kernels phase, only the
+tensor-parallel phases and prints no result line: with 4 cards or more,
+tp-train's comparison over NCCL at data 2 x model 2 and at data 4 x model
+1 (each against the 1-rank trainer on its global batch, then TP_TIMED_STEPS
+more steps timed, then one with every collective synchronised and timed),
+s per step and crops per second (median and min-max of the timed steps),
+the collectives' ms and bytes, peak memory per rank; with fewer, tp-train
+and tp-serve as above.
+``python3 chip_smoke.py --host-paths`` runs, after the kernels phase, only
+the paths whose pace the host sets (preset-srunet256, video-forward,
+serve-video, train), each timed HOST_REPEATS times or more, and prints no
+result line: a copy of this script placed in another checkout of the
+repository (``git archive`` of a parent commit) times that checkout's
+Python layers the same way.
 ``python3 chip_smoke.py --kernels-only`` stops after the kernels phase and
 prints no result line: a copy of this script placed in another checkout of
 the repository times that checkout's kernels the same way.
@@ -268,7 +310,10 @@ launch), launched in serve-efficient, headed by the (216, 4^3, 256->256)
 shape, every shape of SMALL_EDGE_SHAPES in its ``shapes`` list; flash
 attention's ``shapes`` list holds its serve-attn, serve-2d and
 attn-context rows, each with its launches; every kernel's
-``launches_by_path`` has the video phases' zeros); the last line is ``{"ok": true, "device": {...}}``. Imports
+``launches_by_path`` has the video phases' zeros and tp-train's and
+tp-serve's launches (rank 0); the fused Block's ``tp_shapes`` rows hold
+the column shards' times with tp-train's launches at each shape); the last
+line is ``{"ok": true, "device": {...}}``. Imports
 nothing of JAX or of ``diffusioniqt_tpu``. Exits non-zero without CUDA.
 """
 
@@ -438,7 +483,35 @@ SRUNET_COUNTS = {"halo": 108, "conv3d": 0, "fused_block": 52, "fused_block_small
 # ops/kernels/fused_block.py::SMALL_EDGE_SHAPES, written out so that a copy
 # of this script times an older checkout's kernels too
 SMALL_EDGE_SHAPES = [(BATCH, 4, 256, 256, 3), (GROUP, 4, 256, 256, 3), (GROUP, 4, 512, 512, 1),
-                     (GROUP, 4, 1024, 512, 1), (GROUP, 2, 1024, 1024, 1)]
+                     (GROUP, 4, 1024, 512, 1), (GROUP, 2, 1024, 1024, 1),
+                     (BATCH, 4, 256, 128, 3)]
+# (s, Cin, Cout / M) of the fused Block under a column split, at the serve
+# batch: the flagship's level-0 Block 64->64 at M = 2 and 4, and the wider
+# levels' at M = 2 (16^3 128->128, 8^3 256->256); then the other shard
+# shapes that tp-train launches (M = 2: the flagship's Blocks 64->64 at
+# 16^3, 128->128 at 8^3, 192->128 at 16^3, 128->64 at 32^3). The small-edge
+# route's (216, 4^3, 256->128) is the last row of SMALL_EDGE_SHAPES
+TP_FUSED_SHAPES = [(32, 64, 32), (16, 128, 64), (8, 256, 128), (32, 64, 16),
+                   (16, 64, 32), (8, 128, 64), (16, 192, 64), (32, 128, 32)]
+# tp-train / --tp-only: crops of 96^3 per data rank per step, microbatches
+# per step (27 x 32^3 each on one data rank), steps held against the 1-rank
+# trainer (one more step follows with every collective timed); tp-serve:
+# Heun steps of its one EDM call (7 forwards; cut from the config's 64: on
+# one card gloo stages every gathered activation through the host)
+TP_CROPS_PER_DATA_RANK, TP_ACCUM, TP_STEPS, TP_SERVE_STEPS = 2, 2, 2, 4
+# --tp-only on 4 cards: steps timed after the compared ones (their median
+# and min-max give s per step and crops per second)
+TP_TIMED_STEPS = 5
+# tp-train: the state after step 1 against the 1-rank state, in units of the
+# learning rate. Adam's first update is about lr * sign(g), so where a
+# rounding-level gradient entry takes the other sign the two runs' weights
+# (and EMA) lie 2 lr apart (2.000e-4 read at lr 1e-4 on an H100); 1% more
+# for the rounding of fp32 weights near 1, an ulp of which is 6e-4 of 2 lr
+# at lr 1e-4
+TP_STEP1_LR_BOUND = 2.02
+# repeats of the host-bound paths' timings (the video forward, the video
+# and SRUnet256 sampler calls): median and min-max
+HOST_REPEATS = 3
 # the brick route's headline row: the min-max of 5 device timings that
 # PERF.md's kernel table records for it before the small-edge route moved to
 # its own kernel (H100 80GB HBM3, 700 W). This run's median must lie within
@@ -872,6 +945,180 @@ def ddp_serve_rank(device, cfg, edge, windows):
     return out
 
 
+class CollectiveLog:
+    """Counts the ``torch.distributed`` collectives this process issues (by
+    kind: calls and bytes moved into or out of this rank's buffers) and,
+    while ``timed``, their host time with the device synchronised before
+    and after each (measurement only)."""
+
+    KINDS = ("all_gather", "all_reduce")
+
+    def __init__(self):
+        import torch.distributed as dist
+
+        self.dist, self.real = dist, {k: getattr(dist, k) for k in self.KINDS}
+        self.timed = False
+        self.reset()
+
+    def reset(self):
+        self.calls, self.bytes = collections.Counter(), collections.Counter()
+        self.ms = collections.Counter()
+
+    def install(self):
+        for kind, real in self.real.items():
+            def wrapped(*args, _kind=kind, _real=real, **kw):
+                t = args[1] if _kind == "all_gather" else args[0]
+                n = t.numel() * t.element_size() * (len(args[0]) if _kind == "all_gather" else 1)
+                self.calls[_kind] += 1
+                self.bytes[_kind] += n
+                if not self.timed:
+                    return _real(*args, **kw)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _real(*args, **kw)
+                torch.cuda.synchronize()
+                self.ms[_kind] += (time.perf_counter() - t0) * 1e3
+                return out
+            setattr(self.dist, kind, wrapped)
+
+    def uninstall(self):
+        for kind, real in self.real.items():
+            setattr(self.dist, kind, real)
+
+    def summary(self, per: int = 1) -> dict:
+        return {k: {"calls": self.calls[k] / per, "bytes": self.bytes[k] / per,
+                    **({"ms": self.ms[k] / per} if self.ms else {})}
+                for k in self.KINDS if self.calls[k]}
+
+
+def shape_recording_ops(seen):
+    """The kernels, counting in ``seen`` the (B, s, Cin, Cout) of every
+    fused Block launch (both routes)."""
+    from diffusioniqt_tpu_torch.ops.kernels import KERNELS, Ops
+
+    def fused_conv(xh, a_tab, b_tab, w, cache=None):
+        seen[(xh.shape[0], xh.shape[1] - 2, xh.shape[4], w.shape[0])] += 1
+        return KERNELS.fused_conv(xh, a_tab, b_tab, w, cache)
+
+    return Ops(halo=KERNELS.halo, conv3d=KERNELS.conv3d, fused_conv=fused_conv,
+               attention=KERNELS.attention)
+
+
+def tp_train_rank(device, cfg, batches, mesh_shape, bundle, timed_steps):
+    """One rank of tp-train (and of --tp-only): the trainer over a (data,
+    model) mesh, one optimizer step per global batch, the state after the
+    first saved to ``bundle`` (the one-process format: shards gathered);
+    with ``timed_steps``, that many more steps over the batches again,
+    timed, then one with every collective timed. Returns the compared
+    steps' losses, s per step, launches and fused Block shapes, the
+    collectives of step 1, the gradients of steps 1 and 2 gathered whole
+    (rank 0), this rank's replicated parameters, the peak memory, the
+    timed steps' seconds."""
+    import torch.distributed as dist
+
+    from diffusioniqt_tpu_torch.ops import kernels
+    from diffusioniqt_tpu_torch.parallel import sharding
+    from diffusioniqt_tpu_torch.parallel.mesh import create_mesh
+    from diffusioniqt_tpu_torch.train.__main__ import build_trainer
+
+    card_settings()
+    mesh = create_mesh(("data", "model"), mesh_shape)
+    trainer = build_trainer(cfg, device, mesh=mesh)
+    trainer.prepare()
+    unet = trainer.imagen.unets[1]
+    shapes = collections.Counter()
+    unet.use_ops(shape_recording_ops(shapes))
+    log = CollectiveLog()
+    log.install()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    kernels.reset_launch_counts()
+    log.reset()
+    losses, step_s, grads = [], [], []
+    for i, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(trainer.train_step(unet_number=2, batch=batch))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        if i == 0:
+            comms = log.summary()
+        log.uninstall()  # what follows is measurement, not the step's
+        if i < 2:
+            g = sharding.gather_state({k: p.grad.detach() for k, p in unet.named_parameters()},
+                                      trainer.shard_dims[1], mesh)
+            grads.append({k: v.cpu() for k, v in g.items()} if dist.get_rank() == 0 else None)
+        if i == 0:
+            trainer.save(bundle)
+        log.install()
+        log.reset()
+    counts, fused = kernels.launch_counts(), dict(shapes)
+    peak = torch.cuda.max_memory_allocated(device)
+    log.uninstall()
+    extra_s = []
+    for i in range(timed_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(unet_number=2, batch=batches[i % len(batches)])
+        torch.cuda.synchronize()
+        extra_s.append(time.perf_counter() - t0)
+    timed, timed_s = None, None
+    if timed_steps:
+        log.install()
+        log.reset()
+        log.timed = True
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(unet_number=2, batch=batches[-1])
+        timed_s = time.perf_counter() - t0
+        timed = log.summary()
+    log.uninstall()
+    dims = trainer.shard_dims[1]
+    return {"backend": dist.get_backend(), "world": dist.get_world_size(), "device": str(device),
+            "losses": losses, "step_s": step_s, "launches": counts, "shapes": fused,
+            "comms": comms, "timed": timed, "timed_s": timed_s, "extra_s": extra_s,
+            "peak": peak, "grads": grads,
+            "sharded": len(dims),
+            "replicated": {k: v.detach().cpu() for k, v in unet.state_dict().items()
+                           if k not in dims}}
+
+
+def tp_serve_rank(device, cfg, window):
+    """One rank of tp-serve: one EDM call of ``window`` through
+    ``ImagenTrainer.sample`` (the EMA weights: the seeded ones, untrained)
+    over a (1, model) mesh of every rank."""
+    import torch.distributed as dist
+
+    from diffusioniqt_tpu_torch.diffusion.gaussian import gaussian_noise
+    from diffusioniqt_tpu_torch.ops import kernels
+    from diffusioniqt_tpu_torch.parallel.mesh import create_mesh
+    from diffusioniqt_tpu_torch.train.__main__ import build_trainer
+
+    card_settings()
+    trainer = build_trainer(cfg, device, mesh=create_mesh(("data", "model"),
+                                                          (1, dist.get_world_size())))
+    trainer.prepare()
+    shapes = collections.Counter()
+    trainer.ema_unets[1].use_ops(shape_recording_ops(shapes))
+    log = CollectiveLog()
+    log.install()
+    window = window.to(device)
+    torch.cuda.synchronize()
+    dist.barrier()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = trainer.sample(batch_size=window.shape[0], start_image_or_video=window,
+                         start_at_unet_number=2,
+                         noise=gaussian_noise(torch.Generator(device=device).manual_seed(2)))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    log.uninstall()
+    return {"out": out.cpu() if dist.get_rank() == 0 else None, "seconds": seconds,
+            "launches": kernels.launch_counts(), "shapes": dict(shapes), "comms": log.summary(),
+            "peak": torch.cuda.max_memory_allocated(device)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs "
@@ -1007,7 +1254,10 @@ def main() -> int:
         results["conv3d"][-1]["kernel_route"] = conv_route(cin)
         del xh, got, want, x_cf
 
-    for s, cin, cout in FUSED_SHAPES:
+    # the path's shapes, then the column shards' (TP_FUSED_SHAPES), recorded
+    # apart as fused_block_tp
+    for i, (s, cin, cout) in enumerate(FUSED_SHAPES + TP_FUSED_SHAPES):
+        row_name = "fused_block" if i < len(FUSED_SHAPES) else "fused_block_tp"
         x = torch.randn((BATCH, s, s, s, cin), generator=gen, device=dev).to(torch.bfloat16)
         ns = 1.0 + 0.1 * torch.randn(cin, generator=gen, device=dev)
         nb = 0.1 * torch.randn(cin, generator=gen, device=dev)
@@ -1030,7 +1280,7 @@ def main() -> int:
         act_cf = act.to(torch.bfloat16).permute(0, 4, 1, 2, 3)
         w_bf = w.to(torch.bfloat16)
         del act
-        record("fused_block", (BATCH, s, cin, cout), stats,
+        record(row_name, (BATCH, s, cin, cout), stats,
                timed(lambda: kernels.fused_conv(xh, a_tab, b_tab, w, cache)),
                cuda_time_ms(lambda: kernels.fused_conv_plain(xh, a_tab, b_tab, w), iters=3),
                None, bound_ms(flops, nbytes(xh, a_tab, b_tab, w_bf, got)),
@@ -1516,12 +1766,24 @@ def main() -> int:
                                 noise=gaussian_noise(torch.Generator(device=dev).manual_seed(0)),
                                 start_at_unet_number=2, start_image_or_video=lowres)
         torch.cuda.synchronize()
-        call_s = time.perf_counter() - t0
+        calls = [time.perf_counter() - t0]
         counts = kernels.launch_counts()
         peak = torch.cuda.max_memory_allocated()
-        print(f"SRUnet256 {sum(p.numel() for p in model.parameters())} parameters; one "
-              f"{steps}-step ancestral call of a 96^3 window: {call_s:.3f} s, "
-              f"{call_s * 1e3 / steps:.3f} ms per step; held forward {held['ms']:.3f} ms, "
+        for _ in range(HOST_REPEATS - 1):  # the same call again, for the spread
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                imagen.sample(batch_size=GROUP,
+                              noise=gaussian_noise(torch.Generator(device=dev).manual_seed(0)),
+                              start_at_unet_number=2, start_image_or_video=lowres)
+            torch.cuda.synchronize()
+            calls.append(time.perf_counter() - t0)
+        calls.sort()
+        call_s = calls[len(calls) // 2]
+        print(f"SRUnet256 {sum(p.numel() for p in model.parameters())} parameters; a "
+              f"{steps}-step ancestral call of a 96^3 window: {call_s:.3f} s [{calls[0]:.3f}-"
+              f"{calls[-1]:.3f}] over {len(calls)} calls, {call_s * 1e3 / steps:.3f} ms per step "
+              f"[{calls[0] * 1e3 / steps:.3f}-{calls[-1] * 1e3 / steps:.3f}]; held forward "
+              f"{held['ms']:.3f} ms, "
               f"{held['gflop']:.1f} GFLOP in the Blocks' convs; peak memory "
               f"{peak / 2 ** 30:.2f} GiB; out {tuple(out.shape)} finite "
               f"{bool(torch.isfinite(out).all())}; launches {counts}", flush=True)
@@ -1774,7 +2036,8 @@ def main() -> int:
         med = sorted(step_s[1:])[len(step_s[1:]) // 2]
         print(f"train losses {' '.join(f'{v:.4f}' for v in losses)}")
         print(f"step seconds {' '.join(f'{v:.3f}' for v in step_s)}; median of steps 2-"
-              f"{TRAIN_STEPS} {med:.4f} s, {TRAIN_PATCHES / med:.3f} patches/s of 96^3; peak "
+              f"{TRAIN_STEPS} {med:.4f} s [{min(step_s[1:]):.4f}-{max(step_s[1:]):.4f}], "
+              f"{TRAIN_PATCHES / med:.3f} patches/s of 96^3; peak "
               f"memory {peak / 2 ** 30:.2f} GiB; launches {counts} ({want['halo'] // TRAIN_STEPS} "
               f"halos per step); EMA == online after step {TRAIN_STEPS}: {ema_equal}", flush=True)
         if not all(math.isfinite(v) for v in losses):
@@ -2275,6 +2538,232 @@ def main() -> int:
             shutil.rmtree(work, ignore_errors=True)
         return r0["launches"]
 
+    def tp_batches(pairs, data_ranks):
+        """The EDM flagship's config (the EMA every step) and tp-train's
+        global batches: TP_CROPS_PER_DATA_RANK crops of 96^3 per data rank."""
+        cfg = load_config(os.path.join(ROOT, EDM_CONFIG))
+        cfg.data.mean, cfg.data.std = population_stats([lr for _, lr in pairs])
+        cfg.train.gradient_accumulation_steps = TP_ACCUM
+        cfg.train.ema_update_every, cfg.train.ema_update_after_step = 1, 0
+        crops = TP_CROPS_PER_DATA_RANK * data_ranks
+        dataset = SyntheticIQTDataset(cfg, seed=0, samples_per_volume=8, pairs=pairs)
+        items = [dataset[j] for j in range(TP_STEPS * crops)]
+        return cfg, [tuple(np.stack(a) for a in zip(*items[i * crops:(i + 1) * crops]))
+                     for i in range(TP_STEPS)]
+
+    def step1_state(bundle):
+        """A bundle's U-Net parameters, its EMA and Adam's first moments
+        (unet 2), in fp32 on the host."""
+        return ({k: v.float().cpu() for k, v in bundle["model"].items()
+                 if k.startswith("unets.1.")},
+                {k: v.float().cpu() for k, v in bundle["ema"].items()
+                 if k.startswith("1.ema_model.")},
+                {i: st["exp_avg"].float().cpu() for i, st in bundle["optim1"]["state"].items()})
+
+    def tp_reference(cfg, batches, bundle):
+        """The 1-rank trainer on the global batches: losses, s per step, the
+        step-1 gradient, the state after step 1 beside the mesh run's
+        (``bundle``, gathered into the one-process bundle), the fused Block
+        shapes it launched, peak memory, the learning rate of step 1. Then
+        step 2 again from ``bundle``: the gradient the mesh run's step 2 is
+        held to."""
+        ref = build_trainer(cfg, dev)
+        unet = ref.imagen.unets[1]
+        shapes = collections.Counter()
+        unet.use_ops(shape_recording_ops(shapes))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = {"losses": [], "step_s": []}
+        for i, batch in enumerate(batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out["losses"].append(ref.train_step(unet_number=2, batch=batch))
+            torch.cuda.synchronize()
+            out["step_s"].append(time.perf_counter() - t0)
+            if i == 0:
+                out["grads"] = {k: p.grad.detach().cpu() for k, p in unet.named_parameters()}
+                out["state1"] = step1_state(ref.state_bundle())
+        out["mesh_state1"] = step1_state(torch.load(bundle, map_location="cpu",
+                                                    weights_only=False))
+        out["lr"] = ref.schedules[1](0)
+        # the fused Block launches of one microbatch's forward and backward
+        out["per_microbatch"] = {k: n // (TP_STEPS * TP_ACCUM) for k, n in shapes.items()}
+        out.update(shapes=dict(shapes), peak=torch.cuda.max_memory_allocated())
+        ref.load(bundle)
+        out["resynced"] = ref.train_step(unet_number=2, batch=batches[1])
+        out["grads2"] = {k: p.grad.detach().cpu() for k, p in unet.named_parameters()}
+        del ref, unet
+        torch.cuda.empty_cache()
+        return out
+
+    def tp_train(pairs, mesh_shape, backend):
+        """The DP x TP trainer over ``mesh_shape`` ranks against the 1-rank
+        trainer on the same global batches and seed: every loss (step 1
+        from the same weights, step 2 from each run's own step 1, and step 2
+        from the mesh run's bundle of step 1); the state after step 1 (each
+        parameter and EMA entry within TP_STEP1_LR_BOUND lr, Adam's first
+        moments by the gradient criteria); the gradients gathered whole of step 1 and of
+        step 2 from the same bundle; the replicated parameters of each
+        model group bitwise equal; the fused Block's launches exactly the
+        1-rank run's shapes at Cout / M. Returns rank 0's results."""
+        from diffusioniqt_tpu_torch.parallel.multihost import launch
+
+        d, m = mesh_shape
+        cfg, batches = tp_batches(pairs, d)
+        print(f"mesh data {d} x model {m} ({backend or 'nccl'}): {TP_STEPS} global batches of "
+              f"{batches[0][0].shape[0]} crops of {cfg.train.patch_size}^3, accum {TP_ACCUM}",
+              flush=True)
+        work = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+        bundle = os.path.join(work, "step1.pt")
+        torch.cuda.empty_cache()  # the ranks share this card with the cache of earlier phases
+        try:
+            t0 = time.perf_counter()
+            ranks = launch(tp_train_rank, (cfg, batches, mesh_shape, bundle,
+                                           TP_TIMED_STEPS if backend is None else 0),
+                           nprocs=d * m, device="cuda", backend=backend,
+                           timeout_s=DDP_RANK_TIMEOUT_S)
+            launch_s = time.perf_counter() - t0
+            ref = tp_reference(cfg, batches, bundle)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        r0 = ranks[0]
+        # what one rank launches: the 1-rank run's per-microbatch launches at
+        # its own rows (1 / D of each microbatch), every Cout / M
+        (rows1,) = {k[0] for k in ref["shapes"]}
+        want_shapes = {(rows1 // d, s, cin, cout // m): n for (_, s, cin, cout), n
+                       in ref["per_microbatch"].items()}
+        want = {k: TP_STEPS * TP_ACCUM * n for k, n in FLAGSHIP_COUNTS.items()}
+        print(f"backend {r0['backend']} world {r0['world']} devices "
+              f"{[r['device'] for r in ranks]}; sharded parameters {r0['sharded']}"
+              + (" (ranks sharing one card: correctness and overhead, not scaling)"
+                 if backend == "gloo" else ""))
+        print(f"losses {' '.join(f'{v:.6f}' for v in r0['losses'])}; 1 rank "
+              f"{' '.join(f'{v:.6f}' for v in ref['losses'])}")
+        print(f"s per step {' '.join(f'{v:.3f}' for v in r0['step_s'])} (rank 0), 1 rank "
+              f"{' '.join(f'{v:.3f}' for v in ref['step_s'])}; launch of the ranks "
+              f"{launch_s:.1f} s; 1 rank peak memory {ref['peak'] / 2 ** 30:.2f} GiB")
+        for r, rank in enumerate(ranks):
+            timed = ("" if rank["timed"] is None else
+                     f"step {TP_STEPS + 1} with each collective synchronised and timed: "
+                     f"{rank['timed_s']:.3f} s, {rank['timed']}; ")
+            print(f"  rank {r}: collectives of step 1 {rank['comms']}, per microbatch "
+                  f"{ {k: {q: v / TP_ACCUM for q, v in c.items()} for k, c in rank['comms'].items()} }; "
+                  f"{timed}peak memory {rank['peak'] / 2 ** 30:.2f} GiB; launches "
+                  f"{rank['launches']}")
+        print(f"  fused Block shapes per rank {r0['shapes']} (1 rank: {ref['shapes']})",
+              flush=True)
+        unequal = [f"rank {lo + j} {k}" for lo in range(0, d * m, m) for j in range(1, m)
+                   for k, v in ranks[lo]["replicated"].items()
+                   if not torch.equal(v, ranks[lo + j]["replicated"][k])]
+        # step 1 from the same weights; step 2 from each run's own step 1
+        # (free running) and from the mesh run's bundle of step 1
+        stats = [grad_stats(g, w) for g, w in zip(r0["grads"], (ref["grads"], ref["grads2"]))]
+        held = [ref["losses"][0], ref["resynced"]]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], held))
+        free = abs(r0["losses"][1] - ref["losses"][1]) / abs(ref["losses"][1])
+        # the state after step 1 (TP_STEP1_LR_BOUND: a shard saved in the
+        # wrong place or a wrong EMA slice is off by a weight's size); the
+        # first moments are (1 - beta1) times the clipped gradient: the
+        # clip's scale and the moments' shards
+        (p_want, e_want, m_want), (p_got, e_got, m_got) = ref["state1"], ref["mesh_state1"]
+        if (set(p_got), set(e_got), set(m_got)) != (set(p_want), set(e_want), set(m_want)):
+            raise AssertionError("tp-train: the mesh run's bundle names other tensors")
+        p_gap = max(float((p_got[k] - v).abs().max()) for k, v in p_want.items())
+        e_gap = max(float((e_got[k] - v).abs().max()) for k, v in e_want.items())
+        flips = (sum(int(((p_got[k] - v).abs() > ref["lr"]).sum()) for k, v in p_want.items())
+                 / sum(v.numel() for v in p_want.values()))
+        m_per, m_cos, m_norm = grad_stats(m_got, m_want)
+        print(f"  replicated parameters bitwise equal in each model group: {not unequal}")
+        print(f"  after step 1 vs 1 rank: parameters max |diff| {p_gap:.3e}, EMA {e_gap:.3e} "
+              f"(bound {TP_STEP1_LR_BOUND} lr = {TP_STEP1_LR_BOUND * ref['lr']:.3e}), share of "
+              f"parameters more than lr apart {flips:.3e}; Adam first moments whole cos "
+              f"{m_cos:.7f}, norm rel {m_norm:.3e}, per-tensor cos min "
+              f"{min(m_per.values()):.6f}")
+        for step, (per, cos_all, norm_rel) in enumerate(stats, 1):
+            worst = sorted(per.items(), key=lambda kv: kv[1])[:3]
+            print(f"  step-{step} gradient vs 1 rank: whole cos {cos_all:.7f} (min "
+                  f"{GRAD_GLOBAL_COS_MIN}), norm rel {norm_rel:.3e} (tol "
+                  f"{DDP_GRAD_NORM_REL_TOL}), per-tensor cos min {worst[0][1]:.6f} (min "
+                  f"{GRAD_TENSOR_COS_MIN}) {worst}")
+        print(f"  losses {' '.join(f'{v:.6f}' for v in r0['losses'])} vs the 1-rank step "
+              f"from the same state {' '.join(f'{v:.6f}' for v in held)}: max rel diff "
+              f"{rel:.3e} (tol {DDP_LOSS_REL_TOL}); step 2 vs the free-running 1-rank step 2 "
+              f"{ref['losses'][1]:.6f}: {free:.3e} (tol {DDP_LOSS_REL_TOL})", flush=True)
+        if unequal:
+            raise AssertionError(f"tp-train: replicated parameters differ: {unequal[:5]}")
+        if any(rank["launches"] != want for rank in ranks):
+            raise AssertionError(f"tp-train launches {[r['launches'] for r in ranks]}, "
+                                 f"expected {want} per rank")
+        if any(rank["shapes"] != {k: TP_STEPS * TP_ACCUM * v for k, v in want_shapes.items()}
+               for rank in ranks):
+            raise AssertionError(f"tp-train fused Block shapes {[r['shapes'] for r in ranks]}, "
+                                 f"expected {TP_STEPS * TP_ACCUM} x {want_shapes} per rank")
+        if not (all(math.isfinite(v) for v in r0["losses"]) and rel <= DDP_LOSS_REL_TOL
+                and free <= DDP_LOSS_REL_TOL):
+            raise AssertionError("tp-train: the losses disagree with the 1-rank trainer's")
+        if max(p_gap, e_gap) > TP_STEP1_LR_BOUND * ref["lr"]:
+            raise AssertionError(f"tp-train: the state after step 1 is more than "
+                                 f"{TP_STEP1_LR_BOUND} lr from the 1-rank trainer's")
+        if (m_cos < GRAD_GLOBAL_COS_MIN or m_norm > DDP_GRAD_NORM_REL_TOL
+                or min(m_per.values()) < GRAD_TENSOR_COS_MIN):
+            raise AssertionError("tp-train: Adam's first moments after step 1 disagree with the "
+                                 "1-rank trainer's")
+        if any(cos_all < GRAD_GLOBAL_COS_MIN or norm_rel > DDP_GRAD_NORM_REL_TOL
+               or min(per.values()) < GRAD_TENSOR_COS_MIN for per, cos_all, norm_rel in stats):
+            raise AssertionError("tp-train: the gathered gradient disagrees with the 1-rank "
+                                 "trainer's")
+        return r0
+
+    def tp_serve():
+        """One EDM call of one 96^3 window through ``ImagenTrainer.sample``
+        over 2 ranks (data 1 x model 2) against the 1-rank call on the same
+        weights and noise."""
+        from diffusioniqt_tpu_torch.diffusion.gaussian import gaussian_noise
+        from diffusioniqt_tpu_torch.parallel.multihost import launch
+
+        world, backend = 2, ddp_ranks()[1]
+        cfg = load_config(os.path.join(ROOT, EDM_CONFIG))
+        cfg.train.edm_num_sample_steps = TP_SERVE_STEPS
+        lowres_vol, _ = fake_volumes(cfg, 128, seed=0)
+        window = serve_windows(cfg, lowres_vol, 1, dev).float()
+        ref = build_trainer(cfg, dev)
+        shapes = collections.Counter()
+        ref.prepare()
+        ref.ema_unets[1].use_ops(shape_recording_ops(shapes))
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        want = ref.sample(batch_size=GROUP, start_image_or_video=window, start_at_unet_number=2,
+                          noise=gaussian_noise(torch.Generator(device=dev).manual_seed(2)))
+        torch.cuda.synchronize()
+        ref_s, ref_counts = time.perf_counter() - t0, kernels.launch_counts()
+        del ref
+        torch.cuda.empty_cache()
+        ranks = launch(tp_serve_rank, (cfg, window.cpu()), nprocs=world, device="cuda",
+                       backend=backend, timeout_s=DDP_RANK_TIMEOUT_S)
+        got, r0 = ranks[0]["out"], ranks[0]
+        nfe = 2 * TP_SERVE_STEPS - 1
+        want_shapes = {(b, s, cin, cout // world): n for (b, s, cin, cout), n in shapes.items()}
+        err = float((got - want.cpu()).abs().max())
+        scale = float(want.abs().max())
+        print(f"tp-serve: EDM, {TP_SERVE_STEPS} Heun steps ({nfe} forwards) of one 96^3 window "
+              f"over data 1 x model {world} ({backend or 'nccl'}): {r0['seconds']:.2f} s "
+              f"(1 rank {ref_s:.2f} s); max abs diff {err:.3e} of max {scale:.3e} (tol "
+              f"{DDP_SERVE_REL_TOL} relative); launches {r0['launches']} (1 rank {ref_counts}); "
+              f"fused shapes {r0['shapes']}; collectives per forward "
+              f"{ {k: {q: v / nfe for q, v in c.items()} for k, c in r0['comms'].items()} }; "
+              f"peak memory per rank {[round(r['peak'] / 2 ** 30, 2) for r in ranks]} GiB",
+              flush=True)
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            raise AssertionError("tp-serve: the sample is not finite or of another shape")
+        if err > DDP_SERVE_REL_TOL * scale:
+            raise AssertionError("tp-serve: the 2-rank sample disagrees with the 1-rank one")
+        if any(r["launches"] != ref_counts or r["shapes"] != want_shapes for r in ranks):
+            raise AssertionError(f"tp-serve launches {[r['launches'] for r in ranks]} "
+                                 f"{[r['shapes'] for r in ranks]}, expected {ref_counts} "
+                                 f"{want_shapes} per rank")
+        return r0["launches"]
+
     def ddp_serve(cfg, want_pred, serve_s):
         """The serve phase's run over the ranks; rank 0's volume against the
         1-rank one."""
@@ -2497,7 +2986,9 @@ def main() -> int:
                 torch.cuda.synchronize()
                 launched = kernels.launch_counts()
                 peak = torch.cuda.max_memory_allocated() / 2 ** 30
-                ms = cuda_time_ms(call, iters=5, warmup=1)
+                runs = sorted(cuda_time_ms(call, iters=3, warmup=1 if r == 0 else 0)
+                              for r in range(HOST_REPEATS))
+                ms = runs[len(runs) // 2]
                 if not ignore_time:
                     profile_forward("video-forward bf16", call)
                 unet.dtype = torch.float32
@@ -2510,7 +3001,8 @@ def main() -> int:
                   f"{VIDEO_BATCH} x {VIDEO_FRAMES} x {VIDEO_EDGE}^2 with {VIDEO_TEXT_LEN} text "
                   f"tokens: out {tuple(out.shape)} finite {bool(torch.isfinite(out).all())}, "
                   f"max|out| {want.abs().max().item():.3e}, bf16 vs fp32 max_rel_err {rel:.3e} "
-                  f"(tol {FORWARD_REL_TOL}); ms per forward bf16 {ms:.3f} fp32 {ms32:.3f}; "
+                  f"(tol {FORWARD_REL_TOL}); ms per forward bf16 {ms:.3f} [{runs[0]:.3f}-"
+                  f"{runs[-1]:.3f}] fp32 {ms32:.3f}; "
                   f"peak memory {peak:.2f} GiB; launches {launched}", flush=True)
             if launched != NO_COUNTS:
                 raise AssertionError(f"video-forward launched hand-written kernels: {launched}")
@@ -2542,12 +3034,22 @@ def main() -> int:
             torch.cuda.synchronize()
         finally:
             hook.remove()
-        call_s = time.perf_counter() - t0
+        calls = [time.perf_counter() - t0]
         served = kernels.launch_counts()
+        for _ in range(HOST_REPEATS - 1):  # the same call again, for the spread
+            t0 = time.perf_counter()
+            edm.sample(batch_size=VIDEO_BATCH, noise=noise, video_frames=VIDEO_FRAMES,
+                       text_embeds=emb, text_mask=mask, cond_scale=VIDEO_COND_SCALE)
+            torch.cuda.synchronize()
+            calls.append(time.perf_counter() - t0)
+        calls.sort()
+        call_s = calls[len(calls) // 2]
         steps = edm.hparams[0].num_sample_steps
         print(f"EDM video sampler call ({steps} Heun steps, cond_scale {VIDEO_COND_SCALE}, "
-              f"{VIDEO_BATCH} x {VIDEO_FRAMES} x {VIDEO_EDGE}^2, bf16): {call_s:.3f} s per call, "
-              f"{len(forwards)} forwards, {call_s * 1e3 / len(forwards):.3f} ms per forward; "
+              f"{VIDEO_BATCH} x {VIDEO_FRAMES} x {VIDEO_EDGE}^2, bf16): {call_s:.3f} s per call "
+              f"[{calls[0]:.3f}-{calls[-1]:.3f}] over {len(calls)} calls, {len(forwards)} "
+              f"forwards, {call_s * 1e3 / len(forwards):.3f} ms per forward "
+              f"[{calls[0] * 1e3 / len(forwards):.3f}-{calls[-1] * 1e3 / len(forwards):.3f}]; "
               f"output {tuple(out.shape)} finite {bool(torch.isfinite(out).all())} in "
               f"[{out.min().item():.3f}, {out.max().item():.3f}]; launches {served}; peak "
               f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
@@ -2654,6 +3156,53 @@ def main() -> int:
     cfg_eff = load_config(os.path.join(ROOT, FLAGSHIP_CONFIG))
     cfg_eff.train.efficient = True
 
+    if "--tp-only" in sys.argv[1:]:
+        pairs = [generate_pair(PHANTOM_EDGE, seed=i) for i in range(PHANTOMS)]
+        if torch.cuda.device_count() < 4:  # one card: the main run's TP phases
+            phase("tp-train")
+            tp_train(pairs, (1, 2), "gloo")
+            phase("tp-serve")
+            tp_serve()
+            print(f"total seconds {time.perf_counter() - t_all:.1f}")
+            return 0
+        # the 4-card comparison: DP2 x TP2 and DP4 x 1 over NCCL, each held
+        # against the 1-rank trainer on its global batches
+        runs = {}
+        for shape in ((2, 2), (4, 1)):
+            phase(f"tp-train {shape[0]}x{shape[1]}")
+            runs[shape] = tp_train(pairs, shape, None)
+        for shape, r0 in runs.items():
+            crops = TP_CROPS_PER_DATA_RANK * shape[0]
+            later = sorted(r0["extra_s"])  # after the compared steps
+            med = later[len(later) // 2]
+            print(f"data {shape[0]} x model {shape[1]}: {crops} crops of 96^3 per step, s per "
+                  f"step {med:.3f} [{later[0]:.3f}-{later[-1]:.3f}] over {len(later)} steps "
+                  f"after the {TP_STEPS} compared ({' '.join(f'{v:.3f}' for v in r0['step_s'])}), "
+                  f"{crops / med:.2f} [{crops / later[-1]:.2f}-{crops / later[0]:.2f}] crops per "
+                  f"s, peak memory rank 0 "
+                  f"{r0['peak'] / 2 ** 30:.2f} GiB, collectives of step 1 {r0['comms']}, timed "
+                  f"step {r0['timed']}", flush=True)
+        print(f"total seconds {time.perf_counter() - t_all:.1f}")
+        return 0
+
+    if "--host-paths" in sys.argv[1:]:
+        # the paths whose pace the host sets, alone: a copy of this script
+        # placed in another checkout times that checkout's Python layers
+        # the same way
+        phase("preset-srunet256")
+        preset_srunet256(cfg)
+        video = video_unet()
+        phase("video-forward")
+        video_forward(video)
+        phase("serve-video")
+        serve_video(video)
+        del video
+        torch.cuda.empty_cache()
+        phase("train")
+        train_phase(load_config(os.path.join(ROOT, EDM_CONFIG)))
+        print(f"total seconds {time.perf_counter() - t_all:.1f}")
+        return 0
+
     if "--ddp-only" in sys.argv[1:]:
         phase("serve")
         _, pred_serve, _, serve_s = serve(cfg, FLAGSHIP_COUNTS)
@@ -2742,6 +3291,10 @@ def main() -> int:
     ddp_trained = ddp_train(pairs)
     phase("ddp-serve")
     ddp_served = ddp_serve(cfg, pred_serve, serve_s)
+    phase("tp-train")
+    tp_trained = tp_train(pairs, (1, 2), "gloo")
+    phase("tp-serve")
+    tp_served = tp_serve()
     phase("cli")
     cli_phase()
 
@@ -2779,6 +3332,8 @@ def main() -> int:
                                  **{k: c["launches"][name] for k, c in cells.items()},
                                  "ddp-train (rank 0)": ddp_trained[name],
                                  "ddp-serve (rank 0)": ddp_served[name],
+                                 "tp-train (rank 0)": tp_trained["launches"][name],
+                                 "tp-serve (rank 0)": tp_served[name],
                                  "attn-context": served_context[name],
                                  **{k: c[name] for k, c in served_video.items()}},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
@@ -2802,6 +3357,16 @@ def main() -> int:
                               "library_ms_max")},
          "launches": flash_phase[tuple(r["shape"][1:])]["flash_attention"]}
         for r in results["flash_attention"]]
+    # the fused Block's rows at Cout / M, with the launches at each shape in
+    # tp-train (rank 0, both steps); tp-serve launches the same shapes
+    fused = next(r for r in line if r["name"] == "fused_block")
+    fused["tp_shapes"] = [
+        {**{k: r[k] for k in ("shape", "max_abs_err", "ms", "ms_min", "ms_max", "plain_ms",
+                              "bound_ms", "bound_by", "conv_only_library_ms",
+                              "conv_only_library_ms_min", "conv_only_library_ms_max")},
+         "launches_tp_train": sum(n for (_, s, cin, cout), n in tp_trained["shapes"].items()
+                                  if [s, cin, cout] == r["shape"][1:])}
+        for r in results["fused_block_tp"]]
     line[0]["small_edge"] = [{k: r[k] for k in ("shape", "factor", "max_abs_err", "ms", "ms_min",
                                               "ms_max", "plain_ms", "bound_ms", "bound_by",
                                               "library_ms", "library_ms_min", "library_ms_max")}

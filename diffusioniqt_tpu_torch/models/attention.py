@@ -48,17 +48,25 @@ from diffusioniqt_tpu_torch.models.blocks import ChanLayerNorm, Dense, LecunInit
 from diffusioniqt_tpu_torch.ops.attention import scaled_dot_product_attention
 from diffusioniqt_tpu_torch.ops.kernels import KERNELS
 from diffusioniqt_tpu_torch.ops.volume import upsample_trilinear
+from diffusioniqt_tpu_torch.parallel.sharding import ColumnParallel
 from diffusioniqt_tpu_torch.utils.misc import Mish, mish
 
 
-class ChannelsLastConv3d(LecunInit, nn.Conv3d):
+class ChannelsLastConv3d(ColumnParallel, LecunInit, nn.Conv3d):
     """``nn.Conv3d`` applied to a channels-last tensor in its dtype (flax's
-    initialisers; a depthwise kernel's fan_in is its extent, as in flax)."""
+    initialisers; a depthwise kernel's fan_in is its extent, as in flax).
+    A column-sharded depthwise conv reads only this rank's input channels."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        bias = None if self.bias is None else self.bias.to(x.dtype)
-        y = F.conv3d(x.permute(0, 4, 1, 2, 3), self.weight.to(x.dtype), bias,
-                     self.stride, self.padding, self.dilation, self.groups)
+    def local(self, x: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+        if self.groups not in (1, self.in_channels):
+            raise ValueError("ChannelsLastConv3d is a dense or a depthwise conv")
+        groups = self.groups
+        if groups > 1 and self.tp is not None:
+            n = self.weight.shape[0]
+            x, groups = x[..., self.tp.rank * n:(self.tp.rank + 1) * n], n
+        y = F.conv3d(x.permute(0, 4, 1, 2, 3), self.weight.to(x.dtype),
+                     None if bias is None else bias.to(x.dtype),
+                     self.stride, self.padding, self.dilation, groups)
         return y.permute(0, 2, 3, 4, 1)
 
 
@@ -350,6 +358,11 @@ class TransformerEncoderBlock(nn.Module):
 
 
 class _PatchEmbedding(nn.Module):
+    # the token positions ``(patches, emb)`` are added to the tokens: the
+    # JAX rule shards them, the column split keeps them whole (sharding
+    # them would gather a parameter, not an output)
+    replicated_params = ("positions",)
+
     def __init__(self, in_channels: int, emb_size: int, patch_size: int, patch_num: int):
         super().__init__()
         self.projection = nn.Sequential(

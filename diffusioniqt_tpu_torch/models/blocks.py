@@ -47,6 +47,11 @@ from diffusioniqt_tpu_torch.ops.kernels.fused_block import (
     group_stats,
 )
 from diffusioniqt_tpu_torch.ops.volume import pixel_shuffle_3d, pixel_unshuffle_3d
+from diffusioniqt_tpu_torch.parallel.sharding import (
+    ColumnParallel,
+    copy_to_model,
+    gather_from_model,
+)
 from diffusioniqt_tpu_torch.utils.misc import Mish, mish
 
 
@@ -79,33 +84,34 @@ class LecunInit:
             nn.init.zeros_(self.bias)
 
 
-class Conv3d(LecunInit, nn.Conv3d):
+class Conv3d(ColumnParallel, LecunInit, nn.Conv3d):
     """``nn.Conv3d`` with the flax initialisers; its weight is read by the
-    kernels, not by its ``forward``."""
+    kernels (in :class:`Block` and the U-Net's stem), not by its
+    ``forward``."""
+
+    forward = nn.Conv3d.forward
 
 
-class Dense(LecunInit, nn.Linear):
+class Dense(ColumnParallel, LecunInit, nn.Linear):
     """``nn.Linear`` computed in the input's dtype."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        bias = None if self.bias is None else self.bias.to(x.dtype)
-        return F.linear(x, self.weight.to(x.dtype), bias)
+    def local(self, x: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+        return F.linear(x, self.weight.to(x.dtype), None if bias is None else bias.to(x.dtype))
 
 
-class PointwiseConv(LecunInit, nn.Conv3d):
+class PointwiseConv(ColumnParallel, LecunInit, nn.Conv3d):
     """1x1x1 ``nn.Conv3d`` (weight ``(Cout, Cin, 1, 1, 1)``) applied to a
     channels-last tensor in its dtype."""
 
     def __init__(self, dim_in: int, dim_out: int, bias: bool = True):
         super().__init__(dim_in, dim_out, 1, bias=bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.weight.reshape(self.out_channels, self.in_channels)
-        bias = None if self.bias is None else self.bias.to(x.dtype)
-        return F.linear(x, w.to(x.dtype), bias)
+    def local(self, x: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+        w = self.weight.reshape(self.weight.shape[0], self.in_channels)
+        return F.linear(x, w.to(x.dtype), None if bias is None else bias.to(x.dtype))
 
 
-class SameConv(LecunInit, nn.Conv3d):
+class SameConv(ColumnParallel, LecunInit, nn.Conv3d):
     """k^3 ``nn.Conv3d`` with stride 1 applied to a channels-last tensor in
     its dtype; ``padding`` voxels of zeros on every side (``(k - 1) // 2``
     by default: flax ``padding="SAME"`` at an odd kernel)."""
@@ -115,11 +121,23 @@ class SameConv(LecunInit, nn.Conv3d):
         super().__init__(dim_in, dim_out, kernel_size,
                          padding=(kernel_size - 1) // 2 if padding is None else padding)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.weight.to(x.dtype)
-        bias = None if self.bias is None else self.bias.to(x.dtype)
-        out = F.conv3d(x.permute(0, 4, 1, 2, 3), w, bias, padding=self.padding)
+    def local(self, x: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+        out = F.conv3d(x.permute(0, 4, 1, 2, 3), self.weight.to(x.dtype),
+                       None if bias is None else bias.to(x.dtype), padding=self.padding)
         return out.permute(0, 2, 3, 4, 1).contiguous()
+
+
+class ConvTranspose3d(ColumnParallel, nn.ConvTranspose3d):
+    """``nn.ConvTranspose3d`` applied to a channels-last tensor in its
+    dtype; weight ``(in, out, k..)``: its output channels are torch axis 1."""
+
+    shard_dim = 1
+
+    def local(self, x: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+        y = F.conv_transpose3d(x.permute(0, 4, 1, 2, 3), self.weight.to(x.dtype),
+                               None if bias is None else bias.to(x.dtype), self.stride,
+                               self.padding, self.output_padding)
+        return y.permute(0, 2, 3, 4, 1).contiguous()
 
 
 class CrossEmbedLayer(nn.Module):
@@ -154,7 +172,7 @@ class DeconvUpsample(nn.Module):
 
     def __init__(self, dim_in: int, dim_out: int):
         super().__init__()
-        conv = nn.ConvTranspose3d(dim_in, dim_out, 3, stride=2, padding=1, output_padding=1)
+        conv = ConvTranspose3d(dim_in, dim_out, 3, stride=2, padding=1, output_padding=1)
         # the JAX kernel's lecun_normal(in_axis=-2) counts fan_in over the
         # input channels (blocks.py:383-390); torch's layout is (in, out, k^3)
         lecun_normal_(conv.weight, fan_in=dim_in * 27)
@@ -162,10 +180,7 @@ class DeconvUpsample(nn.Module):
         self.deconv = nn.Sequential(conv)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        conv = self.deconv[0]
-        y = F.conv_transpose3d(x.permute(0, 4, 1, 2, 3), conv.weight.to(x.dtype),
-                               conv.bias.to(x.dtype), stride=2, padding=1, output_padding=1)
-        return mish(y.permute(0, 2, 3, 4, 1).contiguous())
+        return mish(self.deconv(x))
 
 
 class LearnedSinusoidalPosEmb(nn.Module):
@@ -224,7 +239,17 @@ class Block(nn.Module):
     """GroupNorm -> optional (scale+1, shift) -> Mish -> halo -> VALID 3^3
     conv (reference imagen_pytorch3D.py:535-566), as one fused kernel call
     (``ops/kernels/fused_block.py``) plus the conv bias. ``factor`` is the
-    sub-volume grid of the boundary halo; ``factor=1`` is a SAME conv."""
+    sub-volume grid of the boundary halo; ``factor=1`` is a SAME conv.
+
+    With the conv weight column-sharded (``project.tp``), the fused call
+    takes the ``(Cout / M, Cin, 3, 3, 3)`` shard and gives this rank's
+    ``Cout / M`` channels, which the model group gathers before the
+    replicated bias is added. The kernel's Function fuses the GroupNorm,
+    affine and Mish with the conv, so each rank's backward gives every
+    replicated input of the call (``x``, the GroupNorm scale and bias, the
+    time scale and shift) the part of its gradient that its columns
+    carry: they enter through one :func:`copy_to_model`, which sums those
+    parts over the group."""
 
     def __init__(self, dim_in: int, dim_out: int, groups: int = 8,
                  factor: int = 3):
@@ -237,11 +262,19 @@ class Block(nn.Module):
         self._packed = PackedWeight()
 
     def forward(self, x: torch.Tensor, scale_shift=None) -> torch.Tensor:
+        tp = self.project.tp
+        norm_scale, norm_bias = self.groupnorm.weight, self.groupnorm.bias
+        if tp is not None:
+            x, norm_scale, norm_bias, *ss = copy_to_model(
+                tp, x, norm_scale, norm_bias, *(scale_shift or ()))
+            scale_shift = tuple(ss) or None
         out = fused_boundary_block(
-            x, self.groupnorm.weight, self.groupnorm.bias, scale_shift,
+            x, norm_scale, norm_bias, scale_shift,
             self.project.weight, self.groups, self.factor,
             cache=self._packed, ops=self.ops,
         )
+        if tp is not None:
+            out = gather_from_model(out, tp)
         return out + self.project.bias.to(out.dtype)
 
 

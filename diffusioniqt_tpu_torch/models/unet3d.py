@@ -46,6 +46,14 @@ backward products without its forward (``ops/kernels/fused_block.py``), the
 recompute that the JAX policy (save ``conv_in`` / ``conv_out``) leaves.
 Its memory is that of no remat.
 
+Tensor parallelism: after ``parallel/sharding.py::shard_module_`` each
+layer whose weight the JAX rule shards (a conv or dense kernel of at least
+4096 elements whose output width divides by the model size) holds its
+``Cout / M`` output channels and computes them, and the model group
+gathers them along the channel axis (the Megatron column split; the JAX
+mesh trainer's ``P(..., "model")``). The fused Block kernel then runs on
+the weight shard; the activations between layers are whole on every rank.
+
 ``use_pallas`` is accepted for the JAX signature and changes nothing: the
 port always runs its kernels on the card. ``attn_heads`` is accepted and,
 as in the JAX module, unused (the slots take ``attend_at_*_heads``).
@@ -86,6 +94,7 @@ from diffusioniqt_tpu_torch.ops.volume import (
     subvolumes_to_volume,
     volume_to_subvolumes,
 )
+from diffusioniqt_tpu_torch.parallel.sharding import column_parallel
 from diffusioniqt_tpu_torch.utils.misc import cast_tuple, mish, resolve_device
 
 
@@ -357,8 +366,11 @@ class UNet3D(nn.Module):
 
         if self._kernel_stem:
             xh = self.ops.halo(x.contiguous(), self.factor)
-            x = (self.ops.conv3d(xh, self.init_conv.weight, self._init_packed)
-                 + self.init_conv.bias.to(dt))
+
+            def stem(xh, bias):
+                return self.ops.conv3d(xh, self.init_conv.weight, self._init_packed) + bias.to(dt)
+            x = (stem(xh, self.init_conv.bias) if self.init_conv.tp is None
+                 else column_parallel(self.init_conv.tp, xh, stem, self.init_conv.bias))
         else:
             x = self._on_volume(self.init_conv, x)
 

@@ -87,9 +87,10 @@ TILE_ROWS, CHUNK = 128, 64
 # (B, s, Cin, Cout, factor) of every small-edge Block the presets launch, as
 # the wrapper sees them in one forward: the efficient flagship at the serve
 # batch (8 windows) and at one window, SRUnet256 at one window (35 at 4^3 x
-# 512, one at 4^3 1024->512 on the up path, 20 at 2^3 x 1024)
+# 512, one at 4^3 1024->512 on the up path, 20 at 2^3 x 1024); and the
+# efficient flagship's 4^3 Blocks under a column split over 2 ranks (Cout / 2)
 SMALL_EDGE_SHAPES = ((216, 4, 256, 256, 3), (27, 4, 256, 256, 3), (27, 4, 512, 512, 1),
-                     (27, 4, 1024, 512, 1), (27, 2, 1024, 1024, 1))
+                     (27, 4, 1024, 512, 1), (27, 2, 1024, 1024, 1), (216, 4, 256, 128, 3))
 
 
 def route(s: int) -> str:

@@ -65,13 +65,29 @@ SPMD program does with one key for the global batch.
     ``sample`` spreads its patch batch (``parallel/sharding.py::sharded_sample``)
   * only the main process writes bundles; every rank loads them
 
-A ``model`` mesh axis (tensor parallelism) and fsspec URLs raise
-``NotImplementedError`` (not ported yet).
+Tensor parallelism (``mesh`` with a ``model`` axis of ``M`` ranks, the JAX
+DP x TP mesh trainer, trainer.py:167-210, 340-356): every rank builds the
+same weights and takes rank 0's; then each keeps the column shard of every
+weight that ``parallel/sharding.py::param_shardings`` shards
+(``shard_module_``), so Adam's moments and the EMA copy hold shards too.
+The ranks of a model group see the same rows, the same draws and (their
+default generators made equal at ``prepare``) the same dropout masks;
+their layers gather the shards' outputs (``models/``). The microbatch rule
+and the gradient mean run over the ``data`` axis only; the clip's global
+norm sums the sharded gradients' squares over the model group and counts
+the replicated ones once. Bundles hold the one-process tensors (shards
+gathered by every rank, written by the main one) and are sliced on load.
+The 2D and video U-Nets have no column split and raise.
+
+``checkpoint_path`` and the paths of ``save`` / ``load`` may be fsspec URLs
+(``memory://``, ``gs://``, ...; JAX trainer.py:929-936, 963-1072,
+1119-1170): the same ``torch.save`` bundle, written through ``fsspec``.
 """
 
 from __future__ import annotations
 
 import copy
+import io
 import math
 import os
 import re
@@ -79,6 +95,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from diffusioniqt_tpu_torch.data.loader import DataLoader, device_transfer_map
 from diffusioniqt_tpu_torch.diffusion.elucidated import ElucidatedImagen
@@ -128,11 +145,23 @@ def lr_schedule(lr: float, warmup_steps: Optional[int] = None,
     return lambda n: lr
 
 
-def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float,
+                         sharded: Optional[Sequence[bool]] = None, mesh=None) -> torch.Tensor:
     """optax ``clip_by_global_norm`` in place: every gradient times
     ``max_norm / norm`` when the global 2-norm reaches ``max_norm``, else
-    unchanged. Returns the norm (a device scalar; no host sync)."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(grads))))
+    unchanged. Returns the norm (a device scalar; no host sync). Under
+    tensor parallelism (``sharded``: which gradients are column shards,
+    ``mesh``: the DP x TP mesh) the squares of the shards are summed over
+    the model group and the replicated gradients counted once."""
+    norms = torch.stack(torch._foreach_norm(list(grads)))
+    if sharded is None or not any(sharded):
+        norm = torch.linalg.vector_norm(norms)
+    else:
+        mask = torch.tensor(sharded, device=norms.device)
+        sq = norms.square()
+        shard_sq = torch.where(mask, sq, 0.0).sum()
+        dist.all_reduce(shard_sq, group=mesh.get_group("model"))
+        norm = torch.sqrt(shard_sq + torch.where(mask, 0.0, sq).sum())
     scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     torch._foreach_mul_(list(grads), scale)
     return norm
@@ -164,14 +193,17 @@ class ImagenTrainer:
                 and (configs.train.lpips or configs.train.medlpips)):
             raise ValueError("Train.lpips / Train.medlpips: the EDM loss has no perceptual "
                              "term; they train with the Gaussian wrapper only")
-        if checkpoint_path is not None and re.match(r"^[a-z0-9]+://", checkpoint_path):
-            raise NotImplementedError("fsspec checkpoint URLs are not ported yet")
         if (checkpoint_path is None) != (checkpoint_every is None):
             raise ValueError("checkpoint_path and checkpoint_every go together")
         self.imagen = imagen
         self.is_elucidated = isinstance(imagen, ElucidatedImagen)
         self.configs = configs
         self.mesh = mesh
+        # the column-sharded parameters of each unet, {name: torch axis}
+        self.shard_dims: List[Dict[str, int]] = [{} for _ in imagen.unets]
+        if sharding.model_size(mesh) > 1:
+            for unet in imagen.unets:  # raises for a family without the column split
+                sharding.param_shardings(unet, mesh)
         if mesh is not None and isinstance(getattr(imagen, "lpips_fn", None), SliceLPIPS):
             # its slices are normalised over the batch: over every rank's rows
             imagen.lpips_fn.group = mesh.get_group("data")
@@ -207,7 +239,8 @@ class ImagenTrainer:
         self.checkpoint_every = checkpoint_every
         self.max_checkpoints_keep = max_checkpoints_keep
         if checkpoint_path is not None:
-            os.makedirs(checkpoint_path, exist_ok=True)
+            if not _is_url(checkpoint_path):
+                os.makedirs(checkpoint_path, exist_ok=True)
             self.load_from_checkpoint_folder()
 
     # ------------------------------------------------------------------
@@ -215,12 +248,17 @@ class ImagenTrainer:
         """Per-unet Adam with zero moments (so a bundle always holds every
         leaf, as the JAX ``tx.init`` tree does) and the EMA copies. With a
         mesh, rank 0's weights go to every rank first (version counters
-        bumped, so no rank keeps a stale packed weight)."""
+        bumped, so no rank keeps a stale packed weight); with a model axis
+        each rank then keeps its column shards, before the optimizer and
+        the EMA copy are made."""
         if self.prepared:
             return
         if self.mesh is not None:
             for unet in self.imagen.unets:
                 sharding.broadcast_params(unet, self.mesh)
+            self.shard_dims = [sharding.shard_module_(unet, self.mesh)
+                               for unet in self.imagen.unets]
+            sharding.sync_default_generators_(self.mesh, self.device)
         self.optimizers = []
         for index, unet in enumerate(self.imagen.unets):
             params = list(unet.parameters())
@@ -413,7 +451,9 @@ class ImagenTrainer:
         if self.mesh is not None:
             sharding.all_reduce_mean_(grads + [loss_sum], self.mesh)
         if self.max_grad_norm is not None:
-            clip_by_global_norm_(grads, self.max_grad_norm)
+            dims = self.shard_dims[index]
+            clip_by_global_norm_(grads, self.max_grad_norm,
+                                 [n in dims for n, _ in unet.named_parameters()], self.mesh)
         for group in opt.param_groups:
             group["lr"] = self.schedules[index](self.steps[index])
         opt.step()
@@ -592,37 +632,78 @@ class ImagenTrainer:
         return cat(outs)
 
     # ------------------------------------------------------------------
+    def _optim_dims(self, index: int) -> Dict[int, int]:
+        """The sharded parameters of unet ``index`` by their position in its
+        optimizer's state dict."""
+        dims = self.shard_dims[index]
+        return {i: dims[n] for i, (n, _) in enumerate(self.imagen.unets[index].named_parameters())
+                if n in dims}
+
+    def _map_optim(self, state: Dict[str, Any], index: int, fn) -> Dict[str, Any]:
+        """An optimizer state dict with ``fn(moments, dims)`` over the Adam
+        moments of the sharded parameters."""
+        dims = self._optim_dims(index)
+        if not dims:
+            return state
+        per = {}
+        for key in ("exp_avg", "exp_avg_sq"):
+            flat = fn({i: state["state"][i][key] for i in dims}, dims)
+            for i in dims:
+                per.setdefault(i, {})[key] = flat[i]
+        return {**state, "state": {i: {**v, **per.get(i, {})}
+                                   for i, v in state["state"].items()}}
+
     def state_bundle(self) -> Dict[str, Any]:
-        """The reference-format bundle (reference trainer.py:813-878)."""
+        """The reference-format bundle (reference trainer.py:813-878), with
+        the one-process tensors: under tensor parallelism every rank of a
+        model group calls it (it gathers the shards)."""
         self.prepare()
+
+        def whole(state, i):
+            return sharding.gather_state(state, self.shard_dims[i], self.mesh)
+
         bundle: Dict[str, Any] = {
             "model": {f"unets.{i}.{k}": v for i, unet in enumerate(self.imagen.unets)
-                      for k, v in unet.state_dict().items()},
+                      for k, v in whole(unet.state_dict(), i).items()},
             "steps": torch.tensor(self.steps),
             "generator": self.generator.get_state(),
         }
         for i, opt in enumerate(self.optimizers):
-            bundle[f"optim{i}"] = opt.state_dict()
+            bundle[f"optim{i}"] = self._map_optim(
+                opt.state_dict(), i, lambda t, d: sharding.gather_state(t, d, self.mesh))
         if self.use_ema:
             ema: Dict[str, Any] = {}
             for i, unet in enumerate(self.ema_unets):
-                ema.update({f"{i}.ema_model.{k}": v for k, v in unet.state_dict().items()})
+                ema.update({f"{i}.ema_model.{k}": v
+                            for k, v in whole(unet.state_dict(), i).items()})
                 ema[f"{i}.step"] = torch.tensor(self.ema_steps[i])
             bundle["ema"] = ema
         return bundle
 
     def save(self, path: str):
-        """Write the bundle to ``path`` (a ``.pt`` file), atomically. With a
-        mesh, every rank calls it: the main process writes, and the others
-        wait for it (JAX trainer.py:977)."""
+        """Write the bundle to ``path`` (a ``.pt`` file, atomically, or an
+        fsspec URL). With a mesh, every rank calls it: the main process
+        writes, and the others wait for it (JAX trainer.py:977)."""
         if not self.prepared:
             raise RuntimeError("nothing to save: the trainer is not prepared")
+        # under tensor parallelism every rank gathers, the main one writes
+        bundle = self.state_bundle() if self._writes() or any(self.shard_dims) else None
         if self._writes():
-            path = os.path.abspath(path)
-            os.makedirs(os.path.dirname(path), exist_ok=True)
-            tmp = f"{path}.tmp{os.getpid()}"
-            torch.save(self.state_bundle(), tmp)
-            os.replace(tmp, path)
+            if _is_url(path):
+                import fsspec
+
+                fs, fpath = fsspec.core.url_to_fs(path)
+                parent = fpath.rsplit("/", 1)[0]
+                if parent:
+                    fs.makedirs(parent, exist_ok=True)
+                with fs.open(fpath, "wb") as fh:
+                    torch.save(bundle, fh)
+            else:
+                path = os.path.abspath(path)
+                os.makedirs(os.path.dirname(path), exist_ok=True)
+                tmp = f"{path}.tmp{os.getpid()}"
+                torch.save(bundle, tmp)
+                os.replace(tmp, path)
         if self.mesh is not None:
             multihost.barrier()
 
@@ -632,31 +713,46 @@ class ImagenTrainer:
         return self.mesh is None or multihost.is_main_process()
 
     def load(self, path: str, strict: bool = True, noop_if_not_exist: bool = False):
-        """Restore a bundle written by :meth:`save` (on every rank, with a
-        mesh). ``strict=False`` keeps every current part the bundle
-        lacks or holds at another shape (``utils/checkpoints.py::restore_parts``),
-        as the ``pretrain`` path of ``train.py`` loads."""
-        if not os.path.exists(path):
+        """Restore a bundle written by :meth:`save` (a file or an fsspec
+        URL; on every rank, with a mesh). ``strict=False`` keeps every
+        current part the bundle lacks or holds at another shape
+        (``utils/checkpoints.py::restore_parts``), as the ``pretrain`` path
+        of ``train.py`` loads."""
+        if _is_url(path):
+            import fsspec
+
+            fs, fpath = fsspec.core.url_to_fs(path)
+            exists = fs.exists(fpath)
+        else:
+            exists = os.path.exists(path)
+        if not exists:
             if noop_if_not_exist:
                 return
             raise FileNotFoundError(path)
         self.prepare()
-        raw = torch.load(path, map_location="cpu", weights_only=True)
+        if _is_url(path):
+            with fs.open(fpath, "rb") as fh:
+                raw = torch.load(io.BytesIO(fh.read()), map_location="cpu", weights_only=True)
+        else:
+            raw = torch.load(path, map_location="cpu", weights_only=True)
         if not strict:
             raw = restore_parts(self.state_bundle(), raw)
         self._restore(raw, strict)
 
     def _restore(self, raw: Dict[str, Any], strict: bool) -> None:
         for i, unet in enumerate(self.imagen.unets):
+            dims = self.shard_dims[i]
             prefix = f"unets.{i}."
-            unet.load_state_dict({k[len(prefix):]: v for k, v in raw["model"].items()
-                                  if k.startswith(prefix)}, strict=strict)
-            self.optimizers[i].load_state_dict(raw[f"optim{i}"])
+            unet.load_state_dict(sharding.slice_state(
+                {k[len(prefix):]: v for k, v in raw["model"].items() if k.startswith(prefix)},
+                dims, self.mesh), strict=strict)
+            self.optimizers[i].load_state_dict(self._map_optim(
+                raw[f"optim{i}"], i, lambda t, d: sharding.slice_state(t, d, self.mesh)))
             if self.use_ema and "ema" in raw:
                 prefix = f"{i}.ema_model."
-                self.ema_unets[i].load_state_dict(
+                self.ema_unets[i].load_state_dict(sharding.slice_state(
                     {k[len(prefix):]: v for k, v in raw["ema"].items() if k.startswith(prefix)},
-                    strict=strict)
+                    dims, self.mesh), strict=strict)
                 self.ema_steps[i] = int(raw["ema"].get(f"{i}.step", 0))
         # the packed-weight caches key on version counters: bump them after
         # the in-place load, whatever the copy did
@@ -670,28 +766,51 @@ class ImagenTrainer:
             self.generator.set_state(state)
 
     # ------------------------------------------------------------------
+    def _folder_path(self, name: str) -> str:
+        if _is_url(self.checkpoint_path):
+            return f"{self.checkpoint_path.rstrip('/')}/{name}"
+        return os.path.join(self.checkpoint_path, name)
+
     @property
     def all_checkpoints_sorted(self) -> List[str]:
         """The rolling folder's bundles, newest (most steps) first."""
         if self.checkpoint_path is None:
             return []
-        found = [(int(m.group(1)), name) for name in os.listdir(self.checkpoint_path)
-                 if (m := _CKPT_NAME.match(name))]
-        return [os.path.join(self.checkpoint_path, name) for _, name in sorted(found, reverse=True)]
+        if _is_url(self.checkpoint_path):
+            import fsspec
+
+            fs, fpath = fsspec.core.url_to_fs(self.checkpoint_path)
+            names = ([p.rsplit("/", 1)[-1] for p in fs.ls(fpath, detail=False)]
+                     if fs.exists(fpath) else [])
+        else:
+            names = os.listdir(self.checkpoint_path)
+        found = [(int(m.group(1)), name) for name in names if (m := _CKPT_NAME.match(name))]
+        return [self._folder_path(name) for _, name in sorted(found, reverse=True)]
 
     def save_to_checkpoint_folder(self):
         """``checkpoint.{total steps}.pt``, keeping the newest
         ``max_checkpoints_keep`` (all with 0); the main process writes and
         prunes (JAX trainer.py:1148)."""
-        self.save(os.path.join(self.checkpoint_path, f"checkpoint.{sum(self.steps)}.pt"))
+        self.save(self._folder_path(f"checkpoint.{sum(self.steps)}.pt"))
         if self.max_checkpoints_keep > 0 and self._writes():
             for stale in self.all_checkpoints_sorted[self.max_checkpoints_keep:]:
-                os.remove(stale)
+                if _is_url(stale):
+                    import fsspec
+
+                    fs, fpath = fsspec.core.url_to_fs(stale)
+                    fs.rm(fpath)
+                else:
+                    os.remove(stale)
 
     def load_from_checkpoint_folder(self, last_total_steps: int = -1):
         if last_total_steps != -1:
-            self.load(os.path.join(self.checkpoint_path, f"checkpoint.{last_total_steps}.pt"))
+            self.load(self._folder_path(f"checkpoint.{last_total_steps}.pt"))
             return
         ckpts = self.all_checkpoints_sorted
         if ckpts:
             self.load(ckpts[0])
+
+
+def _is_url(path: str) -> bool:
+    """An fsspec URL (``scheme://...``; JAX trainer.py:929-936)."""
+    return bool(re.match(r"^[a-z0-9]+://", path))

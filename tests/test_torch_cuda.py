@@ -107,13 +107,14 @@ def _fused_case(dev, s, cin, cout, seed, n=27):
 
 
 @pytest.mark.parametrize("cin,cout", [(2, 64), (16, 16), (64, 64), (128, 64), (192, 128),
-                                      (256, 256)])
+                                      (256, 256), (64, 32), (64, 16), (128, 32)])
 @pytest.mark.parametrize("s", [8, 16, 32])
 def test_fused_kernel_matches_plain(dev, s, cin, cout):
-    """The wgmma GEMM at both BN (64, 128; Cout 16 as padded columns), one
-    to four 64-channel chunks (Cin 2 and 16 with zero-filled channels), the
-    plain-load brick (Cin = 2) and the TMA brick, at every sub-volume edge
-    of the path."""
+    """The wgmma GEMM at both BN (64, 128; Cout 16 and 32 as padded
+    columns: the column shards of 64-channel Blocks under tensor
+    parallelism), one to four 64-channel chunks (Cin 2 and 16 with
+    zero-filled channels), the plain-load brick (Cin = 2) and the TMA
+    brick, at every sub-volume edge of the path."""
     xh, ta, tb, w = _fused_case(dev, s, cin, cout, seed=s * 1000 + cin + cout)
     kernels.reset_launch_counts()
     got = kernels.fused_conv(xh, ta, tb, w)
@@ -124,15 +125,17 @@ def test_fused_kernel_matches_plain(dev, s, cin, cout):
 @pytest.mark.parametrize("n,s,factor,cin,cout", [
     (54, 4, 3, 64, 64), (27, 4, 1, 72, 128), (216, 4, 3, 256, 256), (27, 4, 1, 512, 512),
     (27, 2, 3, 64, 128), (27, 2, 1, 1024, 1024), (8, 2, 1, 32, 64),
-    (27, 4, 3, 256, 256), (27, 4, 1, 1024, 512), (27, 4, 3, 136, 192)])
+    (27, 4, 3, 256, 256), (27, 4, 1, 1024, 512), (27, 4, 3, 136, 192),
+    (216, 4, 3, 256, 128), (27, 4, 3, 256, 64)])
 def test_small_edge_route_matches_plain(dev, n, s, factor, cin, cout):
     """The fused kernel's small-edge kernel: tiles of whole sub-volumes of
     4^3 (two a tile, double-buffered) and 2^3 (16 a tile, one buffer) in CTA
     pairs, a ragged last m block (27 sub-volumes), an odd count of m blocks
     (27 and 1: the pair's second CTA has none), tiles split over several
-    CTAs and summed from partials, BN 128 and 256 (Cout 64 and 192 in part),
-    Cin 32, 72 and 136 (partial chunks) to 1024. Two launches give the same
-    bits."""
+    CTAs and summed from partials, BN 128 and 256 (Cout 64 and 192 in part;
+    Cout 128 and 64: the efficient flagship's 4^3 Blocks under a column
+    split over 2 and 4 ranks), Cin 32, 72 and 136 (partial chunks) to 1024.
+    Two launches give the same bits."""
     g = torch.Generator(device=dev).manual_seed(n + s + cin + cout)
     x = torch.randn((n, s, s, s, cin), generator=g, device=dev).to(torch.bfloat16)
     w = torch.randn((cout, cin, 3, 3, 3), generator=g, device=dev) * (27 * cin) ** -0.5

@@ -29,6 +29,7 @@ from diffusioniqt_tpu_torch.data.datasets import FakeIQTDataset
 from diffusioniqt_tpu_torch.diffusion.elucidated import ElucidatedImagen
 from diffusioniqt_tpu_torch.diffusion.gaussian import Imagen
 from diffusioniqt_tpu_torch.metrics.lpips import make_lpips_fn
+from diffusioniqt_tpu_torch.models.unet2d import UNet2D
 from diffusioniqt_tpu_torch.models.unet3d import NullUnet, UNet3D
 from diffusioniqt_tpu_torch.parallel import multihost, sharding
 from diffusioniqt_tpu_torch.parallel.mesh import create_mesh
@@ -497,6 +498,97 @@ def test_sharded_sample_and_valid_step_equal_one_process():
             np.testing.assert_allclose(a, w, rtol=1e-5, atol=1e-5 * float(np.abs(w).max()))
 
 
+# the cascade test's tiny text-conditioned video U-Net
+# (tests/test_torch_video_edm.py::TINY_UNET)
+VIDEO_UNET = dict(dim=8, dim_mults=(1, 2), num_resnet_blocks=1, channels=1, init_dim=8,
+                  resnet_groups=4, attn_dim_head=4, attn_heads=2, layer_attns=(False, False),
+                  layer_cross_attns=(False, True), init_cross_embed=False,
+                  init_conv_kernel_size=3, cond_on_text=True, text_embed_dim=16,
+                  max_text_len=8, attn_pool_num_latents=4, memory_efficient=False,
+                  temporal_strides=(1, 1))
+VIDEO_KW = dict(batch_size=2, video_frames=4, cond_scale=3.0)
+
+
+def _video_edm():
+    """The tiny video U-Net behind the EDM wrapper (3 steps at 16^2), every
+    parameter drawn N(0, 0.1^2) from seed 0: the module's init zeroes the
+    final conv and the temporal gates, which would make the sample
+    independent of the text."""
+    from diffusioniqt_tpu_torch.models.unet_video import Unet3DVideo
+
+    unet = Unet3DVideo(**VIDEO_UNET)
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for p in unet.parameters():
+            p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+    return ElucidatedImagen([unet.eval()], image_sizes=(16,), channels=1,
+                            auto_normalize_img=True, num_sample_steps=3,
+                            dynamic_thresholding=False, norm="min-max")
+
+
+def _video_text():
+    from diffusioniqt_tpu_torch.utils.t5 import hash_text_encode
+
+    return hash_text_encode(["a brain mri", "an axial t2 flair slice"], dim=16, max_length=8,
+                            return_attn_mask=True)
+
+
+def _replayed(draws):
+    """A noise function that serves the draws of one whole-batch call to
+    calls over consecutive chunks of its rows: the k-th draw of the chunk
+    starting at row ``lo`` is rows ``lo:lo + n`` of the whole call's k-th."""
+    state = {"i": 0, "lo": 0}
+
+    def noise(shape):
+        k = state["i"] % len(draws)
+        if k == 0 and state["i"]:
+            state["lo"] += shape[0]
+        state["i"] += 1
+        return draws[k][state["lo"]:state["lo"] + shape[0]]
+    return noise
+
+
+def _video_trainer_sample(mesh, draws):
+    """``ImagenTrainer.sample`` of the 2 videos in chunks of 1 with their
+    texts and masks, on the whole call's noise."""
+    emb, mask = _video_text()
+    tr = ImagenTrainer(None, _video_edm(), mesh=mesh)
+    return tr.sample(max_batch_size=1, noise=_replayed(draws), text_embeds=emb,
+                     text_mask=mask, **VIDEO_KW)
+
+
+def _video_sample_rank(device, draws):
+    torch.set_num_threads(1)
+    return _video_trainer_sample(create_mesh(("data",)), draws)
+
+
+def test_trainer_samples_video_with_text_in_chunks():
+    """``ImagenTrainer.sample(text_embeds=..., text_mask=...,
+    video_frames=..., max_batch_size=1)`` on a small video EDM wrapper slices
+    the text and its mask per chunk and equals the wrapper's own unchunked
+    ``sample`` on the same noise stream (each chunk served its rows of the
+    whole call's draws), in one process and on 2 gloo ranks (each chunk's
+    one row padded to one per rank), within 1e-5 of the largest entry (CPU
+    kernels block other batch sizes in other orders); the texts give the
+    two videos different samples."""
+    emb, mask = _video_text()
+    draws = []
+    gen = torch.Generator().manual_seed(1)
+
+    def record(shape):
+        draws.append(torch.randn(shape, generator=gen))
+        return draws[-1]
+
+    with torch.no_grad():
+        want = _video_edm().sample(noise=record, text_embeds=emb, text_mask=mask, **VIDEO_KW)
+    assert want.shape == (2, 4, 16, 16, 1)
+    for got in [_video_trainer_sample(None, draws)] + _launch(_video_sample_rank, draws):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+    swapped = _video_edm().sample(noise=_replayed(draws), text_embeds=emb.flip(0),
+                                  text_mask=mask.flip(0), **VIDEO_KW)
+    assert not torch.allclose(swapped, want)
+
+
 # ---------------------------------------------------------------------------
 # (h)-(j) entry points
 # ---------------------------------------------------------------------------
@@ -584,7 +676,9 @@ def test_more_ranks_than_cards_and_model_axis_raise(tmp_path, monkeypatch):
     """(j) ``--mesh 3`` where there are fewer cards, and an NCCL world
     larger than the card count, raise before any process starts or any
     group forms (no fallback to fewer ranks or to the CPU); a ``model``
-    axis larger than 1 (tensor parallelism) raises NotImplementedError."""
+    axis (tensor parallelism) builds a ``("data", "model")`` mesh of
+    (1, 2) over 2 ranks, and on a U-Net family without the column split
+    (``UNet2D``) raises NotImplementedError naming ROADMAP.md."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     cfg_path, _ = _tiny_config(tmp_path, "config/eval_config.yaml")
@@ -599,10 +693,15 @@ def test_more_ranks_than_cards_and_model_axis_raise(tmp_path, monkeypatch):
         multihost.initialize_multihost("cuda", world_size=4, rank=0,
                                        init_method="tcp://127.0.0.1:1")
     assert not torch.distributed.is_initialized()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_mesh(("data", "model"), (1, 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sharding.param_shardings(UNet3D(**UNET_KW), _ModelMesh())
+    for got in _launch(_model_mesh_rank):
+        assert got == (("data", "model"), (1, 2))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        sharding.param_shardings(UNet2D(dim=8, dim_mults=(1, 2), channels=1), _ModelMesh())
+
+
+def _model_mesh_rank(device):
+    mesh = create_mesh(("data", "model"), (1, 2))
+    return mesh.mesh_dim_names, tuple(mesh.shape)
 
 
 def test_a_failing_rank_fails_the_parent_and_ends_the_others():
