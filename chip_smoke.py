@@ -182,6 +182,46 @@ Phases, each of which raises (and exits non-zero) on failure:
                 within DDP_SERVE_REL_TOL of the 1-rank call on the same
                 weights and noise, the same launches at Cout / 2
 
+  tp-2d         UNet2D at serve-2d's width (SERVE_2D, bf16, its convs,
+                dense layers and q / k / v projections column-split) behind
+                ``Imagen(spatial_dims=2)`` over a (data 1, model 2) mesh of
+                the same ranks as tp-train, TP2D_SLICES slices of 240^2,
+                against one process on the same weights and seeds: one
+                forward within FORWARD_REL_TOL; one 20-step ancestral call
+                (flash on all heads after the gather: 40 launches per rank)
+                each of its U-Net calls within FORWARD_REL_TOL of one
+                process's U-Net on that call's inputs (the chained result
+                printed); one optimizer step, its squeeze-excite
+                ReLUs pinned to one process's (SEBranches), the loss within
+                DDP_LOSS_REL_TOL and the gathered gradient by ddp-train's
+                criteria
+  tp-video      Unet3DVideo at serve-video's width in fp32 with every weight
+                of the rule column-split over the same ranks (its learned
+                tokens kept whole): serve-video's forward within
+                TP_VIDEO_REL_TOL of one process's, one EDM loss step of
+                VIDEO_BATCH videos at TP_VIDEO_EDGE^2 (the loss within
+                DDP_LOSS_REL_TOL, the gathered gradient by ddp-train's
+                criteria; the global-context gates' to_k biases, whose exact
+                gradient is zero, under 1e-6 of the largest entry); no
+                hand-written kernel launches
+  nifti-roundtrip  ``python -m diffusioniqt_tpu_torch.nifti_roundtrip --prepare
+                --run`` at its smallest full size: one train, one valid and
+                one test phantom of 256^3 as NIfTI, NIFTI_STEPS train steps
+                and one gaussian-stitched ``evaluate`` of the test volume's
+                240^3 crop, as subprocesses that print their launches last
+                (the tool reports them): whole flagship
+                forwards through the kernels in both, whole 20-step calls
+                in evaluate, a finite prediction; the seconds of each stage
+  flops         ``utils/flops.py`` over one flagship forward (27 x 32^3)
+                through the kernels and through the plain versions: equal
+                conv and matmul counts, the fused kernel's reported work
+                equal to the forward phase's count of the Blocks' GFLOP
+                (run after forward-efficient)
+  edm-probe     ``python -m diffusioniqt_tpu_torch.edm_probe`` over the
+                quality phase's bundle at ``--size 96`` (run inside
+                quality): its table, finite, and exactly 12 flagship
+                forwards' launches (two per sigma)
+
   forward-efficient  ``config/eval_config.yaml`` with ``Train.efficient: True``
                 (a pixel-unshuffle before every level, levels at 16^3, 8^3
                 and 4^3; every up level upsamples) at full width: one
@@ -284,8 +324,9 @@ tp-train's comparison over NCCL at data 2 x model 2 and at data 4 x model
 1 (each against the 1-rank trainer on its global batch, then TP_TIMED_STEPS
 more steps timed, then one with every collective synchronised and timed),
 s per step and crops per second (median and min-max of the timed steps),
-the collectives' ms and bytes, peak memory per rank; with fewer, tp-train
-and tp-serve as above.
+the collectives' ms and bytes, peak memory per rank, then tp-2d at the same
+two meshes (TP_TIMED_STEPS more steps timed); with fewer, tp-train,
+tp-serve, tp-2d and tp-video as above.
 ``python3 chip_smoke.py --host-paths`` runs, after the kernels phase, only
 the paths whose pace the host sets (preset-srunet256, video-forward,
 serve-video, train), each timed HOST_REPEATS times or more, and prints no
@@ -310,8 +351,9 @@ launch), launched in serve-efficient, headed by the (216, 4^3, 256->256)
 shape, every shape of SMALL_EDGE_SHAPES in its ``shapes`` list; flash
 attention's ``shapes`` list holds its serve-attn, serve-2d and
 attn-context rows, each with its launches; every kernel's
-``launches_by_path`` has the video phases' zeros and tp-train's and
-tp-serve's launches (rank 0); the fused Block's ``tp_shapes`` rows hold
+``launches_by_path`` has the video phases' zeros, tp-train's, tp-serve's,
+tp-2d's and tp-video's launches (rank 0), edm-probe's and the round trip's
+train and evaluate processes'; the fused Block's ``tp_shapes`` rows hold
 the column shards' times with tp-train's launches at each shape); the last
 line is ``{"ok": true, "device": {...}}``. Imports
 nothing of JAX or of ``diffusioniqt_tpu``. Exits non-zero without CUDA.
@@ -509,6 +551,31 @@ TP_TIMED_STEPS = 5
 # for the rounding of fp32 weights near 1, an ulp of which is 6e-4 of 2 lr
 # at lr 1e-4
 TP_STEP1_LR_BOUND = 2.02
+# tp-2d: UNet2D at serve-2d's width (SERVE_2D, bf16) over a (data, model)
+# mesh: one optimizer step of this many axial slices of 240^2 and one
+# STEPS_2D-step ancestral call of them (cut from serve-2d's 16 slices: on one
+# card gloo stages every gathered activation through the host)
+TP2D_SLICES = 4
+# tp-2d's sampler call against one rank's: each of its STEPS_2D U-Net calls
+# is held within FORWARD_REL_TOL of one rank's U-Net on that call's own
+# inputs. The chained result is printed, not held: 20 chained bf16 forwards
+# of an untrained U-Net carry one rounding about as far as the split's
+# reordering (0.138 and 0.159 of the sample's largest entry on an H100 80GB
+# HBM3 at 700 W), so its distance tells no fault from noise
+# tp-video: Unet3DVideo at serve-video's width (VIDEO_UNET) in fp32 (no
+# hand-written kernel on this path; fp32 holds the split to the rounding of
+# the column shards' products): one forward of serve-video's input against
+# one rank within TP_VIDEO_REL_TOL of its largest entry, and one EDM loss
+# step of VIDEO_BATCH videos of VIDEO_FRAMES frames at TP_VIDEO_EDGE^2 (the
+# wrapper gives the U-Net TP_VIDEO_EDGE frames)
+TP_VIDEO_EDGE = 32
+TP_VIDEO_REL_TOL = 1e-4
+# edm-probe: the held-out phantom's edge (its whole 96^3: 27 x 32^3)
+EDM_PROBE_SIZE = 96
+# nifti-roundtrip: the smallest full run of the 256^3 NIfTI round trip
+# (one train, one valid and one test volume; this many optimizer steps; one
+# gaussian-stitched evaluation of the test volume)
+NIFTI_STEPS = 2
 # repeats of the host-bound paths' timings (the video forward, the video
 # and SRUnet256 sampler calls): median and min-max
 HOST_REPEATS = 3
@@ -664,10 +731,21 @@ class SEBranches:
 
     def __init__(self, model: torch.nn.Module):
         from diffusioniqt_tpu_torch.models.blocks import SE3D
+        from diffusioniqt_tpu_torch.models.unet2d import SE2D
 
         self.mode, self.masks, self.flips = None, {}, {}
-        self.hooks = [m.fc[1].register_forward_hook(self._hook)
-                      for m in model.modules() if isinstance(m, SE3D)]
+        self.relus = {f"{name}.fc.1": m.fc[1] for name, m in model.named_modules()
+                      if isinstance(m, (SE3D, SE2D))}
+        self.hooks = [relu.register_forward_hook(self._hook) for relu in self.relus.values()]
+
+    def by_name(self) -> dict:
+        """The recorded masks by module name, on the host (to pin another
+        process's copy of the model with :meth:`pin_to`)."""
+        return {n: self.masks[r].cpu() for n, r in self.relus.items() if r in self.masks}
+
+    def pin_to(self, masks: dict, device) -> None:
+        self.masks = {self.relus[n]: m.to(device) for n, m in masks.items()}
+        self.mode = "pin"
 
     def _hook(self, module, inputs, output):
         x = inputs[0]
@@ -687,9 +765,14 @@ class SEBranches:
             h.remove()
 
 
+_STARTED = time.perf_counter()
+
+
 def phase(name: str) -> float:
-    print(f"=== {name}", flush=True)
-    return time.perf_counter()
+    """Print the phase's header with the seconds since the script started."""
+    now = time.perf_counter()
+    print(f"=== {name} (at {now - _STARTED:.1f} s)", flush=True)
+    return now
 
 
 def cuda_time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -1117,6 +1200,207 @@ def tp_serve_rank(device, cfg, window):
     return {"out": out.cpu() if dist.get_rank() == 0 else None, "seconds": seconds,
             "launches": kernels.launch_counts(), "shapes": dict(shapes), "comms": log.summary(),
             "peak": torch.cuda.max_memory_allocated(device)}
+
+
+def tp2d_batch():
+    """tp-2d's slices: the central TP2D_SLICES axial slices of a seeded
+    240^3 phantom pair (HR, LR), z-scored with the LR volume's stats, and
+    the z-scored zero (the wrapper's ``min_bound``)."""
+    from diffusioniqt_tpu_torch.data.synthetic import generate_pair, population_stats
+
+    hr, lr = generate_pair(EDGE_2D, seed=0)
+    mean, std = population_stats([lr])
+    z0 = (EDGE_2D - TP2D_SLICES) // 2
+    hr_s, lr_s = (((v[z0:z0 + TP2D_SLICES] - mean) / std).astype(np.float32)[..., None]
+                  for v in (hr, lr))
+    return hr_s, lr_s, (0.0 - mean) / std
+
+
+def tensors_to(tree, device):
+    """``tree`` (tensors in tuples, lists and dicts) with every tensor
+    detached and moved to ``device``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to(device)
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tensors_to(v, device) for v in tree)
+    if isinstance(tree, dict):
+        return {k: tensors_to(v, device) for k, v in tree.items()}
+    return tree
+
+
+def tp2d_run(device, hr, lr, min_bound, mesh, timed_steps=0, se_masks=None):
+    """tp-2d on one rank (``mesh``) or in one process (None): the trainer
+    over ``Imagen(spatial_dims=2)`` with UNet2D (SERVE_2D, bf16, seeded);
+    one forward of the slices at t = 0.5; one STEPS_2D-step ancestral call
+    of the slices' LR from the untrained EMA weights, each of its U-Net
+    calls recorded on the mesh's rank 0 (inputs and output, on the host);
+    in one process a copy of the sampling U-Net to replay them on; then one
+    optimizer step of the (HR, LR) slices, its squeeze-excite ReLUs
+    recorded (``se_masks`` None) or pinned to ``se_masks`` (SEBranches);
+    with ``timed_steps`` that many more steps, timed. Returns the forward,
+    the sample, the calls and the gathered step-1 gradient (on rank 0, on
+    the host), the copy, the loss, the masks, each part's launches and
+    seconds, the peak memory."""
+    import torch.distributed as dist
+
+    from diffusioniqt_tpu_torch.diffusion.gaussian import Imagen, gaussian_noise
+    from diffusioniqt_tpu_torch.models.unet2d import UNet2D
+    from diffusioniqt_tpu_torch.models.unet3d import NullUnet
+    from diffusioniqt_tpu_torch.ops import kernels
+    from diffusioniqt_tpu_torch.parallel import sharding
+    from diffusioniqt_tpu_torch.train.trainer import ImagenTrainer
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        unet = UNet2D(**SERVE_2D, dtype=torch.bfloat16).to(device)
+    imagen = Imagen([NullUnet().to(device), unet], image_sizes=(EDGE_2D, EDGE_2D), channels=1,
+                    timesteps=STEPS_2D, pred_objectives="x_start", dynamic_thresholding=False,
+                    p2_loss_weight_gamma=0.0, cond_drop_prob=0.0, min_bound=min_bound,
+                    norm="z-score", spatial_dims=2)
+    trainer = ImagenTrainer(None, imagen, mesh=mesh, gradient_accumulation_steps=1, lr=1e-4,
+                            ema_update_after_step=0, ema_update_every=1, seed=0)
+    trainer.prepare()
+    rank0 = not dist.is_initialized() or dist.get_rank() == 0
+    lowres = torch.from_numpy(lr).to(device)
+    x = torch.randn(lowres.shape, generator=torch.Generator(device=device).manual_seed(1),
+                    device=device)
+    t = torch.full((lr.shape[0],), 0.5, device=device)
+    with torch.no_grad():
+        forward = unet(x, t, imagen.noise_schedulers[1].get_condition(t),
+                       lowres_cond_img=lowres)
+
+    sampler_unet = trainer._sampling_imagen().unets[1]
+    calls, hook = [], None
+    if mesh is not None and rank0:
+        hook = sampler_unet.register_forward_hook(
+            lambda module, args, kwargs, out: calls.append(tensors_to((args, kwargs, out), "cpu")),
+            with_kwargs=True)
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    if dist.is_initialized():
+        dist.barrier()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = trainer.sample(batch_size=lr.shape[0], start_image_or_video=lowres,
+                         start_at_unet_number=2,
+                         noise=gaussian_noise(torch.Generator(device=device).manual_seed(0)))
+    torch.cuda.synchronize(device)
+    sample_s, sample_counts = time.perf_counter() - t0, kernels.launch_counts()
+    replica = None
+    if hook is not None:
+        hook.remove()
+    if mesh is None:
+        replica = UNet2D(**SERVE_2D, dtype=torch.bfloat16).to(device)
+        replica.load_state_dict(sampler_unet.state_dict())
+        replica.eval()
+    branches = SEBranches(unet)
+    if se_masks is None:
+        branches.mode = "record"
+    else:
+        branches.pin_to(se_masks, device)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    loss = trainer.train_step(unet_number=2, batch=(hr, lr))
+    torch.cuda.synchronize(device)
+    step_s, step_counts = time.perf_counter() - t0, kernels.launch_counts()
+    branches.remove()
+    grads = {k: p.grad.detach() for k, p in unet.named_parameters()}
+    if mesh is not None:
+        grads = sharding.gather_state(grads, trainer.shard_dims[1], mesh)
+    extra_s = []
+    for _ in range(timed_steps):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        trainer.train_step(unet_number=2, batch=(hr, lr))
+        torch.cuda.synchronize(device)
+        extra_s.append(time.perf_counter() - t0)
+    return {"out": out.float().cpu() if rank0 else None, "loss": loss,
+            "forward": forward.float().cpu() if rank0 else None, "calls": calls,
+            "replica": replica,
+            "se_masks": branches.by_name(), "se_flips": branches.flipped(),
+            "grads": {k: v.cpu() for k, v in grads.items()} if rank0 else None,
+            "sample_s": sample_s, "step_s": step_s, "extra_s": extra_s,
+            "sample_launches": sample_counts, "step_launches": step_counts,
+            "sharded": len(trainer.shard_dims[1]),
+            "peak": torch.cuda.max_memory_allocated(device), "device": str(device)}
+
+
+def tp2d_rank(device, hr, lr, min_bound, mesh_shape, timed_steps, se_masks):
+    """One rank of tp-2d: :func:`tp2d_run` over a (data, model) mesh, the
+    step's squeeze-excite ReLUs pinned to the one-process run's."""
+    import torch.distributed as dist
+
+    from diffusioniqt_tpu_torch.parallel.mesh import create_mesh
+
+    from diffusioniqt_tpu_torch.parallel import sharding
+    from diffusioniqt_tpu_torch.parallel.multihost import local_batch_slice
+
+    card_settings()
+    mesh = create_mesh(("data", "model"), mesh_shape)
+    rows = local_batch_slice(hr.shape[0], sharding.data_size(mesh), sharding.data_rank(mesh))
+    out = tp2d_run(device, hr, lr, min_bound, mesh, timed_steps,
+                   {k: m[rows] for k, m in se_masks.items()})
+    out["backend"] = dist.get_backend()
+    return out
+
+
+def tp_video_run(device, state, inputs, mesh):
+    """tp-video on one rank (``mesh``: every weight of the rule column-split,
+    the U-Net's learned tokens whole) or in one process (None): VIDEO_UNET
+    in fp32 with ``state``; one forward of serve-video's input (no grad),
+    then the EDM loss of the loss step's videos and its backward. Returns
+    the forward (rank 0, host), the loss, the gathered gradient (rank 0,
+    host), the launches, the seconds and peak memory, the sharded count."""
+    import torch.distributed as dist
+
+    from diffusioniqt_tpu_torch.diffusion.elucidated import ElucidatedImagen
+    from diffusioniqt_tpu_torch.models.unet_video import Unet3DVideo
+    from diffusioniqt_tpu_torch.ops import kernels
+    from diffusioniqt_tpu_torch.parallel import sharding
+
+    unet = Unet3DVideo(**VIDEO_UNET).to(device)
+    unet.load_state_dict(state)
+    dims = {}
+    if mesh is not None:
+        sharding.broadcast_params(unet, mesh)
+        dims = sharding.shard_module_(unet, mesh)
+    x, t, emb, mask, videos = (v.to(device) for v in inputs)
+    rank0 = not dist.is_initialized() or dist.get_rank() == 0
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out = unet(x, t, t, text_embeds=emb, text_mask=mask)
+    torch.cuda.synchronize(device)
+    forward_s = time.perf_counter() - t0
+    edm = ElucidatedImagen([unet], image_sizes=(TP_VIDEO_EDGE,), channels=3)
+    t0 = time.perf_counter()
+    loss = edm.forward(videos, text_embeds=emb, text_mask=mask,
+                       generator=torch.Generator(device=device).manual_seed(7))
+    loss.backward()
+    torch.cuda.synchronize(device)
+    step_s = time.perf_counter() - t0
+    grads = {k: p.grad.detach() for k, p in unet.named_parameters()}
+    if mesh is not None:
+        grads = sharding.gather_state(grads, dims, mesh)
+    return {"out": out.cpu() if rank0 else None, "loss": loss.item(),
+            "grads": {k: v.cpu() for k, v in grads.items()} if rank0 else None,
+            "launches": kernels.launch_counts(), "forward_s": forward_s, "step_s": step_s,
+            "peak": torch.cuda.max_memory_allocated(device), "sharded": len(dims),
+            "device": str(device)}
+
+
+def tp_video_rank(device, state, inputs):
+    """One rank of tp-video: :func:`tp_video_run` over a (1, model) mesh of
+    every rank."""
+    import torch.distributed as dist
+
+    from diffusioniqt_tpu_torch.parallel.mesh import create_mesh
+
+    card_settings()
+    return tp_video_run(device, state, inputs,
+                        create_mesh(("data", "model"), (1, dist.get_world_size())))
 
 
 def main() -> int:
@@ -2111,6 +2395,33 @@ def main() -> int:
         print(f"optimizer step ms {' '.join(f'{a:.3f}' for a, _ in ms)}; EMA update ms "
               f"{' '.join(f'{b:.3f}' for _, b in ms)} ({n_params} parameters)", flush=True)
 
+    def edm_probe_phase(ckpt, work):
+        """``python -m diffusioniqt_tpu_torch.edm_probe`` over the gate's
+        bundle (``stats.json`` beside it) at ``--size EDM_PROBE_SIZE``: its
+        table printed, finite, one row per sigma of the default ladder;
+        two flagship forwards per sigma through the kernels (unclamped and
+        clamped). Returns the launches."""
+        from diffusioniqt_tpu_torch import edm_probe
+
+        sigmas = edm_probe.SIGMAS.split(",")
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        table = edm_probe.main(["--ckpt", ckpt, "--size", str(EDM_PROBE_SIZE),
+                                "--out", os.path.join(work, "probe.json")])
+        torch.cuda.synchronize()
+        probe_s = time.perf_counter() - t0
+        probed = kernels.launch_counts()
+        want = {k: 2 * len(sigmas) * n for k, n in FLAGSHIP_COUNTS.items()}
+        print(f"edm-probe: {probe_s:.1f} s (the trainer's build and the bundle's load "
+              f"included); launches {probed}", flush=True)
+        values = [table["baseline_rmse_lr"], table["data_std"]] + [
+            row[k] for row in table["rows"] for k in ("rmse_in", "rmse_D", "rmse_D_clamped")]
+        if len(table["rows"]) != len(sigmas) or not all(math.isfinite(v) for v in values):
+            raise AssertionError(f"edm-probe: the table is not finite rows per sigma: {table}")
+        if probed != want:
+            raise AssertionError(f"edm-probe launches {probed}, expected {want}")
+        return probed
+
     def quality_phase():
         """The gate's training at its full step shape for QUALITY_STEPS steps,
         the bundle round trip, one resumed step, quality_eval of the bundle."""
@@ -2235,6 +2546,8 @@ def main() -> int:
             evaluated = kernels.launch_counts()
             with open(os.path.join(work, "quality_eval.json")) as fh:
                 written = json.load(fh)
+            phase("edm-probe")
+            probed = edm_probe_phase(ckpt, work)
         finally:
             shutil.rmtree(work, ignore_errors=True)
         forwards = evaluated["conv3d"]
@@ -2253,7 +2566,7 @@ def main() -> int:
                                                     for k, n in FLAGSHIP_COUNTS.items()}:
             raise AssertionError(f"quality: quality_eval launches {evaluated} are not whole "
                                  "64-step Heun calls through the kernels")
-        return total, evaluated
+        return total, evaluated, probed
 
     def base_config(flag, pairs):
         """``config/config.yaml`` as ``python -m diffusioniqt_tpu_torch.train``
@@ -2764,6 +3077,229 @@ def main() -> int:
                                  f"{want_shapes} per rank")
         return r0["launches"]
 
+    def tp_2d(mesh_shape, backend):
+        """UNet2D (SERVE_2D) over ``mesh_shape`` ranks against one process on
+        the same weights, slices and seeds: each U-Net call of the sampler
+        within FORWARD_REL_TOL of one rank's U-Net on its inputs (bf16), the
+        chained call printed; the step's loss
+        within DDP_LOSS_REL_TOL and its gathered gradient by ddp-train's
+        criteria; every rank's flash launches those of one process (whole
+        heads after the q / k / v gather). Returns rank 0's launches of the
+        call and the step together."""
+        from diffusioniqt_tpu_torch.parallel.multihost import launch
+
+        d, m = mesh_shape
+        hr, lr, min_bound = tp2d_batch()
+        ref = tp2d_run(dev, hr, lr, min_bound, None)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = launch(tp2d_rank, (hr, lr, min_bound, mesh_shape,
+                                   TP_TIMED_STEPS if backend is None else 0, ref["se_masks"]),
+                       nprocs=d * m, device="cuda", backend=backend,
+                       timeout_s=DDP_RANK_TIMEOUT_S)
+        launch_s = time.perf_counter() - t0
+        r0 = ranks[0]
+        fwd_rel = float((r0["forward"] - ref["forward"]).abs().max()
+                        / ref["forward"].abs().max())
+        err = float((r0["out"] - ref["out"]).abs().max())
+        scale = float(ref["out"].abs().max())
+        call_rel = []
+        with torch.no_grad():
+            for args, kwargs, got in r0["calls"]:
+                want = ref["replica"](*tensors_to(args, dev), **tensors_to(kwargs, dev)).float()
+                call_rel.append(float((got.to(dev).float() - want).abs().max()
+                                      / want.abs().max()))
+        del ref["replica"]
+        loss_rel = abs(r0["loss"] - ref["loss"]) / abs(ref["loss"])
+        per, cos_all, norm_rel = grad_stats(r0["grads"], ref["grads"])
+        worst = sorted(per.items(), key=lambda kv: kv[1])[:3]
+        print(f"tp-2d: UNet2D {SERVE_2D} (bf16) over data {d} x model {m} "
+              f"({r0['backend']}; devices {[r['device'] for r in ranks]}), "
+              f"{r0['sharded']} parameters sharded; {TP2D_SLICES} slices of {EDGE_2D}^2; "
+              f"launch of the ranks {launch_s:.1f} s", flush=True)
+        print(f"  one forward at t 0.5: max rel diff {fwd_rel:.3e} (tol {FORWARD_REL_TOL})")
+        print(f"  sampler call ({STEPS_2D} ancestral steps): {r0['sample_s']:.2f} s (1 rank "
+              f"{ref['sample_s']:.2f} s); its {len(call_rel)} U-Net calls against one rank's "
+              f"U-Net on their inputs: max rel diff {max(call_rel, default=float('nan')):.3e} "
+              f"(tol {FORWARD_REL_TOL}; per call {' '.join(f'{v:.2e}' for v in call_rel)}); "
+              f"the chained result (not held) max abs diff {err:.3e} of max {scale:.3e}: "
+              f"{err / scale:.3e} relative; launches {r0['sample_launches']} (1 rank "
+              f"{ref['sample_launches']})")
+        print(f"  train step: loss {r0['loss']:.6f} (1 rank {ref['loss']:.6f}, rel diff "
+              f"{loss_rel:.3e}, tol {DDP_LOSS_REL_TOL}); gradient whole cos {cos_all:.7f} (min "
+              f"{GRAD_GLOBAL_COS_MIN}), norm rel {norm_rel:.3e} (tol {DDP_GRAD_NORM_REL_TOL}), "
+              f"per-tensor cos min {worst[0][1]:.6f} (min {GRAD_TENSOR_COS_MIN}) {worst}, "
+              f"squeeze-excite ReLUs pinned to the 1-rank step's (units a rank's own ReLU "
+              f"would have decided otherwise: {[r['se_flips'] for r in ranks]}); "
+              f"{r0['step_s']:.2f} s (1 rank {ref['step_s']:.2f} s); launches "
+              f"{r0['step_launches']} (1 rank {ref['step_launches']}); peak memory per rank "
+              f"{[round(r['peak'] / 2 ** 30, 2) for r in ranks]} GiB (1 rank "
+              f"{ref['peak'] / 2 ** 30:.2f})", flush=True)
+        if r0["extra_s"]:
+            later = sorted(r0["extra_s"])
+            med = later[len(later) // 2]
+            print(f"  data {d} x model {m}: {TP2D_SLICES} slices per step, s per step "
+                  f"{med:.4f} [{later[0]:.4f}-{later[-1]:.4f}] over {len(later)} steps, "
+                  f"{TP2D_SLICES / med:.2f} slices per s", flush=True)
+        if not (torch.isfinite(r0["forward"]).all() and fwd_rel <= FORWARD_REL_TOL):
+            raise AssertionError("tp-2d: the mesh forward disagrees with the 1-rank one")
+        if r0["out"].shape != ref["out"].shape or not torch.isfinite(r0["out"]).all():
+            raise AssertionError("tp-2d: the sample is not finite or of another shape")
+        if len(call_rel) != STEPS_2D or not max(call_rel) <= FORWARD_REL_TOL:
+            raise AssertionError("tp-2d: the mesh sampler's U-Net calls disagree with the "
+                                 "1-rank U-Net on their inputs")
+        if not (math.isfinite(r0["loss"]) and loss_rel <= DDP_LOSS_REL_TOL):
+            raise AssertionError("tp-2d: the mesh step's loss disagrees with the 1-rank one")
+        if (cos_all < GRAD_GLOBAL_COS_MIN or norm_rel > DDP_GRAD_NORM_REL_TOL
+                or min(per.values()) < GRAD_TENSOR_COS_MIN):
+            raise AssertionError("tp-2d: the gathered gradient disagrees with the 1-rank one")
+        want_sample = {k: STEPS_2D * n for k, n in SERVE_2D_COUNTS.items()}
+        if any((r["sample_launches"], r["step_launches"]) != (want_sample, SERVE_2D_COUNTS)
+               for r in ranks + [ref]):
+            raise AssertionError(f"tp-2d launches {[(r['sample_launches'], r['step_launches']) for r in ranks]}, "
+                                 f"expected {want_sample} and {SERVE_2D_COUNTS}")
+        return {k: r0["sample_launches"][k] + r0["step_launches"][k] for k in NO_COUNTS}
+
+    def tp_video():
+        """Unet3DVideo (VIDEO_UNET, fp32) with every weight of the rule
+        column-split over 2 ranks against one process: the forward of
+        serve-video's input within TP_VIDEO_REL_TOL of its largest entry,
+        the EDM loss within DDP_LOSS_REL_TOL, the gathered gradient by
+        ddp-train's criteria; no hand-written kernel launches."""
+        from diffusioniqt_tpu_torch.parallel.multihost import launch
+
+        world, backend = ddp_ranks()
+        video = video_unet()
+        state = {k: v.detach().float().cpu() for k, v in video.state_dict().items()}
+        del video
+        torch.cuda.empty_cache()
+        emb, mask = video_text()
+        x = torch.randn((VIDEO_BATCH, VIDEO_FRAMES, VIDEO_EDGE, VIDEO_EDGE, 3), generator=gen,
+                        device=dev)
+        videos = torch.rand((VIDEO_BATCH, VIDEO_FRAMES, TP_VIDEO_EDGE, TP_VIDEO_EDGE, 3),
+                            generator=gen, device=dev)
+        inputs = [v.cpu() for v in (x, torch.tensor([0.7, -1.3]), emb, mask, videos)]
+        ranks = launch(tp_video_rank, (state, inputs), nprocs=world, device="cuda",
+                       backend=backend, timeout_s=DDP_RANK_TIMEOUT_S)
+        ref = tp_video_run(dev, state, inputs, None)
+        r0 = ranks[0]
+        err = float((r0["out"] - ref["out"]).abs().max())
+        scale = float(ref["out"].abs().max())
+        loss_rel = abs(r0["loss"] - ref["loss"]) / abs(ref["loss"])
+        # the global-context gates' to_k bias is a constant added before a
+        # softmax over every position: its exact gradient is zero, and both
+        # runs read rounding noise there (held under 1e-6 of the largest
+        # gradient entry, not by its direction)
+        null = [k for k in ref["grads"] if k.endswith("gca.to_k.bias")]
+        top = max(float(g.abs().max()) for g in ref["grads"].values())
+        noise = max(float(g[k].abs().max()) for g in (r0["grads"], ref["grads"]) for k in null)
+        per, cos_all, norm_rel = grad_stats(
+            *({k: v for k, v in g.items() if k not in null} for g in (r0["grads"], ref["grads"])))
+        worst = sorted(per.items(), key=lambda kv: kv[1])[:3]
+        print(f"tp-video: Unet3DVideo {VIDEO_UNET} (fp32) over data 1 x model {world} "
+              f"({backend or 'nccl'}), {r0['sharded']} parameters sharded; forward of "
+              f"{VIDEO_BATCH} x {VIDEO_FRAMES} x {VIDEO_EDGE}^2: {r0['forward_s']:.2f} s (1 rank "
+              f"{ref['forward_s']:.2f} s), max abs diff {err:.3e} of max {scale:.3e} (tol "
+              f"{TP_VIDEO_REL_TOL} relative)", flush=True)
+        print(f"  EDM loss step of {VIDEO_BATCH} x {VIDEO_FRAMES} frames at {TP_VIDEO_EDGE}^2: "
+              f"loss {r0['loss']:.6f} (1 rank {ref['loss']:.6f}, rel diff {loss_rel:.3e}, tol "
+              f"{DDP_LOSS_REL_TOL}); gradient whole cos {cos_all:.7f}, norm rel {norm_rel:.3e}, "
+              f"per-tensor cos min {worst[0][1]:.6f} {worst}; the {len(null)} gates' to_k "
+              f"bias gradients at most {noise:.3e} of the largest entry's {top:.3e}; "
+              f"{r0['step_s']:.2f} s (1 rank "
+              f"{ref['step_s']:.2f} s); launches {r0['launches']}; peak memory per rank "
+              f"{[round(r['peak'] / 2 ** 30, 2) for r in ranks]} GiB (1 rank "
+              f"{ref['peak'] / 2 ** 30:.2f})", flush=True)
+        if not torch.isfinite(r0["out"]).all() or err > TP_VIDEO_REL_TOL * scale:
+            raise AssertionError("tp-video: the split forward disagrees with the 1-rank one")
+        if not (math.isfinite(r0["loss"]) and loss_rel <= DDP_LOSS_REL_TOL):
+            raise AssertionError("tp-video: the split loss disagrees with the 1-rank one")
+        if (cos_all < GRAD_GLOBAL_COS_MIN or norm_rel > DDP_GRAD_NORM_REL_TOL
+                or min(per.values()) < GRAD_TENSOR_COS_MIN or noise > 1e-6 * top):
+            raise AssertionError("tp-video: the gathered gradient disagrees with the 1-rank one")
+        if any(r["launches"] != NO_COUNTS for r in ranks):
+            raise AssertionError("tp-video launched hand-written kernels")
+        return r0["launches"]
+
+    def flops_phase(model, blocks_gflop):
+        """``utils/flops.py`` over one flagship forward (27 x 32^3) on the
+        card through the kernels (each wrapper reports its work) and
+        through the plain versions (every conv an aten op): equal counts;
+        the Blocks' conv GFLOP the fused kernel reports equal to the
+        forward phase's count of them."""
+        from diffusioniqt_tpu_torch.utils.flops import FlopCounter
+
+        x, lowres = (torch.randn((GROUP, SUB, SUB, SUB, 1), generator=gen, device=dev)
+                     for _ in range(2))
+        t = torch.full((GROUP,), 0.5, device=dev)
+        log_snr = torch.full((GROUP,), -1.0, device=dev)
+        counters = {}
+        for label, ops in (("kernels", kernels.KERNELS), ("plain", kernels.PLAIN)):
+            model.use_ops(ops)
+            with torch.no_grad(), FlopCounter() as counter:
+                model(x, t, log_snr, lowres_cond_img=lowres)
+            counters[label] = counter
+        model.use_ops(kernels.KERNELS)
+        card, plain = counters["kernels"], counters["plain"]
+        blocks = card.by_source.get("fused_block", 0) + card.by_source.get("fused_block_small", 0)
+        print(f"flops of one flagship forward (27 x 32^3): through the kernels conv "
+              f"{card.counts['conv'] / 1e9:.3f} GFLOP, matmul {card.counts['dot'] / 1e9:.3f} "
+              f"GFLOP; plain conv {plain.counts['conv'] / 1e9:.3f}, matmul "
+              f"{plain.counts['dot'] / 1e9:.3f}; by source "
+              f"{ {k: round(v / 1e9, 3) for k, v in card.by_source.items()} }; the Blocks' conv "
+              f"{blocks / 1e9:.3f} GFLOP read from the fused kernel (forward phase: "
+              f"{blocks_gflop:.3f})", flush=True)
+        if card.counts != plain.counts:
+            raise AssertionError(f"flops: the kernel path counts {card.counts}, the plain path "
+                                 f"{plain.counts}")
+        if abs(blocks / 1e9 - blocks_gflop) > 1e-9 * blocks_gflop:
+            raise AssertionError("flops: the fused kernel's reported work is not the Blocks'")
+        return card.counts
+
+    def nifti_phase():
+        """``python -m diffusioniqt_tpu_torch.nifti_roundtrip --prepare --run``
+        at its smallest full size (one train, one valid, one test volume of
+        256^3, NIFTI_STEPS steps): the train and evaluate subprocesses each
+        print their launches last (the tool reports them); both run the
+        conv kernels, evaluate in whole 20-step calls; the seconds of each
+        stage; a finite gaussian-stitched prediction of the test volume's
+        240^3 centre crop (evaluate crops a 256-edge volume, reference
+        test.py:151-153)."""
+        from diffusioniqt_tpu_torch import nifti_roundtrip
+        from diffusioniqt_tpu_torch.data.datasets import load_volume
+
+        root = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+        try:
+            t0 = time.perf_counter()
+            log = nifti_roundtrip.main(["--root", root, "--prepare", "--run", "--train-volumes",
+                                        "1", "--valid-volumes", "1", "--test-volumes", "1",
+                                        "--steps", str(NIFTI_STEPS)])
+            total_s = time.perf_counter() - t0
+            preds = sorted(f for f in os.listdir(os.path.join(root, "inference_out"))
+                           if f.endswith("_inf.nii.gz"))
+            pred = load_volume(os.path.join(root, "inference_out", preds[0]))
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        by_entry = {entry: log.pop(f"{entry}_launches") for entry in ("train", "evaluate")}
+        print(f"nifti-roundtrip: {log} ({total_s:.1f} s in all); launches {by_entry}; "
+              f"prediction {preds[0]} {pred.shape} finite {bool(np.isfinite(pred).all())}",
+              flush=True)
+        for entry, counts in by_entry.items():
+            if counts is None:
+                raise AssertionError(f"nifti-roundtrip {entry}: no launch counts printed")
+            forwards = counts["conv3d"]
+            if forwards < NIFTI_STEPS or counts != {k: forwards * n
+                                                    for k, n in FLAGSHIP_COUNTS.items()}:
+                raise AssertionError(f"nifti-roundtrip {entry}: launches {counts} are not "
+                                     "whole flagship forwards through the kernels")
+        if by_entry["evaluate"]["conv3d"] % 20:
+            raise AssertionError("nifti-roundtrip: evaluate's forwards are not whole 20-step "
+                                 "sampler calls")
+        if pred.shape != (240, 240, 240) or not np.isfinite(pred).all():
+            raise AssertionError("nifti-roundtrip: the prediction is not a finite volume of the "
+                                 "test volume's 240^3 centre crop")
+        return {f"nifti-roundtrip {k}": v for k, v in by_entry.items()}
+
     def ddp_serve(cfg, want_pred, serve_s):
         """The serve phase's run over the ranks; rank 0's volume against the
         1-rank one."""
@@ -3163,6 +3699,10 @@ def main() -> int:
             tp_train(pairs, (1, 2), "gloo")
             phase("tp-serve")
             tp_serve()
+            phase("tp-2d")
+            tp_2d((1, 2), ddp_ranks()[1])
+            phase("tp-video")
+            tp_video()
             print(f"total seconds {time.perf_counter() - t_all:.1f}")
             return 0
         # the 4-card comparison: DP2 x TP2 and DP4 x 1 over NCCL, each held
@@ -3182,6 +3722,10 @@ def main() -> int:
                   f"s, peak memory rank 0 "
                   f"{r0['peak'] / 2 ** 30:.2f} GiB, collectives of step 1 {r0['comms']}, timed "
                   f"step {r0['timed']}", flush=True)
+        # the 2D slice family over the same meshes
+        for shape in ((2, 2), (4, 1)):
+            phase(f"tp-2d {shape[0]}x{shape[1]}")
+            tp_2d(shape, None)
         print(f"total seconds {time.perf_counter() - t_all:.1f}")
         return 0
 
@@ -3225,6 +3769,8 @@ def main() -> int:
     print(f"efficient vs flagship forward (27 x 32^3): {efficient_fwd['ms']:.3f} vs "
           f"{flagship_fwd['ms']:.3f} ms, the Blocks' convs {efficient_fwd['gflop']:.1f} vs "
           f"{flagship_fwd['gflop']:.1f} GFLOP", flush=True)
+    phase("flops")
+    flops_phase(flagship_fwd["model"], flagship_fwd["gflop"])
     del flagship_fwd["model"], efficient_fwd["model"]
     phase("preset-srunet256")
     served_srunet = preset_srunet256(cfg)
@@ -3268,7 +3814,7 @@ def main() -> int:
     del trainer
     torch.cuda.empty_cache()
     phase("quality")
-    gated, gate_evaluated = quality_phase()
+    gated, gate_evaluated, probed = quality_phase()
     phase("train-remat-conv")
     train_remat_conv()
     phase("train-2d")
@@ -3295,8 +3841,17 @@ def main() -> int:
     tp_trained = tp_train(pairs, (1, 2), "gloo")
     phase("tp-serve")
     tp_served = tp_serve()
+    phase("tp-2d")
+    tp_2d_served = tp_2d((1, 2), ddp_ranks()[1])
+    phase("tp-video")
+    tp_video_served = tp_video()
+    phase("nifti-roundtrip")
+    nifti_served = nifti_phase()
     phase("cli")
     cli_phase()
+    # the paths of the last slice: the launches of each (rank 0 on a mesh)
+    slice_paths = {"tp-2d (rank 0)": tp_2d_served, "tp-video (rank 0)": tp_video_served,
+                   "edm-probe": probed, **nifti_served}
 
     # ------------------------------------------------------------- report
     line = []
@@ -3335,7 +3890,8 @@ def main() -> int:
                                  "tp-train (rank 0)": tp_trained["launches"][name],
                                  "tp-serve (rank 0)": tp_served[name],
                                  "attn-context": served_context[name],
-                                 **{k: c[name] for k, c in served_video.items()}},
+                                 **{k: c[name] for k, c in served_video.items()},
+                                 **{k: c[name] for k, c in slice_paths.items()}},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "tolerance": head["tol"],
             "ms": head["ms"], "ms_min": head["ms_min"], "ms_max": head["ms_max"],
@@ -3386,7 +3942,8 @@ def main() -> int:
                              "preset-srunet256 sampler call": served_srunet["fused_block_small"],
                              "forward-efficient": EFFICIENT_COUNTS["fused_block_small"],
                              "attn-context": served_context["fused_block_small"],
-                             **{k: c["fused_block_small"] for k, c in served_video.items()}},
+                             **{k: c["fused_block_small"] for k, c in served_video.items()},
+                             **{k: c["fused_block_small"] for k, c in slice_paths.items()}},
         "max_abs_err": max(r["max_abs_err"] for r in small), "tolerance": head["tol"],
         "ms": head["ms"], "ms_min": head["ms_min"], "ms_max": head["ms_max"],
         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],

@@ -3,7 +3,8 @@
 enhanced by full-volume inference (``infer.py``), its background masked,
 and scored by MS-SSIM and PSNR on a centre crop, and with ``--lpips`` by
 slice-wise LPIPS (``metrics/lpips.py::lpips_volume_metric``); the run ends
-with the mean ± std of each and the average sampling time.
+with the mean ± std of each, the average sampling time and the kernels'
+launch counts (``ops/kernels::launches_line``).
 
     python -m diffusioniqt_tpu_torch.evaluate --config config/eval_edm.yaml --fake-data
     python -m diffusioniqt_tpu_torch.evaluate --config config/eval_edm.yaml --fake-data --lpips
@@ -43,6 +44,7 @@ from diffusioniqt_tpu_torch.metrics.lpips import (
     lpips_from_torch_checkpoint,
     lpips_volume_metric,
 )
+from diffusioniqt_tpu_torch.ops import kernels
 from diffusioniqt_tpu_torch.parallel.multihost import is_main_process, run_ranks
 from diffusioniqt_tpu_torch.utils.misc import resolve_device
 
@@ -154,6 +156,7 @@ def _evaluate_rank(device, args):
     if lpipss:
         print(f"{lpips_label}:   {np.mean(lpipss):.4f} +/- {np.std(lpipss):.4f}")
     print(f"Avg sampling time: {np.mean(times):.2f}s")
+    print(kernels.launches_line())
     return {"msssim": msssims, "psnr": psnrs, "lpips": lpipss, "border": border}
 
 

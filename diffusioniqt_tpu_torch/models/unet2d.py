@@ -9,7 +9,8 @@ embedding. Drives ``diffusion/gaussian.py::Imagen`` with ``spatial_dims=2``.
 
 The JAX module leaves its convolutions, GroupNorms and 1x1 products to XLA
 (no Pallas kernel), so here they are PyTorch calls (cuDNN, cuBLAS) in the
-compute dtype: flax's GroupNorm (eps 1e-6, single-pass fp32 statistics
+compute dtype (under a ``model`` mesh axis the convs and dense layers are
+column-parallel, ``parallel/sharding.py``): flax's GroupNorm (eps 1e-6, single-pass fp32 statistics
 E[x^2] - E[x]^2), ``F.conv2d`` for the 3x3 convs, matrix products for the
 1x1s, and the output conv in fp32 on an fp32 cast. Softmax attention goes
 through ``ops/attention.py::scaled_dot_product_attention``: on a CUDA
@@ -46,34 +47,35 @@ from diffusioniqt_tpu_torch.models.blocks import (
 )
 from diffusioniqt_tpu_torch.ops.attention import scaled_dot_product_attention
 from diffusioniqt_tpu_torch.ops.kernels import KERNELS, Ops
+from diffusioniqt_tpu_torch.parallel.sharding import ColumnParallel
 from diffusioniqt_tpu_torch.utils.misc import Mish, cast_tuple, mish
 
 
-class Conv2d(LecunInit, nn.Conv2d):
+class Conv2d(ColumnParallel, LecunInit, nn.Conv2d):
     """k x k stride-1 SAME ``nn.Conv2d`` on a channels-last tensor in its
-    dtype (flax ``nn.Conv(padding="SAME")`` at an odd kernel)."""
+    dtype (flax ``nn.Conv(padding="SAME")`` at an odd kernel); under a
+    model axis it computes its column shard's channels and gathers them."""
 
     def __init__(self, dim_in: int, dim_out: int, kernel_size: int = 3):
         super().__init__(dim_in, dim_out, kernel_size, padding=(kernel_size - 1) // 2)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        bias = None if self.bias is None else self.bias.to(x.dtype)
-        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight.to(x.dtype), bias,
-                     padding=self.padding)
+    def local(self, x: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight.to(x.dtype),
+                     None if bias is None else bias.to(x.dtype), padding=self.padding)
         return y.permute(0, 2, 3, 1)
 
 
-class PointwiseConv2d(LecunInit, nn.Conv2d):
+class PointwiseConv2d(ColumnParallel, LecunInit, nn.Conv2d):
     """1x1 ``nn.Conv2d`` (weight ``(Cout, Cin, 1, 1)``) on a channels-last
-    tensor in its dtype: one matrix product."""
+    tensor in its dtype: one matrix product (of its column shard under a
+    model axis, gathered)."""
 
     def __init__(self, dim_in: int, dim_out: int, bias: bool = True):
         super().__init__(dim_in, dim_out, 1, bias=bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.weight.reshape(self.out_channels, self.in_channels)
-        bias = None if self.bias is None else self.bias.to(x.dtype)
-        return F.linear(x, w.to(x.dtype), bias)
+    def local(self, x: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+        w = self.weight.reshape(self.weight.shape[0], self.in_channels)
+        return F.linear(x, w.to(x.dtype), None if bias is None else bias.to(x.dtype))
 
 
 class GroupNorm(nn.GroupNorm):
@@ -181,7 +183,10 @@ class PixelShuffleUpsample2D(nn.Module):
 class Attention2D(nn.Module):
     """Token attention over the whole grid, linear or softmax, between two
     ChanLayerNorms, plus the input. Softmax attention runs through
-    ``ops.attention`` (``self.ops``, the flash kernel by default)."""
+    ``ops.attention`` (``self.ops``, the flash kernel by default). Under a
+    model axis each rank computes its columns of q / k / v and of the
+    output projection, and the gather gives every rank all heads, over
+    which the kernel runs whole."""
 
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 32, linear: bool = True,
                  use_flash: bool = True):

@@ -56,6 +56,7 @@ from diffusioniqt_tpu_torch.models.blocks import (
 )
 from diffusioniqt_tpu_torch.models.unet2d import GroupNorm
 from diffusioniqt_tpu_torch.ops.volume import resize
+from diffusioniqt_tpu_torch.parallel.sharding import ColumnParallel
 from diffusioniqt_tpu_torch.utils.misc import cast_tuple
 
 # the JAX module's masked score (unet_video.py:39)
@@ -79,11 +80,12 @@ class TokenLayerNorm(ChanLayerNorm):
         return ((x32 - mean) * torch.rsqrt(var + self.eps) * self.g).to(x.dtype)
 
 
-class SpatialConv(LecunInit, nn.Conv3d):
+class SpatialConv(ColumnParallel, LecunInit, nn.Conv3d):
     """Frame-wise k x k conv, weight ``(out, in, 1, k, k)`` (flax ``nn.Conv``
     of kernel ``(1, k, k)``), zero-padded by ``padding`` on H and W: one
     ``F.conv2d`` over the ``B * F`` frames, or a matrix product at k = 1.
-    ``init_zero`` starts weight and bias at zero (the final conv)."""
+    ``init_zero`` starts weight and bias at zero (the final conv).
+    Column-parallel under a model axis."""
 
     def __init__(self, dim_in: int, dim_out: int, kernel_size: int = 1, padding: int = 0,
                  init_zero: bool = False):
@@ -93,23 +95,24 @@ class SpatialConv(LecunInit, nn.Conv3d):
             nn.init.zeros_(self.weight)
             nn.init.zeros_(self.bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def local(self, x: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
         w = self.weight.to(x.dtype)
-        bias = self.bias.to(x.dtype)
+        bias = None if bias is None else bias.to(x.dtype)
         if self.kernel_size[-1] == 1 and self.pad == 0:
-            return F.linear(x, w.reshape(self.out_channels, self.in_channels), bias)
+            return F.linear(x, w.reshape(w.shape[0], self.in_channels), bias)
         lead, (h, wd, c) = x.shape[:-3], x.shape[-3:]
         y = F.conv2d(x.reshape(-1, h, wd, c).permute(0, 3, 1, 2), w[:, :, 0], bias,
                      padding=self.pad)
         return y.permute(0, 2, 3, 1).reshape(*lead, y.shape[2], y.shape[3], -1)
 
 
-class TemporalConv(nn.Conv3d):
+class TemporalConv(ColumnParallel, nn.Conv3d):
     """Causal conv over the frame axis, weight ``(out, in, tk, 1, 1)``: the
     input left-padded with ``tk - 1`` zero frames, so output frame t reads
     frames t - tk + 1 .. t; one matrix product over the concatenated taps.
     Starts as the identity (tap ``tk - 1`` the unit matrix, the rest and
-    the bias zero; JAX ``_identity_temporal_init``)."""
+    the bias zero; JAX ``_identity_temporal_init``), on the whole weight,
+    before a model axis cuts it into column shards."""
 
     def __init__(self, dim_in: int, dim_out: int, kernel_size: int = 3):
         super().__init__(dim_in, dim_out, (kernel_size, 1, 1))
@@ -120,12 +123,12 @@ class TemporalConv(nn.Conv3d):
             self.weight[:, :, -1, 0, 0] = torch.eye(self.out_channels, self.in_channels)
             self.bias.zero_()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def local(self, x: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
         tk, frames = self.kernel_size[0], x.shape[1]
         xp = F.pad(x, (0, 0, 0, 0, 0, 0, tk - 1, 0))
         taps = torch.cat([xp[:, j:j + frames] for j in range(tk)], dim=-1)
-        w = self.weight[:, :, :, 0, 0].permute(0, 2, 1).reshape(self.out_channels, -1)
-        return F.linear(taps, w.to(x.dtype), self.bias.to(x.dtype))
+        w = self.weight[:, :, :, 0, 0].permute(0, 2, 1).reshape(self.weight.shape[0], -1)
+        return F.linear(taps, w.to(x.dtype), None if bias is None else bias.to(x.dtype))
 
 
 class PseudoConv3d(nn.Module):
@@ -210,6 +213,9 @@ class VideoAttention(nn.Module):
     tokens and ``null_attn_bias`` over the prefix columns; ``init_zero``
     ends in a TokenLayerNorm times a zero-initialised gate."""
 
+    # not a layer's weight: whole on every rank of a model group
+    replicated_params = ("null_kv",)
+
     def __init__(self, dim: int, dim_head: int = 64, heads: int = 8, causal: bool = False,
                  context_dim: Optional[int] = None, cosine_sim_attn: bool = False,
                  rel_pos_bias: bool = False, rel_pos_bias_mlp_depth: int = 2,
@@ -280,20 +286,27 @@ class TemporalAttention(nn.Module):
         return out + x
 
 
-class TemporalPEG(LecunInit, nn.Conv3d):
+class TemporalPEG(ColumnParallel, LecunInit, nn.Conv3d):
     """Depthwise 3-tap conv over the frames (causal: two zero frames on the
-    left; else one each side), plus the input; weight ``(dim, 1, 3, 1, 1)``."""
+    left; else one each side), plus the input; weight ``(dim, 1, 3, 1, 1)``.
+    A column shard of the depthwise weight reads only its rank's input
+    channels; the residual adds the whole input after the gather."""
 
     def __init__(self, dim: int, causal: bool = True):
         super().__init__(dim, dim, (3, 1, 1), groups=dim)
         self.causal = causal
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def local(self, x: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+        n = self.weight.shape[0]
+        if self.tp is not None:
+            x = x[..., self.tp.rank * n:(self.tp.rank + 1) * n]
         frames = x.shape[1]
         xp = F.pad(x, (0, 0, 0, 0, 0, 0) + ((2, 0) if self.causal else (1, 1)))
         w = self.weight[:, 0, :, 0, 0].to(x.dtype)          # (dim, 3)
-        out = self.bias.to(x.dtype) + sum(xp[:, j:j + frames] * w[:, j] for j in range(3))
-        return out + x
+        return bias.to(x.dtype) + sum(xp[:, j:j + frames] * w[:, j] for j in range(3))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x) + x
 
 
 class _ICNRConv(SpatialConv):
@@ -389,6 +402,8 @@ class VideoCrossAttention(nn.Module):
     """Cross-attention of tokens to conditioning tokens with a per-head
     null key / value (JAX ``VideoCrossAttention``); ``linear`` is the
     linear-attention variant (softmax of q over d, of k over the keys)."""
+
+    replicated_params = ("null_kv",)
 
     def __init__(self, dim: int, context_dim: int, dim_head: int = 64, heads: int = 8,
                  linear: bool = False, cosine_sim_attn: bool = False):
@@ -529,6 +544,10 @@ class PerceiverResampler(nn.Module):
     ``num_latents_mean_pooled`` latents made from the tokens' mean, through
     ``depth`` x (PerceiverAttention + feed-forward), each with a residual."""
 
+    # learned tokens, not a layer's weight: whole on every rank of a model
+    # group (the JAX rule shards them from 4096 elements)
+    replicated_params = ("pos_emb", "latents")
+
     def __init__(self, dim: int, depth: int = 2, dim_head: int = 64, heads: int = 8,
                  num_latents: int = 32, num_latents_mean_pooled: int = 4,
                  max_seq_len: int = 512, ff_mult: float = 4.0, cosine_sim_attn: bool = False):
@@ -578,7 +597,14 @@ class Unet3DVideo(nn.Module):
     ``init_temporal_peg``, ``init_temporal_attn``, ``to_time_hiddens``,
     ``to_time_tokens``, ``to_time_cond``, their ``to_lowres_*``
     counterparts, ``text_to_cond``, ``null_text_embed``, ``attn_pool``,
-    ``to_text_non_attn_cond``, ``null_text_hidden``, ``norm_cond``)."""
+    ``to_text_non_attn_cond``, ``null_text_hidden``, ``norm_cond``).
+
+    Under a ``model`` mesh axis every conv and dense layer is
+    column-parallel (``parallel/sharding.py``); the learned null text
+    embeddings, like the Perceiver's tokens and the attention's null key /
+    value, stay whole on every rank (``replicated_params``)."""
+
+    replicated_params = ("null_text_embed", "null_text_hidden")
 
     def __init__(
         self,

@@ -16,10 +16,15 @@ version, and a note naming the TPU kernel it replaces:
 calls. Models use :data:`KERNELS`; :data:`PLAIN` runs the plain versions
 on any device, so a whole forward can be held against the kernels on the
 card (``chip_smoke.py``).
+
+The train and evaluate entry points print :func:`launch_counts` last, as
+one line that starts with :data:`LAUNCHES_LINE`, so a caller that runs them
+as subprocesses reads which kernels they launched.
 """
 
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass
 from typing import Callable
 
@@ -66,3 +71,11 @@ def reset_launch_counts() -> None:
     fused_conv.launches = 0
     fused_conv.small_edge_launches = 0
     flash_attention.launches = 0
+
+
+LAUNCHES_LINE = "Kernel launches: "
+
+
+def launches_line() -> str:
+    """:data:`LAUNCHES_LINE` and :func:`launch_counts` as JSON."""
+    return LAUNCHES_LINE + json.dumps(launch_counts())

@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from diffusioniqt_tpu_torch.ops.kernels import runtime
+from diffusioniqt_tpu_torch.utils import flops
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -183,6 +184,7 @@ def _launch(xh: torch.Tensor, w: torch.Tensor, packed: torch.Tensor):
                  gemm_geometry(s, cin, cout).bn, stream)
     runtime.check_launch(name, err)
     conv3d_valid.launches += 1
+    flops.record("conv", flops.conv3d_valid_flops(out.shape, cin), "conv3d")
     return out
 
 

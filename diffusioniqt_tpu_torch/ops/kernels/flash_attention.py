@@ -32,6 +32,7 @@ import torch
 
 from diffusioniqt_tpu_torch.ops.attention import attention_plain
 from diffusioniqt_tpu_torch.ops.kernels import runtime
+from diffusioniqt_tpu_torch.utils import flops
 
 HEAD_DIMS = (32, 64, 128)
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -68,6 +69,7 @@ def _launch(q, k, v, scale: float) -> torch.Tensor:
              float(scale), runtime.stream_handle(q.device))
     runtime.check_launch(name, err)
     flash_attention.launches += 1
+    flops.record("dot", flops.attention_flops(b, nq, k.shape[1], d), "flash_attention")
     return out
 
 

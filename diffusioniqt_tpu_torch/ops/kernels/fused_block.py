@@ -66,6 +66,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from diffusioniqt_tpu_torch.ops.kernels import runtime
+from diffusioniqt_tpu_torch.utils import flops
 from diffusioniqt_tpu_torch.ops.kernels.conv3d import (
     PackedWeight,
     check_igemm_args,
@@ -300,6 +301,7 @@ def _launch(xh, a_tab, b_tab, w, packed):
              cin, cout, gemm_geometry(s, cin, cout).bn, runtime.stream_handle(xh.device))
     runtime.check_launch(name, err)
     fused_conv.launches += 1
+    flops.record("conv", flops.conv3d_valid_flops(out.shape, cin), "fused_block")
     return out
 
 
@@ -319,6 +321,7 @@ def launch_small_edge(xh, a_tab, b_tab, packed, plan: SmallEdgePlan):
              runtime.stream_handle(xh.device))
     runtime.check_launch(name, err)
     fused_conv.small_edge_launches += 1
+    flops.record("conv", flops.conv3d_valid_flops(out.shape, cin), "fused_block_small")
     return out
 
 

@@ -18,7 +18,8 @@ from __future__ import annotations
 import os
 import pickle
 import queue
-import socket
+import shutil
+import tempfile
 import time
 import traceback
 from datetime import timedelta
@@ -142,20 +143,13 @@ def check_cards(ranks: int) -> None:
             f"card per rank; start at most {count} rank(s) per host")
 
 
-def free_port() -> int:
-    """A TCP port on localhost that was free a moment ago."""
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def _rank_main(fn, args, rank, world, port, device, backend, results):
+def _rank_main(fn, args, rank, world, init_method, device, backend, results):
     """One rank of :func:`launch`: join the group, run, leave, and report.
     The result crosses pickled to bytes, so no tensor is shared with a
     process that is about to exit."""
     try:
         device = initialize_multihost(device, backend=backend, world_size=world, rank=rank,
-                                      local_rank=rank, init_method=f"tcp://127.0.0.1:{port}")
+                                      local_rank=rank, init_method=init_method)
         try:
             out = fn(device, *args)
         finally:
@@ -169,8 +163,11 @@ def _rank_main(fn, args, rank, world, port, device, backend, results):
 def launch(fn: Callable, args: Sequence[Any] = (), *, nprocs: int, device="cuda",
            backend: Optional[str] = None, timeout_s: Optional[float] = None) -> List[Any]:
     """Run ``fn(rank_device, *args)`` on ``nprocs`` ranks, one spawned
-    process each, in a process group of their own (``tcp://127.0.0.1``),
-    and return every rank's result in rank order. ``fn`` is a module-level
+    process each, in a process group of their own, and return every rank's
+    result in rank order. The ranks meet through a file store (``file://``)
+    in a fresh temporary directory that only this call knows, which gloo
+    and NCCL both take: no port is picked and left open for another
+    process to take before the ranks bind it. ``fn`` is a module-level
     function; ``args`` and the results are pickled (return CPU tensors).
 
     The parent fails if any rank fails (with that rank's traceback) or if
@@ -185,15 +182,17 @@ def launch(fn: Callable, args: Sequence[Any] = (), *, nprocs: int, device="cuda"
         check_cards(nprocs)
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
-    port = free_port()
+    store_dir = tempfile.mkdtemp(prefix="rendezvous-")
+    init_method = "file://" + os.path.join(store_dir, "store")
     procs = [ctx.Process(target=_rank_main, daemon=True,
-                         args=(fn, tuple(args), r, nprocs, port, str(device), backend, results))
+                         args=(fn, tuple(args), r, nprocs, init_method, str(device), backend,
+                               results))
              for r in range(nprocs)]
-    for p in procs:
-        p.start()
     got, errors = {}, []
     deadline = None if timeout_s is None else time.monotonic() + timeout_s
     try:
+        for p in procs:
+            p.start()
         # read the queue while waiting: a rank exits only once what it put
         # there has been taken
         while len(got) < nprocs and not errors:
@@ -231,10 +230,13 @@ def launch(fn: Callable, args: Sequence[Any] = (), *, nprocs: int, device="cuda"
             if p.is_alive():
                 p.terminate()
         for p in procs:
+            if p.pid is None:
+                continue
             p.join(10)
             if p.is_alive():
                 p.kill()
                 p.join()
+        shutil.rmtree(store_dir, ignore_errors=True)
 
 
 def run_ranks(fn: Callable, args: Sequence[Any] = (), *, nprocs: int = 0, device="cuda"):

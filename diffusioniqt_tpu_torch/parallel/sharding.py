@@ -50,8 +50,9 @@ from diffusioniqt_tpu_torch.parallel.multihost import local_batch_slice
 
 # the JAX rule's least parameter size (parallel/sharding.py:52)
 MIN_SIZE = 4096
-TP_NOT_COVERED = ("tensor parallelism covers UNet3D (and its attention slots) only: "
-                  "ROADMAP.md section 1 queues UNet2D and Unet3DVideo")
+NO_COLUMN_SPLIT = ("a weight of two or more axes whose layer has no column split: give the "
+                   "layer the ColumnParallel forward, or name the parameter in its module's "
+                   "replicated_params")
 
 
 def data_size(mesh: Optional[DeviceMesh]) -> int:
@@ -245,13 +246,15 @@ def param_shardings(module: torch.nn.Module, mesh, min_size: int = MIN_SIZE) -> 
     ``Replicate()``: 1-D leaves, small kernels, widths that do not divide,
     every leaf on a mesh without a model axis of more than one rank, and
     the leaves that a module names in its ``replicated_params``: the JAX
-    rule shards them, but they are not a layer's weight (the ViT3D
-    ``positions``, ``models/attention.py``).
+    rule shards them from its least size on, but they are not a layer's
+    weight (the ViT3D ``positions``, ``models/attention.py``; the video
+    U-Net's learned tokens and null embeddings, ``models/unet_video.py``).
 
-    A parameter of two or more axes whose layer is not
-    :class:`ColumnParallel` (the 2D and video U-Nets' layers) raises
-    ``NotImplementedError``: its forward has no column split, and
-    replicating it silently would not be the JAX placement."""
+    Every U-Net family's layers are column-parallel. A parameter of two or
+    more axes that is neither a :class:`ColumnParallel` layer's weight nor
+    named in ``replicated_params`` raises ``NotImplementedError``: its
+    forward has no column split, and replicating it silently would not be
+    the JAX placement."""
     from torch.distributed.tensor import Replicate, Shard
 
     names = tuple(mesh.mesh_dim_names or ())
@@ -264,7 +267,7 @@ def param_shardings(module: torch.nn.Module, mesh, min_size: int = MIN_SIZE) -> 
             if model > 1 and p.dim() >= 2 and leaf not in getattr(owner, "replicated_params", ()):
                 if not isinstance(owner, ColumnParallel):
                     raise NotImplementedError(f"{name} ({type(owner).__name__}): "
-                                              f"{TP_NOT_COVERED}")
+                                              f"{NO_COLUMN_SPLIT}")
                 if leaf == "weight" and _leaf_sharded(p.shape, p.shape[owner.shard_dim],
                                                       model, min_size):
                     spec[names.index("model")] = Shard(owner.shard_dim)
@@ -276,17 +279,22 @@ def shard_module_(module: torch.nn.Module, mesh) -> Dict[str, int]:
     """Keep, in place, this rank's column slice of every parameter that
     :func:`param_shardings` shards (call it after :func:`broadcast_params`,
     on the full weights), and give its layer the model group (``tp``).
-    Returns ``{name: torch axis}`` of the sharded parameters. The
-    parameter objects stay (an optimizer or an EMA copy made afterwards
-    holds the shards); their version counters are bumped, and the packed
-    weight caches key on the shape too, so no kernel reads a pack of the
-    full weight."""
+    Returns ``{name: torch axis}`` of the sharded parameters."""
+    return keep_shards_(module, mesh, param_shardings(module, mesh))
+
+
+def keep_shards_(module: torch.nn.Module, mesh, specs: Dict[str, tuple]) -> Dict[str, int]:
+    """:func:`shard_module_` for the placements ``specs`` (``{name: spec}``
+    as :func:`param_shardings` gives them). The parameter objects stay (an
+    optimizer or an EMA copy made afterwards holds the shards); their
+    version counters are bumped, and the packed weight caches key on the
+    shape too, so no kernel reads a pack of the full weight."""
     model = axis_size(mesh, "model")
     if model == 1:
         return {}
     shard = ModelShard(mesh.get_group("model"), model, axis_rank(mesh, "model"))
     dims, params = {}, []
-    for name, spec in param_shardings(module, mesh).items():
+    for name, spec in specs.items():
         dim = next((s.dim for s in spec if hasattr(s, "dim")), None)
         if dim is None:
             continue

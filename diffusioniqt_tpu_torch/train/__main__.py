@@ -12,7 +12,8 @@ and ``Train.save_last_model`` under ``Results/ProjectName/Model``; a name
 without ``.pt`` gets it, and so does ``Train.pretrain_model``, which a
 config with ``Train.pretrain`` loads first (``strict=False``). ``python -m
 diffusioniqt_tpu_torch.infer --checkpoint`` serves them. Runs on ``cuda``
-unless ``--device cpu`` is given.
+unless ``--device cpu`` is given. The main process prints the kernels'
+launch counts last (``ops/kernels::launches_line``).
 
 Data-parallel training over W ranks, one process each (train.py:45-60,
 115-126):
@@ -43,6 +44,7 @@ from diffusioniqt_tpu_torch.data.datasets import FakeIQTDataset, SupervisedIQT
 from diffusioniqt_tpu_torch.diffusion.elucidated import elucidated_imagen_from_config
 from diffusioniqt_tpu_torch.diffusion.gaussian import imagen_from_config
 from diffusioniqt_tpu_torch.models.unet3d import NullUnet, iqt_unet_from_config
+from diffusioniqt_tpu_torch.ops import kernels
 from diffusioniqt_tpu_torch.parallel.mesh import create_mesh
 from diffusioniqt_tpu_torch.parallel.multihost import (
     barrier,
@@ -213,6 +215,7 @@ def train(args, device) -> None:
         _write_csv(os.path.join(log_dir, cfg.train.save_file), {"loss": train_ls})
     trainer.save(_bundle_path(project_path, cfg, cfg.train.save_last_model))
     say("Training done")
+    say(kernels.launches_line())
 
 
 if __name__ == "__main__":

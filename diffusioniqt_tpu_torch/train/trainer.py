@@ -286,6 +286,17 @@ class ImagenTrainer:
             raise ValueError("you can only train one unet at a time")
         return unet_number
 
+    def get_lr(self, unet_number: Optional[int] = None) -> float:
+        """The learning rate that unet ``unet_number``'s next update
+        applies: its schedule at the updates taken so far (reference
+        trainer.py:452-458)."""
+        index = self.validate_unet_number(unet_number) - 1
+        return float(self.schedules[index](self.steps[index]))
+
+    def num_steps_taken(self, unet_number: Optional[int] = None) -> int:
+        """Optimizer updates that unet ``unet_number`` has taken."""
+        return self.steps[self.validate_unet_number(unet_number) - 1]
+
     # ------------------------------------------------------------------
     def add_train_dataloader(self, dl):
         self.train_dl = dl

@@ -437,6 +437,32 @@ def test_small_attention_unet_runs_through_the_kernels(dev):
     assert ((got - want).abs().max() / want.abs().max()).item() <= 5e-2
 
 
+def test_flop_count_through_the_kernels_equals_the_plain_path(dev):
+    """``utils/flops.py`` on the card: the attention U-Net's forward through
+    the kernels (the fused Block, the init conv and flash attention report
+    their work where they launch) counts what the plain path's aten convs
+    and products count, and the kernels' share is reported by name."""
+    from diffusioniqt_tpu_torch.utils.flops import FlopCounter
+
+    torch.manual_seed(0)
+    model = UNet3D(dim=16, init_dim=16, dim_mults=(1, 2), num_resnet_blocks=(1, 1),
+                   resnet_groups=4, img_size=48, att_type="softmax", attn_dim_head=32,
+                   attend_at_enc=(True, True), attend_at_enc_heads=2, deep_feature=True,
+                   attend_at_middle=True, attend_at_middle_heads=2,
+                   dtype=torch.bfloat16).to(dev).eval()
+    x = torch.randn((54, 16, 16, 16, 1), device=dev)
+    t = torch.full((54,), 0.5, device=dev)
+    counters = []
+    for ops in (kernels.KERNELS, kernels.PLAIN):
+        with torch.no_grad(), FlopCounter() as counter:
+            model.use_ops(ops)(x, t, t, lowres_cond_img=x)
+        counters.append(counter)
+    card, plain = counters
+    assert card.counts == plain.counts and card.counts["conv"] > 0
+    assert {"fused_block", "conv3d", "flash_attention"} <= set(card.by_source)
+    assert not {"fused_block", "conv3d", "flash_attention"} & set(plain.by_source)
+
+
 def test_small_unet_runs_through_the_kernels(dev):
     torch.manual_seed(0)
     model = UNet3D(dim=16, init_dim=16, dim_mults=(1, 2), num_resnet_blocks=(2, 2),

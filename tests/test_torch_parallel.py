@@ -677,8 +677,9 @@ def test_more_ranks_than_cards_and_model_axis_raise(tmp_path, monkeypatch):
     larger than the card count, raise before any process starts or any
     group forms (no fallback to fewer ranks or to the CPU); a ``model``
     axis (tensor parallelism) builds a ``("data", "model")`` mesh of
-    (1, 2) over 2 ranks, and on a U-Net family without the column split
-    (``UNet2D``) raises NotImplementedError naming ROADMAP.md."""
+    (1, 2) over 2 ranks; the rule raises NotImplementedError on a weight
+    whose layer has no column split, and places ``UNet2D`` (column-parallel
+    since its layers got the split) without raising."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     cfg_path, _ = _tiny_config(tmp_path, "config/eval_config.yaml")
@@ -695,8 +696,9 @@ def test_more_ranks_than_cards_and_model_axis_raise(tmp_path, monkeypatch):
     assert not torch.distributed.is_initialized()
     for got in _launch(_model_mesh_rank):
         assert got == (("data", "model"), (1, 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        sharding.param_shardings(UNet2D(dim=8, dim_mults=(1, 2), channels=1), _ModelMesh())
+    with pytest.raises(NotImplementedError, match="no column split"):
+        sharding.param_shardings(torch.nn.Conv2d(64, 64, 3), _ModelMesh())
+    assert sharding.param_shardings(UNet2D(dim=8, dim_mults=(1, 2), channels=1), _ModelMesh())
 
 
 def _model_mesh_rank(device):

@@ -278,21 +278,36 @@ def test_param_shardings_name_the_jax_rule_leaves(model, min_size):
                           "mid_attn.patch_embedding.positions"}
 
 
+class _NoColumnSplit(torch.nn.Module):
+    """A U-Net stand-in whose 3x3 conv is a plain ``nn.Conv2d``: a layer
+    without the column split."""
+
+    lowres_cond, self_cond, channels = True, False, 1
+
+    def __init__(self):
+        super().__init__()
+        self.conv = torch.nn.Conv2d(64, 64, 3)
+
+
 def test_sharding_refusals():
-    """A TP mesh on a U-Net family without the column split (``UNet2D``)
-    raises NotImplementedError naming ROADMAP.md, in the rule and in the
-    trainer, rather than replicating it; a mesh's model axis is its
-    innermost."""
+    """A TP mesh on a module with a weight of two axes whose layer has no
+    column split raises NotImplementedError saying so, in the rule and in
+    the trainer, rather than replicating it; ``UNet2D`` (column-parallel
+    since its layers got the split) no longer raises; a mesh's model axis is
+    its innermost."""
     from diffusioniqt_tpu_torch.diffusion.gaussian import Imagen
 
-    unet2d = UNet2D(dim=8, dim_mults=(1, 2), channels=1, lowres_cond=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        sharding.param_shardings(unet2d, _Mesh(2))
-    imagen = Imagen([NullUnet(), unet2d], image_sizes=(8, 8), channels=1, timesteps=4,
+    plain = _NoColumnSplit()
+    with pytest.raises(NotImplementedError, match="no column split"):
+        sharding.param_shardings(plain, _Mesh(2))
+    imagen = Imagen([NullUnet(), plain], image_sizes=(8, 8), channels=1, timesteps=4,
                     spatial_dims=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="no column split"):
         ImagenTrainer(None, imagen, mesh=_Mesh(2))
-    assert sharding.param_shardings(unet2d, _Mesh(1))  # nothing to split: all replicated
+    assert sharding.param_shardings(plain, _Mesh(1))  # nothing to split: all replicated
+    unet2d = UNet2D(dim=32, dim_mults=(1, 2), channels=1, lowres_cond=True)
+    assert any(hasattr(spec[1], "dim") for spec in
+               sharding.param_shardings(unet2d, _Mesh(2)).values())
     with pytest.raises(ValueError, match="mesh axes"):
         create_mesh(("model", "data"), (2, 1))
 

@@ -391,6 +391,38 @@ def test_lr_schedule_matches_optax(warmup, cosine):
                                    err_msg=f"count {n}")
 
 
+@pytest.mark.parametrize("warmup,cosine", [(None, None), (2, None), (2, 5)])
+def test_get_lr_and_num_steps_taken_follow_the_optax_schedule(warmup, cosine):
+    """``get_lr`` is the rate the next update applies: the optax schedule
+    that the JAX trainer builds (trainer.py:105-126) at the count of updates
+    taken, which ``num_steps_taken`` returns; each step applies it. (The
+    JAX ``get_lr`` reads 0.0 whatever the step: ``optax.adam(learning_rate=
+    schedule)``'s state holds no ``learning_rate`` leaf for
+    ``tree_get`` to find.)"""
+    lr = 1e-3
+    if cosine is not None:
+        want = optax.warmup_cosine_decay_schedule(
+            init_value=0.0 if warmup else lr, peak_value=lr, warmup_steps=warmup or 0,
+            decay_steps=cosine, end_value=lr * 0.001)
+    elif warmup is not None:
+        want = optax.linear_schedule(0.0, lr, warmup)
+    else:
+        want = lambda n: lr  # noqa: E731
+    torch.manual_seed(0)
+    imagen = ElucidatedImagen([NullUnet(), UNet3D(**UNET_KW)], **E_KW)
+    tr = ImagenTrainer(None, imagen, gradient_accumulation_steps=1, lr=lr,
+                       warmup_steps=warmup, cosine_decay_max_steps=cosine)
+    for n in range(4):
+        assert tr.num_steps_taken(2) == n
+        np.testing.assert_allclose(tr.get_lr(2), float(want(n)), rtol=1e-6, atol=1e-12)
+        tr.train_step(unet_number=2, batch=(_rand(SHAPE, 2 * n + 1), _rand(SHAPE, 2 * n + 2)))
+        np.testing.assert_allclose(tr.optimizers[1].param_groups[0]["lr"], float(want(n)),
+                                   rtol=1e-6, atol=1e-12)
+    assert tr.num_steps_taken(2) == 4
+    with pytest.raises(ValueError):
+        tr.get_lr(3)
+
+
 @pytest.mark.parametrize("max_norm", [0.5, 1e3])
 def test_clip_by_global_norm_matches_optax(max_norm):
     grads = {"a": _rand((3, 4), 1), "b": _rand((5,), 2)}
