@@ -237,6 +237,18 @@ Phases, each of which raises (and exits non-zero) on failure:
   edm-merged    edm-step's call with ``merged_boundary=True`` (the same
                 weights and noise) against the split model: bit for bit,
                 as merged mode runs on the split kernels
+  missing-pieces  ``UpsampleCombiner`` at the flagship's widths on one
+                window (27 x 32^3 x 64, the feature maps 16^3 x 128 and 8^3 x
+                256 resized to 32^3, each through a 64-wide Block: the fused
+                kernel's factor-1 route at 128->64 and 256->64), kernels
+                against plain within BF16_TOL, launches exactly 2 halos and 2
+                fused blocks; ``TrilinearUpsample`` (128->64 from 16^3) and
+                ``StridedDownsample`` (64->128 from 32^3) against their fp32
+                CPU output on 2 sub-volumes; ``Imagen([NullUnet(),
+                UNet3D(lowres_cond=False)])`` at the flagship's config, whose
+                cast unet 2 (the lowres-conditioned flagship) takes the
+                flagship's weights: one 20-step ancestral call of one window
+                equal bit for bit to the wrapper built around the flagship
   train-remat-conv  the gate's step (EDM, sigma_data 1.0, 8 patches of
                 96^3 in 2 microbatches of 108 x 32^3) under full remat and
                 under ``remat_policy='conv'``, 3 steps each from the same
@@ -479,6 +491,10 @@ VIDEO_TEXTS = ["an axial flair slice of an adult brain with periventricular whit
 VIDEO_COND_SCALE = 3.0
 NO_COUNTS = {"halo": 0, "conv3d": 0, "fused_block": 0, "fused_block_small": 0,
              "flash_attention": 0}
+# missing-pieces: UpsampleCombiner at the flagship's widths on one window,
+# the input at level 0 (32^3 x 64), the feature maps of levels 1 and 2
+# (16^3 x 128, 8^3 x 256) resized to 32^3, each through a 64-wide Block
+COMBINER_DIM, COMBINER_DIM_INS, COMBINER_DIM_OUTS = 64, (128, 256), (64, 64)
 REPLACES = {
     "halo": "diffusioniqt_tpu/ops/pallas/halo.py:103",
     "conv3d": "diffusioniqt_tpu/ops/pallas/conv3d.py:83",
@@ -1689,7 +1705,7 @@ def main() -> int:
                 for _ in range(2))
         scale = d ** -0.5
         got = kernels.flash_attention(q, k, v, scale)
-        want = kernels.attention_plain(q, k, v, scale)
+        want = kernels.attention_reference(q, k, v, scale)
         torch.cuda.synchronize()
         stats = compare("flash_attention", (bh, nq, nk, d), got, want, FLASH_TOL)
         # the library yardstick: one SDPA call over (batch, heads, N, D)
@@ -1698,7 +1714,7 @@ def main() -> int:
         sdpa = torch.nn.functional.scaled_dot_product_attention
         record("flash_attention", (bh, nq, nk, d), stats,
                timed(lambda: kernels.flash_attention(q, k, v, scale)),
-               cuda_time_ms(lambda: kernels.attention_plain(q, k, v, scale), iters=3),
+               cuda_time_ms(lambda: kernels.attention_reference(q, k, v, scale), iters=3),
                timed(lambda: sdpa(q4, k4, v4, scale=scale)),
                bound_ms(4.0 * bh * nq * nk * d, nbytes(q, k, v, got)))
         del q, k, v, q4, k4, v4, got, want
@@ -1895,6 +1911,109 @@ def main() -> int:
             raise AssertionError(f"edm-merged launches {counts}")
         if not (torch.isfinite(out_m).all() and equal):
             raise AssertionError("edm-merged: merged mode differs from the split layout")
+
+    def missing_pieces(cfg):
+        """The reference blocks that the U-Net leaves off, at the flagship's
+        widths on one window, and the wrappers' casting of their U-Nets
+        (the docstring's missing-pieces entry). Returns the launches of
+        the combiner's forward."""
+        from diffusioniqt_tpu_torch.models.blocks import (
+            StridedDownsample,
+            TrilinearUpsample,
+            UpsampleCombiner,
+        )
+        from diffusioniqt_tpu_torch.models.unet3d import UNet3D
+
+        def bf16(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+        x = bf16(GROUP, SUB, SUB, SUB, COMBINER_DIM)
+        fmaps = [bf16(GROUP, SUB // 2 ** (i + 1), SUB // 2 ** (i + 1), SUB // 2 ** (i + 1), c)
+                 for i, c in enumerate(COMBINER_DIM_INS)]
+        torch.manual_seed(0)
+        comb = UpsampleCombiner(COMBINER_DIM, enabled=True, dim_ins=COMBINER_DIM_INS,
+                                dim_outs=COMBINER_DIM_OUTS).to(dev)
+        with torch.no_grad():  # a GroupNorm affine and conv bias away from 1 / 0
+            for blk in comb.fmap_convs:
+                for prm, base in ((blk.groupnorm.weight, 1.0), (blk.groupnorm.bias, 0.0),
+                                  (blk.project.bias, 0.0)):
+                    prm.copy_(base + 0.1 * torch.randn(prm.shape, generator=gen, device=dev))
+        kernels.reset_launch_counts()
+        got = comb(x, fmaps)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        for blk in comb.fmap_convs:
+            blk.ops = kernels.PLAIN
+        want = comb(x, fmaps)
+        plain_ms = cuda_time_ms(lambda: comb(x, fmaps), iters=3)
+        for blk in comb.fmap_convs:
+            blk.ops = kernels.KERNELS
+        if counts != {**NO_COUNTS, "halo": 2, "fused_block": 2}:
+            raise AssertionError(f"missing-pieces: the combiner launched {counts}")
+        if not torch.equal(got[..., :COMBINER_DIM], x):
+            raise AssertionError("missing-pieces: the combiner changed its input")
+        lo = COMBINER_DIM
+        for cin, cout in zip(COMBINER_DIM_INS, COMBINER_DIM_OUTS):
+            compare("combiner Block, fused kernel at factor 1", (GROUP, SUB, cin, cout),
+                    got[..., lo:lo + cout], want[..., lo:lo + cout], BF16_TOL)
+            lo += cout
+        ms = timed(lambda: comb(x, fmaps))
+        flops = sum(2.0 * GROUP * SUB ** 3 * 27 * cin * cout
+                    for cin, cout in zip(COMBINER_DIM_INS, COMBINER_DIM_OUTS))
+        # the fmaps read, their resized copies written and read once, x and
+        # the output
+        resized = 2 * 2 * GROUP * SUB ** 3 * sum(COMBINER_DIM_INS)
+        bound, by = bound_ms(flops, nbytes(x, *fmaps, got) + resized)
+        print(f"combiner (27, 32^3, 64) + fmaps (16^3, 128), (8^3, 256) -> (64, 64): "
+              f"{fmt(ms)} ms (plain {plain_ms:.4f}), bound {bound:.4f} ms ({by}), "
+              f"launches {counts}", flush=True)
+        del got, want
+
+        for name, block, inp in (
+                ("TrilinearUpsample", TrilinearUpsample(COMBINER_DIM_INS[0], COMBINER_DIM),
+                 fmaps[0]),
+                ("StridedDownsample", StridedDownsample(COMBINER_DIM, COMBINER_DIM_INS[0]), x)):
+            block = block.to(dev)
+            with torch.no_grad():
+                out = block(inp)
+                cpu = block.cpu()(inp[:2].float().cpu())
+            block.to(dev)
+            compare(f"{name} against the CPU (fp32)", tuple(inp.shape), out[:2],
+                    cpu.to(dev), BF16_TOL)
+            print(f"{name} {tuple(inp.shape)} -> {tuple(out.shape)}: "
+                  f"{fmt(timed(lambda: block(inp)))} ms", flush=True)
+
+        # the flagship behind Imagen([NullUnet(), UNet3D(lowres_cond=False)]):
+        # the wrapper casts unet 2 to the lowres-conditioned flagship
+        ref = build_sampler(cfg, device=dev, seed=0)
+        bare = UNet3D(**{**ref.unets[1].config, "lowres_cond": False}).to(dev)
+        cast = imagen_from_config(cfg, (NullUnet().to(dev), bare))
+        unet = cast.get_unet(2)
+        if unet is bare or not unet.lowres_cond or unet.init_conv.weight.shape[1] != 2:
+            raise AssertionError("missing-pieces: unet 2 was not cast to lowres conditioning")
+        unet.load_state_dict(ref.unets[1].state_dict())
+        unet.eval()
+        lowres = torch.randn((GROUP, SUB, SUB, SUB, 1), generator=gen, device=dev)
+
+        def run(imagen):
+            noise = gaussian_noise(torch.Generator(device=dev).manual_seed(0))
+            return imagen.sample(batch_size=GROUP, noise=noise, start_at_unet_number=2,
+                                 start_image_or_video=lowres)
+
+        kernels.reset_launch_counts()
+        out_cast = run(cast)
+        torch.cuda.synchronize()
+        cast_counts = kernels.launch_counts()
+        out_ref = run(ref)
+        equal = torch.equal(out_cast, out_ref)
+        print(f"cast wrapper, {cfg.train.timesteps}-step ancestral call of one window: "
+              f"finite {bool(torch.isfinite(out_cast).all())} equal to today's wrapper "
+              f"{equal}; launches {cast_counts}", flush=True)
+        if cast_counts != {k: cfg.train.timesteps * n for k, n in FLAGSHIP_COUNTS.items()}:
+            raise AssertionError(f"missing-pieces: the cast wrapper launched {cast_counts}")
+        if not (torch.isfinite(out_cast).all() and equal):
+            raise AssertionError("missing-pieces: the cast wrapper differs from today's")
+        return counts
 
     def train_remat_conv():
         """The gate's step under full remat and under remat_policy 'conv' from
@@ -3799,6 +3918,8 @@ def main() -> int:
     edm_step(cfg_edm_step)
     phase("edm-merged")
     edm_merged(cfg_edm_step)
+    phase("missing-pieces")
+    pieces = missing_pieces(cfg)
     phase("serve-edm")
     served_edm, pred_edm, highres_edm, _ = serve(cfg_edm, FLAGSHIP_COUNTS)
     phase("stitch")
@@ -3890,6 +4011,7 @@ def main() -> int:
                                  "tp-train (rank 0)": tp_trained["launches"][name],
                                  "tp-serve (rank 0)": tp_served[name],
                                  "attn-context": served_context[name],
+                                 "missing-pieces combiner": pieces[name],
                                  **{k: c[name] for k, c in served_video.items()},
                                  **{k: c[name] for k, c in slice_paths.items()}},
             "max_abs_err": max(r["max_abs_err"] for r in rows),

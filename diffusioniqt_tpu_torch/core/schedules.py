@@ -81,6 +81,11 @@ class GaussianDiffusionContinuousTimes:
         :258-259)."""
         return None if times is None else self.log_snr(times)
 
+    def get_times(self, batch_size: int, noise_level: float, device="cpu") -> torch.Tensor:
+        """``noise_level`` for each of ``batch_size`` samples, fp32."""
+        return torch.full((batch_size,), float(noise_level), dtype=torch.float32,
+                          device=device)
+
     def sample_random_times(self, generator: torch.Generator, batch_size: int) -> torch.Tensor:
         """Training times ``t ~ U[0, 1)``, ``(batch_size,)`` fp32, drawn from
         ``generator`` on its device (reference :255-256)."""
@@ -158,6 +163,12 @@ class GaussianDiffusionContinuousTimes:
         log_snr = right_pad_dims_to(x_t, self.log_snr(t))
         alpha, sigma = log_snr_to_alpha_sigma(log_snr)
         return alpha * x_t - sigma * v
+
+    def predict_v_from_start_and_noise(self, x_start, t, noise):
+        """The v target, ``alpha * eps - sigma * x0`` (reference :2356)."""
+        log_snr = right_pad_dims_to(x_start, self.log_snr(t))
+        alpha, sigma = log_snr_to_alpha_sigma(log_snr)
+        return alpha * noise - sigma * x_start
 
     def predict_start_from_noise(self, x_t, t, noise):
         """x0 from eps-prediction (reference :352-357)."""

@@ -107,12 +107,11 @@ class ElucidatedImagen:
         self.image_sizes = cast_tuple(tuple(image_sizes))
         if num_unets != len(self.image_sizes):
             raise ValueError("one image size per unet")
-        # first unet unconditioned, the rest lowres-conditioned; the JAX
-        # wrapper re-instantiates the modules, here they must already match
-        for ind, unet in enumerate(unets):
-            if ind > 0 and not getattr(unet, "lowres_cond", False):
-                raise ValueError(f"unet {ind + 1} must be lowres-conditioned")
-        self.unets = unets
+        # first unet unconditioned, the rest lowres-conditioned, cast as the
+        # JAX wrapper casts them (elucidated.py:84-92)
+        self.unets = [unet.cast_model_parameters(lowres_cond=ind > 0, channels=channels,
+                                                 channels_out=channels)
+                      for ind, unet in enumerate(unets)]
 
         self.lowres_noise_schedule = GaussianDiffusionContinuousTimes(
             noise_schedule=lowres_noise_schedule)
@@ -183,8 +182,15 @@ class ElucidatedImagen:
         out = hp.c_skip(padded_sigma) * noised_images + hp.c_out(padded_sigma) * net_out
         if not clamp:
             return out
+        return self.threshold_x_start(out, dynamic_threshold)
+
+    def threshold_x_start(self, x_start: torch.Tensor, dynamic_threshold: bool = True
+                          ) -> torch.Tensor:
+        """The clamp of a denoised estimate (reference :291-310, with the
+        z-score ``min_bound``): ``diffusion/gaussian.py::threshold_x_start``
+        at this wrapper's norm, bound and percentile."""
         return threshold_x_start(
-            out, dynamic_threshold=dynamic_threshold, norm=self.norm,
+            x_start, dynamic_threshold=dynamic_threshold, norm=self.norm,
             min_bound=self.min_bound, percentile=self.dynamic_thresholding_percentile)
 
     # ------------------------------------------------------------------
@@ -322,8 +328,9 @@ class ElucidatedImagen:
             lowres_cond_img = lowres_noise_times = None
             if getattr(unet, "lowres_cond", False):
                 lowres_cond_img = self.normalize_img(_resize(img, size))
-                times = torch.full((batch_size,), level if self.lowres_noise_aug else 0.0,
-                                   dtype=torch.float32, device=lowres_cond_img.device)
+                times = self.lowres_noise_schedule.get_times(
+                    batch_size, level if self.lowres_noise_aug else 0.0,
+                    device=lowres_cond_img.device)
                 lowres_noise_times = self.lowres_noise_schedule.get_condition(times)
                 if self.lowres_noise_aug:
                     lowres_cond_img, *_ = self.lowres_noise_schedule.q_sample(

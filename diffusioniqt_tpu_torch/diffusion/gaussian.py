@@ -115,10 +115,11 @@ class Imagen:
     self_cond=..., cond_drop_prob=...)``), with the JAX constructor's
     arguments and defaults (JAX gaussian.py:70-97).
 
-    A unet with ``cast_model_parameters`` (``UNet2D``) is cast as the JAX
-    wrapper casts every stage (gaussian.py:140-148): the first
-    unconditioned, the rest lowres-conditioned, ``channels`` and
-    ``channels_out`` the wrapper's; any other unet must already match.
+    Every unet is cast as the JAX wrapper casts it (gaussian.py:140-148)
+    through its ``cast_model_parameters``: the first unconditioned, the
+    rest lowres-conditioned, ``channels`` and ``channels_out`` the
+    wrapper's; a unet that already matches is kept, else a fresh one is
+    built (``UNet3D``, ``UNet2D``, ``Unet3DVideo``; ``NullUnet`` is kept).
     ``lowres_noise_schedule``, ``lowres_sample_noise_level`` and
     ``per_sample_random_aug_noise_level`` are kept as the JAX wrapper keeps
     them: the 3D reference never noises the lowres conditioning, so no
@@ -189,12 +190,8 @@ class Imagen:
         # lowres-conditioned (reference :1848-1858)
         self.unets = []
         for ind, unet in enumerate(unets):
-            if hasattr(unet, "cast_model_parameters"):
-                unet = unet.cast_model_parameters(lowres_cond=ind > 0, channels=channels,
-                                                  channels_out=channels)
-            elif ind > 0 and not getattr(unet, "lowres_cond", False):
-                raise ValueError(f"unet {ind + 1} must be lowres-conditioned")
-            self.unets.append(unet)
+            self.unets.append(unet.cast_model_parameters(
+                lowres_cond=ind > 0, channels=channels, channels_out=channels))
 
         self.lowres_sample_noise_level = lowres_sample_noise_level
         self.per_sample_random_aug_noise_level = per_sample_random_aug_noise_level
@@ -213,6 +210,12 @@ class Imagen:
     @property
     def num_unets(self) -> int:
         return len(self.unets)
+
+    def get_unet(self, unet_number: int):
+        """The cast unet of stage ``unet_number`` (1-based)."""
+        if not 0 < unet_number <= self.num_unets:
+            raise ValueError(f"unet_number {unet_number} outside 1..{self.num_unets}")
+        return self.unets[unet_number - 1]
 
     @staticmethod
     def _unet_kwargs(lowres_cond_img, cond_images, self_cond) -> dict:
@@ -429,7 +432,7 @@ class Imagen:
         x_start = self.normalize_img(x_start)
         if lowres_cond_img is not None:
             lowres_cond_img = self.normalize_img(lowres_cond_img)
-        x_noisy, log_snr, alpha, sigma = noise_scheduler.q_sample(x_start, times, noise)
+        x_noisy, log_snr, _, _ = noise_scheduler.q_sample(x_start, times, noise)
         pred = unet(x_noisy, times, noise_scheduler.get_condition(times),
                     cond_drop_prob=self.cond_drop_prob,
                     **self._unet_kwargs(lowres_cond_img, cond_images, None))
@@ -439,7 +442,7 @@ class Imagen:
             target = x_start
             pred = torch.clamp(pred, min=self.min_bound)
         elif pred_objective == "v":
-            target = alpha * noise - sigma * x_start
+            target = noise_scheduler.predict_v_from_start_and_noise(x_start, times, noise)
         else:
             raise ValueError(f"unknown objective {pred_objective}")
         losses = self.loss_fn(pred, target)

@@ -82,7 +82,8 @@ def probe_rows(imagen, index: int, clean: torch.Tensor, lowres: torch.Tensor,
         level = imagen.lowres_sample_noise_level if imagen.lowres_noise_aug else 0.0
     lowres_noisy = lowres
     if level > 0.0:
-        t_low = torch.full((lowres.shape[0],), float(level), device=lowres.device)
+        t_low = imagen.lowres_noise_schedule.get_times(lowres.shape[0], level,
+                                                       device=lowres.device)
         draw = torch.randn(lowres.shape, generator=generator,
                            device=generator.device).to(lowres.device)
         lowres_noisy = imagen.lowres_noise_schedule.q_sample(lowres, t_low, draw)[0]

@@ -110,17 +110,20 @@ def build_sampler(cfg, device="cuda", checkpoint: Optional[str] = None,
     ``ElucidatedImagen`` when ``Train.elucidated`` is set, else the
     Gaussian ``Imagen`` (as test.py:45-54 chooses). Weights from
     ``checkpoint`` (a bundle's EMA weights unless ``use_ema=False``), else
-    random from ``seed``. Raises if CUDA is asked for and missing."""
+    random from ``seed``. Raises if CUDA is asked for and missing.
+
+    The weights are loaded into the wrapper's own unet 2, after the
+    wrapper has cast it, so a cast can never drop them."""
     device = resolve_device(device)
+    from_config = elucidated_imagen_from_config if cfg.train.elucidated else imagen_from_config
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        unet = iqt_unet_from_config(cfg, device=device)
+        imagen = from_config(cfg, (NullUnet(), iqt_unet_from_config(cfg, device=device)))
+    unet = imagen.unets[1]
     if checkpoint:
         unet.load_state_dict(load_unet_state_dict(checkpoint, use_ema=use_ema))
     unet.eval()
-    if cfg.train.elucidated:
-        return elucidated_imagen_from_config(cfg, (NullUnet(), unet))
-    return imagen_from_config(cfg, (NullUnet(), unet))
+    return imagen
 
 
 def describe_sampler(imagen: Sampler) -> str:

@@ -82,7 +82,11 @@ class LayerNorm(nn.LayerNorm):
                             self.bias, self.eps).to(x.dtype)
 
 
-class TrilinearUpsample(nn.Module):
+class AlignCornersUpsample(nn.Module):
+    """``upsample_trilinear`` by ``scale`` with ``align_corners=True``, as a
+    parameter-free slot of a ``Sequential`` (not the U-Net's
+    ``blocks.TrilinearUpsample``, which resamples half-pixel and convolves)."""
+
     def __init__(self, scale: int):
         super().__init__()
         self.scale = scale
@@ -124,7 +128,7 @@ class PatchReconstruct(nn.Sequential):
     ChanLayerNorm (reference imagen_pytorch3D.py:952-959)."""
 
     def __init__(self, dim: int, patch_size: int = 2):
-        super().__init__(TrilinearUpsample(patch_size),
+        super().__init__(AlignCornersUpsample(patch_size),
                          DepthwiseSeparableConv(dim, dim, 3, 1, 1),
                          ChanLayerNorm(dim))
 
@@ -400,7 +404,7 @@ class ViT3D(nn.Module):
             for _ in range(depth))
         # slot 1 is the reference's token -> cube rearrange
         self.reconstruction = nn.Sequential(
-            LayerNorm(emb), nn.Identity(), TrilinearUpsample(patch_size),
+            LayerNorm(emb), nn.Identity(), AlignCornersUpsample(patch_size),
             DepthwiseSeparableConv(emb, emb, 3, 1, 1), ChanLayerNorm(emb))
 
     def forward(self, x: torch.Tensor, context=None) -> torch.Tensor:

@@ -11,6 +11,9 @@ reads a port ``state_dict`` directly:
   PixelShuffleUpsample  net.0 (the 1x1 conv before Mish + pixel shuffle)
   DeconvUpsample        deconv.0 (ConvTranspose3d, torch layout (in, out, 3, 3, 3))
   CrossEmbedLayer       convs.{i} (one conv per kernel size, smallest first)
+  StridedDownsample     weight, bias (one stride-2 conv, the reference's Downsample2)
+  TrilinearUpsample     1 (the SAME conv after the trilinear upsample)
+  UpsampleCombiner      fmap_convs.{i} (one Block per feature map)
   ChanLayerNorm         g
   GlobalContext         to_k, net.{0,2}
 
@@ -46,7 +49,12 @@ from diffusioniqt_tpu_torch.ops.kernels.fused_block import (
     fused_boundary_block,
     group_stats,
 )
-from diffusioniqt_tpu_torch.ops.volume import pixel_shuffle_3d, pixel_unshuffle_3d
+from diffusioniqt_tpu_torch.ops.volume import (
+    pixel_shuffle_3d,
+    pixel_unshuffle_3d,
+    resize_volume,
+    upsample_trilinear,
+)
 from diffusioniqt_tpu_torch.parallel.sharding import (
     ColumnParallel,
     copy_to_model,
@@ -82,6 +90,28 @@ class LecunInit:
         lecun_normal_(self.weight)
         if self.bias is not None:
             nn.init.zeros_(self.bias)
+
+
+class CastToCascade:
+    """Mixin for the U-Nets: the JAX ``cast_model_parameters``. The module
+    keeps its constructor's arguments in ``config``; the cast returns it
+    where the cascade's ``lowres_cond``, ``channels`` and ``channels_out``
+    (and the ``cast_fields`` the wrapper gives) match them, else a fresh
+    module of its class built with the cascade's values (its parameters
+    drawn anew, on this one's device)."""
+
+    cast_fields: tuple = ()
+
+    def cast_model_parameters(self, *, lowres_cond: bool, channels: int,
+                              channels_out: Optional[int], **extra):
+        changes = dict(lowres_cond=lowres_cond, channels=channels, channels_out=channels_out)
+        changes.update({k: extra[k] for k in self.cast_fields if extra.get(k) is not None})
+        current = dict(self.config, channels_out=self.channels_out)
+        if all(current[k] == v for k, v in dict(changes, channels_out=channels_out or channels
+                                                ).items()):
+            return self
+        device = next(self.parameters()).device
+        return type(self)(**{**self.config, **changes}).to(device)
 
 
 class Conv3d(ColumnParallel, LecunInit, nn.Conv3d):
@@ -222,17 +252,43 @@ class ChanLayerNorm(nn.Module):
         return ((x32 - mean) * torch.rsqrt(var + self.eps) * self.g).to(x.dtype)
 
 
+def subvol_stats_reshape(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """A merged volume ``(B, f*s, f*s, f*s, C)`` viewed as ``(B, f, s, f, s,
+    f, s, C)``: a reshape without a transpose that exposes the sub-volume
+    grid to per-sub-volume reductions (the JAX ``subvol_stats_reshape``)."""
+    b, S, _, _, c = x.shape
+    s = S // factor
+    return x.reshape(b, factor, s, factor, s, factor, s, c)
+
+
 def subvol_group_norm(x: torch.Tensor, scale: torch.Tensor, groups: int,
-                      eps: float = 1e-5) -> torch.Tensor:
-    """GroupNorm over (spatial, channels-in-group) per batch element with
-    single-pass fp32 statistics (the JAX ``subvol_group_norm`` with
-    factor 1), times ``scale``, in ``x.dtype``. The Block folds the same
-    statistics into the fused kernel's coefficients instead."""
-    mean, rstd = group_stats(x, groups, eps)
+                      eps: float = 1e-5, factor: int = 1) -> torch.Tensor:
+    """GroupNorm over (spatial, channels-in-group) with single-pass fp32
+    statistics, times ``scale``, in ``x.dtype`` (the JAX
+    ``subvol_group_norm``): per batch element at ``factor`` 1, and per
+    sub-volume of a merged volume at ``factor`` > 1 (the reference's
+    per-sub-volume statistics), where, as in JAX, the fp32 statistics
+    become one multiply-add in ``x.dtype`` on the :func:`subvol_stats_reshape`
+    view. The Block folds the same statistics into the fused kernel's
+    coefficients instead, on the split layout."""
     b, c = x.shape[0], x.shape[-1]
-    mean = mean.reshape(b, 1, 1, 1, c)
-    rstd = rstd.reshape(b, 1, 1, 1, c)
-    return ((x.float() - mean) * rstd * scale.float()).to(x.dtype)
+    if factor == 1:
+        mean, rstd = group_stats(x, groups, eps)
+        mean = mean.reshape(b, 1, 1, 1, c)
+        rstd = rstd.reshape(b, 1, 1, 1, c)
+        return ((x.float() - mean) * rstd * scale.float()).to(x.dtype)
+    f, cg = factor, c // groups
+    xv = subvol_stats_reshape(x, f)
+    mean = xv.mean(dim=(2, 4, 6), dtype=torch.float32)  # (b, f, f, f, c)
+    sq = xv.float().square().mean(dim=(2, 4, 6))
+    mean = mean.reshape(b, f, f, f, groups, cg).mean(-1)  # (b, f, f, f, groups)
+    sq = sq.reshape(b, f, f, f, groups, cg).mean(-1)
+    rstd = torch.rsqrt(torch.clamp(sq - mean.square(), min=0.0) + eps)
+    a = rstd.repeat_interleave(cg, dim=-1) * scale.float()
+    shift = -mean.repeat_interleave(cg, dim=-1) * a
+    view = (b, f, 1, f, 1, f, 1, c)
+    out = xv * a.to(x.dtype).reshape(view) + shift.to(x.dtype).reshape(view)
+    return out.reshape(x.shape)
 
 
 class Block(nn.Module):
@@ -354,6 +410,69 @@ class PixelShuffleUpsample(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return pixel_shuffle_3d(self.net(x), scale=2)
+
+
+class StridedDownsample(LecunInit, nn.Conv3d):
+    """Strided 3^3 conv downsample (JAX blocks.py:415-427, the reference's
+    ``Downsample2``), weight ``(Cout, Cin, 3, 3, 3)``. flax ``padding="SAME"``
+    at stride 2 pads an edge n by ``p = max((ceil(n / 2) - 1) * 2 + 3 - n,
+    0)`` split as ``(p // 2, p - p // 2)``: (0, 1) on an even edge, not
+    ``Conv3d(padding=1)``'s (1, 1). So the pad is explicit and the conv
+    VALID."""
+
+    def __init__(self, dim_in: int, dim_out: int):
+        super().__init__(dim_in, dim_out, 3, stride=2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        pad = []
+        for n in reversed(x.shape[1:4]):  # F.pad takes the last axis first
+            total = max((-(-n // 2) - 1) * 2 + 3 - n, 0)
+            pad += [total // 2, total - total // 2]
+        out = F.conv3d(F.pad(x.permute(0, 4, 1, 2, 3), pad), self.weight.to(x.dtype),
+                       self.bias.to(x.dtype), stride=2)
+        return out.permute(0, 2, 3, 4, 1).contiguous()
+
+
+class TrilinearUpsample(nn.Sequential):
+    """Trilinear 2x upsample (half-pixel, ``align_corners=False``) then a
+    SAME 3^3 conv (JAX blocks.py:460-473, the reference's ``Upsample``);
+    slot 0 is the parameter-free upsample, ``1`` the conv."""
+
+    def __init__(self, dim_in: int, dim_out: int):
+        super().__init__(nn.Identity(), SameConv(dim_in, dim_out, 3))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self[1](upsample_trilinear(x, scale=2, align_corners=False))
+
+
+class UpsampleCombiner(nn.Module):
+    """Feature maps of the upsample stages resized (nearest, as
+    ``resize_volume``) to the input's edge, each through a norm
+    :class:`Block` (``fmap_convs.{i}``), concatenated after the input (JAX
+    blocks.py:476-497, reference imagen_pytorch3D.py:688-720). The JAX
+    Block there has no boundary: a SAME conv with whole-sample GroupNorm
+    statistics, which is ``Block(..., factor=1)``, the fused kernel's
+    factor-1 route on the card. Disabled (the default, as in the
+    reference's configs), it returns its input and has no parameters."""
+
+    def __init__(self, dim: int, enabled: bool = False, dim_ins=(), dim_outs=(),
+                 groups: int = 8):
+        super().__init__()
+        if len(dim_ins) != len(dim_outs):
+            raise ValueError("one input width per output width")
+        self.enabled = enabled
+        self.fmap_convs = nn.ModuleList(
+            [Block(i, o, groups, factor=1) for i, o in zip(dim_ins, dim_outs)] if enabled
+            else [])
+        self.dim_out = dim + (sum(dim_outs) if enabled else 0)
+
+    def forward(self, x: torch.Tensor, fmaps=None) -> torch.Tensor:
+        fmaps = fmaps or ()
+        if not self.enabled or not fmaps:
+            return x
+        outs = [conv(resize_volume(fmap, x.shape[1]))
+                for fmap, conv in zip(fmaps, self.fmap_convs)]
+        return torch.cat([x, *outs], dim=-1)
 
 
 class GlobalContext(nn.Module):

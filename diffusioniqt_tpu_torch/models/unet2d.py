@@ -16,7 +16,7 @@ E[x^2] - E[x]^2), ``F.conv2d`` for the 3x3 convs, matrix products for the
 through ``ops/attention.py::scaled_dot_product_attention``: on a CUDA
 tensor the hand-written flash kernel (``csrc/flash_attention.cu``, head
 dim 32 by default, any token count), with no fallback; on a CPU tensor
-:func:`~diffusioniqt_tpu_torch.ops.attention.attention_plain`.
+:func:`~diffusioniqt_tpu_torch.ops.attention.attention_reference`.
 
 Modules carry the JAX module names (``init_conv``, ``down{i}_init``,
 ``down{i}_attn``, ``down{i}_block{j}``, ``down{i}_post``, ``mid_attn``,
@@ -40,6 +40,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from diffusioniqt_tpu_torch.models.blocks import (
+    CastToCascade,
     ChanLayerNorm,
     Dense,
     LearnedSinusoidalPosEmb,
@@ -219,7 +220,7 @@ class Attention2D(nn.Module):
         return self.out_norm(self.to_out(out)) + x
 
 
-class UNet2D(nn.Module):
+class UNet2D(CastToCascade, nn.Module):
     """2D conditional diffusion U-Net for MRI slices, with every field of
     the JAX ``UNet2D`` (unet2d.py:168-189); ``dtype`` is the compute dtype
     (parameters stay fp32)."""
@@ -311,18 +312,6 @@ class UNet2D(nn.Module):
         self.final_res_block = resnet(x_dim, dim, groups[0]) if final_resnet_block else None
         self.final_conv = PointwiseConv2d(dim if final_resnet_block else x_dim,
                                           self.channels_out)
-
-    def cast_model_parameters(self, *, lowres_cond: bool, channels: int,
-                              channels_out: Optional[int], **_ignored) -> "UNet2D":
-        """The JAX ``cast_model_parameters``: this module where the cascade's
-        conditioning and channels match it, else a fresh one with them (its
-        parameters drawn anew, on this one's device)."""
-        if (lowres_cond == self.lowres_cond and channels == self.channels
-                and (channels_out or channels) == self.channels_out):
-            return self
-        device = next(self.parameters()).device
-        return UNet2D(**{**self.config, "lowres_cond": lowres_cond, "channels": channels,
-                         "channels_out": channels_out}).to(device)
 
     def use_ops(self, ops: Ops) -> "UNet2D":
         """Route softmax attention through ``ops`` (``KERNELS`` or ``PLAIN``)."""

@@ -76,6 +76,7 @@ from torch.utils.checkpoint import checkpoint
 
 from diffusioniqt_tpu_torch.models.attention import AttentionTransformerBlock, ViT3D
 from diffusioniqt_tpu_torch.models.blocks import (
+    CastToCascade,
     Conv3d,
     CrossEmbedLayer,
     DeconvUpsample,
@@ -98,7 +99,7 @@ from diffusioniqt_tpu_torch.parallel.sharding import column_parallel
 from diffusioniqt_tpu_torch.utils.misc import cast_tuple, mish, resolve_device
 
 
-class UNet3D(nn.Module):
+class UNet3D(CastToCascade, nn.Module):
     """3D conditional diffusion U-Net."""
 
     def __init__(
@@ -150,6 +151,7 @@ class UNet3D(nn.Module):
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
+        self.config = {k: v for k, v in locals().items() if k not in ("self", "__class__")}
         del attn_heads, use_pallas  # the JAX signature's; unused there too / always kernels
         num_layers = len(dim_mults)
         if remat and remat_policy not in (None, "conv"):
@@ -424,6 +426,9 @@ class NullUnet(nn.Module):
     def __init__(self):
         super().__init__()
         self.dummy = nn.Parameter(torch.zeros(1))
+
+    def cast_model_parameters(self, **_ignored) -> "NullUnet":
+        return self
 
     def forward(self, x, *args, **kwargs):
         return x

@@ -48,6 +48,7 @@ import torch.nn.functional as F
 
 from diffusioniqt_tpu_torch.models.attention import LayerNorm
 from diffusioniqt_tpu_torch.models.blocks import (
+    CastToCascade,
     ChanLayerNorm,
     Dense,
     GlobalContext,
@@ -579,7 +580,7 @@ class PerceiverResampler(nn.Module):
         return latents
 
 
-class Unet3DVideo(nn.Module):
+class Unet3DVideo(CastToCascade, nn.Module):
     """The video U-Net with every field of the JAX ``Unet3DVideo``
     (unet_video.py:659-704); ``dtype`` is the compute dtype (parameters
     stay fp32). ``pixel_shuffle_upsample`` is kept for the signature: the
@@ -605,6 +606,9 @@ class Unet3DVideo(nn.Module):
     value, stay whole on every rank (``replicated_params``)."""
 
     replicated_params = ("null_text_embed", "null_text_hidden")
+
+    # the text settings the wrappers may cast as well (JAX unet_video.py:706-716)
+    cast_fields = ("text_embed_dim", "cond_on_text")
 
     def __init__(
         self,
@@ -812,23 +816,6 @@ class Unet3DVideo(nn.Module):
         self.final_conv = SpatialConv(x_ch, self.channels_out, k, k // 2, init_zero=True)
 
     # -- the JAX module's helpers -------------------------------------------
-    def cast_model_parameters(self, *, lowres_cond: bool, channels: int,
-                              channels_out: Optional[int], text_embed_dim=None,
-                              cond_on_text=None, **_ignored) -> "Unet3DVideo":
-        """This module where the cascade's settings match it, else a fresh
-        one with them (its parameters drawn anew, on this one's device)."""
-        changes = dict(lowres_cond=lowres_cond, channels=channels, channels_out=channels_out)
-        if text_embed_dim is not None:
-            changes["text_embed_dim"] = text_embed_dim
-        if cond_on_text is not None:
-            changes["cond_on_text"] = cond_on_text
-        current = dict(self.config, channels_out=self.channels_out)
-        wanted = dict(changes, channels_out=channels_out or channels)
-        if all(current[k] == v for k, v in wanted.items()):
-            return self
-        device = next(self.parameters()).device
-        return Unet3DVideo(**{**self.config, **changes}).to(device)
-
     @property
     def total_temporal_divisor(self) -> int:
         out = 1

@@ -28,7 +28,7 @@ import json
 from dataclasses import dataclass
 from typing import Callable
 
-from diffusioniqt_tpu_torch.ops.attention import attention_plain
+from diffusioniqt_tpu_torch.ops.attention import attention_reference
 from diffusioniqt_tpu_torch.ops.kernels.conv3d import conv3d_valid, conv3d_valid_plain
 from diffusioniqt_tpu_torch.ops.kernels.flash_attention import flash_attention
 from diffusioniqt_tpu_torch.ops.kernels.fused_block import fused_conv, fused_conv_plain
@@ -53,7 +53,7 @@ PLAIN = Ops(
     halo=halo_exchange_plain,
     conv3d=lambda xh, w, cache=None: conv3d_valid_plain(xh, w),
     fused_conv=lambda xh, a, b, w, cache=None: fused_conv_plain(xh, a, b, w),
-    attention=attention_plain,
+    attention=attention_reference,
 )
 
 

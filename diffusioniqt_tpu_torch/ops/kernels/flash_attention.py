@@ -18,7 +18,7 @@ tensor maps are encoded on the host with the CUDA driver's
 ``cuTensorMapEncodeTiled`` (:func:`runtime.driver_function`).
 
 The kernel rounds the unnormalised probabilities to bf16 before the P V
-product (as the Pallas kernel does); :func:`attention_plain` rounds the
+product (as the Pallas kernel does); :func:`attention_reference` rounds the
 normalised ones, so the two differ by bf16 rounding at different points.
 The backward is the plain version through autograd, as the Pallas kernel's
 ``custom_vjp`` recomputes with the jnp reference.
@@ -30,7 +30,7 @@ import ctypes
 
 import torch
 
-from diffusioniqt_tpu_torch.ops.attention import attention_plain
+from diffusioniqt_tpu_torch.ops.attention import attention_reference
 from diffusioniqt_tpu_torch.ops.kernels import runtime
 from diffusioniqt_tpu_torch.utils import flops
 
@@ -82,7 +82,7 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        grads = runtime.plain_vjp(attention_plain, list(ctx.saved_tensors),
+        grads = runtime.plain_vjp(attention_reference, list(ctx.saved_tensors),
                                   ctx.needs_input_grad[:3], grad, ctx.scale)
         return (*grads, None)
 
@@ -90,9 +90,9 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float) -> torch.Tensor:
     """Attention: the CUDA kernel for a CUDA tensor (bf16, D in
-    :data:`HEAD_DIMS`), :func:`attention_plain` for a CPU tensor."""
+    :data:`HEAD_DIMS`), :func:`attention_reference` for a CPU tensor."""
     if q.device.type == "cpu":
-        return attention_plain(q, k, v, scale)
+        return attention_reference(q, k, v, scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention kernel: unsupported device {q.device}")
     check_flash_args(q, k, v)

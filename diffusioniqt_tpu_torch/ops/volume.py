@@ -10,9 +10,11 @@ reference's unfold/permute order differs; see
 ``diffusioniqt_tpu/utils/torch_convert.py::reference_subvolume_permutation``.)
 
 ``halo_exchange`` here is the plain PyTorch version of the halo kernel
-(``ops/kernels/halo.py``); ``upsample_trilinear`` is the attention
-modules' reconstruction upsample; ``resize_volume`` is the cascade's
-resize, with ``jax.image.resize`` semantics.
+(``ops/kernels/halo.py``); ``boundary_halo`` is the reference's
+merge -> pad -> unfold form of the same halo; ``upsample_trilinear`` is the
+attention modules' reconstruction upsample (and, at ``align_corners=False``,
+``TrilinearUpsample``'s); ``resize_volume`` is the cascade's resize, with
+``jax.image.resize`` semantics.
 """
 
 from __future__ import annotations
@@ -88,6 +90,27 @@ def halo_exchange(x: torch.Tensor, factor: int = 3) -> torch.Tensor:
     return x
 
 
+def boundary_halo(x: torch.Tensor, factor: int = 3, halo: int = 1) -> torch.Tensor:
+    """(B*f^3, s, s, s, C) -> (B*f^3, s+2h, s+2h, s+2h, C): the reference's
+    ``boundary_pad`` as the JAX ``boundary_halo`` writes it: merge the
+    sub-volumes into the full volume, zero-pad it by ``halo``, and cut it
+    again into overlapping blocks, one index gather per axis. At ``halo``
+    1 it equals :func:`halo_exchange`, which the model path runs."""
+    n, s = x.shape[0], x.shape[1]
+    f = factor
+    full = subvolumes_to_volume(x, factor=f)  # (b, f*s, f*s, f*s, c)
+    full = torch.nn.functional.pad(full, (0, 0) + (halo, halo) * 3)
+    e = s + 2 * halo
+    # block g of an axis reads padded positions g*s .. g*s + e - 1
+    idx = (torch.arange(f, device=x.device)[:, None] * s
+           + torch.arange(e, device=x.device)[None, :]).reshape(-1)
+    for axis in (1, 2, 3):
+        full = full.index_select(axis, idx)
+    full = full.reshape(n // f ** 3, f, e, f, e, f, e, full.shape[-1])
+    full = full.permute(0, 1, 3, 5, 2, 4, 6, 7)
+    return full.reshape(n, e, e, e, full.shape[-1])
+
+
 # ---------------------------------------------------------------------------
 # 3D pixel shuffle / unshuffle
 # ---------------------------------------------------------------------------
@@ -119,12 +142,17 @@ def pixel_unshuffle_3d(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
 # trilinear upsampling
 # ---------------------------------------------------------------------------
 
-def upsample_trilinear(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
-    """(B, X, Y, Z, C) -> (B, sX, sY, sZ, C), trilinear with
-    ``align_corners=True`` (torch's ``nn.Upsample`` of the reference's
-    ViT3D / Patchify reconstruction), one axis at a time as the JAX
+def upsample_trilinear(x: torch.Tensor, scale: int = 2,
+                       align_corners: bool = True) -> torch.Tensor:
+    """(B, X, Y, Z, C) -> (B, sX, sY, sZ, C), trilinear. ``align_corners=True``
+    is torch's ``nn.Upsample(align_corners=True)`` of the reference's ViT3D /
+    Patchify reconstruction, one axis at a time as the JAX
     ``upsample_trilinear`` does, with the interpolation weights cast to
-    ``x.dtype``."""
+    ``x.dtype``; ``align_corners=False`` is the half-pixel form, the JAX
+    package's ``jax.image.resize(..., "trilinear")`` (:func:`resize`)."""
+    if not align_corners:
+        b, X, Y, Z, c = x.shape
+        return resize(x, (b, X * scale, Y * scale, Z * scale, c), "trilinear")
     out = x
     for axis in (1, 2, 3):
         n = out.shape[axis]

@@ -8,8 +8,11 @@ port with ``load_state_dict``. :func:`state_dict_from_jax_params` is the
 inverse of ``convert_iqt_unet_state_dict`` for the models the port builds:
 it turns a flax ``UNet3D`` parameter tree (numpy arrays, or anything
 ``np.asarray`` takes) into a port ``state_dict``;
-:func:`unet2d_state_dict_from_jax_params` does the same for ``UNet2D`` and
-:func:`video_state_dict_from_jax_params` for ``Unet3DVideo``. :func:`adam_state_from_optax`
+:func:`unet2d_state_dict_from_jax_params` does the same for ``UNet2D``,
+:func:`video_state_dict_from_jax_params` for ``Unet3DVideo`` and
+:func:`block_state_dict_from_jax_params` for the reference blocks outside
+the U-Net (``StridedDownsample``, ``TrilinearUpsample``,
+``UpsampleCombiner``). :func:`adam_state_from_optax`
 maps optax Adam's ``mu`` / ``nu`` trees, which have the parameters' names,
 the same way onto ``torch.optim.Adam``'s ``exp_avg`` / ``exp_avg_sq``.
 
@@ -235,6 +238,30 @@ def state_dict_from_jax_params(params: Dict[str, Any]) -> Dict[str, torch.Tensor
     unknown = sorted(set(p) - handled)
     if unknown:
         raise KeyError(f"parameter groups the port has no module for: {unknown}")
+    return out
+
+
+def block_state_dict_from_jax_params(kind: str, params: Dict[str, Any]
+                                     ) -> Dict[str, torch.Tensor]:
+    """A flax ``StridedDownsample`` / ``TrilinearUpsample`` /
+    ``UpsampleCombiner`` (``kind``, the class name) parameter tree -> the
+    port module's ``state_dict``: the conv ``Conv_0`` -> ``weight`` /
+    ``bias`` of the strided conv or ``1.*`` after the upsample; the
+    combiner's ``Block_{i}`` -> ``fmap_convs.{i}``."""
+    p = params.get("params", params)
+    out: Dict[str, torch.Tensor] = {}
+    if kind == "StridedDownsample":
+        _conv(p["Conv_0"], "conv", out)
+        return {k.split(".", 1)[1]: v for k, v in out.items()}
+    if kind == "TrilinearUpsample":
+        _conv(p["Conv_0"], "1", out)
+    elif kind == "UpsampleCombiner":
+        for name in p:
+            if not (m := re.fullmatch(r"Block_(\d+)", name)):
+                raise KeyError(f"unknown UpsampleCombiner parameter group {name}")
+            _block(p[name], f"fmap_convs.{m.group(1)}", out)
+    else:
+        raise ValueError(f"no converter for {kind}")
     return out
 
 

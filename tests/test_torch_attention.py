@@ -33,7 +33,7 @@ from diffusioniqt_tpu_torch.models import attention as ta
 from diffusioniqt_tpu_torch.models.blocks import ChanLayerNorm
 from diffusioniqt_tpu_torch.models.unet3d import UNet3D, iqt_unet_from_config
 from diffusioniqt_tpu_torch.ops import kernels
-from diffusioniqt_tpu_torch.ops.attention import attention_plain, scaled_dot_product_attention
+from diffusioniqt_tpu_torch.ops.attention import attention_reference, scaled_dot_product_attention
 from diffusioniqt_tpu_torch.ops.kernels.flash_attention import check_flash_args, flash_attention
 from diffusioniqt_tpu_torch.ops.volume import upsample_trilinear
 from diffusioniqt_tpu_torch.utils import convert as port_convert
@@ -81,7 +81,7 @@ def test_flash_plain_matches_pallas_interpret(shape):
     scale = shape[-1] ** -0.5
     with pltpu.force_tpu_interpret_mode():
         want = pallas_fa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale)
-    got = attention_plain(*map(torch.from_numpy, (q, k, v)), scale)
+    got = attention_reference(*map(torch.from_numpy, (q, k, v)), scale)
     _close(got, want)
 
 
@@ -89,7 +89,7 @@ def test_sdpa_routing_on_cpu():
     """A CPU tensor runs the plain version and launches nothing, with
     ``use_flash`` on or off; a tensor on another device raises."""
     q, k, v = (torch.from_numpy(_rand((3, 50, 16), s)) for s in (4, 5, 6))
-    want = attention_plain(q, k, v, 0.25)
+    want = attention_reference(q, k, v, 0.25)
     kernels.reset_launch_counts()
     for use_flash in (True, False):
         torch.testing.assert_close(scaled_dot_product_attention(q, k, v, 0.25, use_flash),

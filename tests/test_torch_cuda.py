@@ -302,7 +302,7 @@ def test_flash_attention_matches_plain(dev, n, d):
     kernels.reset_launch_counts()
     got = kernels.flash_attention(q, k, v, d ** -0.5)
     assert kernels.launch_counts()["flash_attention"] == 1
-    _close(got, kernels.attention_plain(q, k, v, d ** -0.5))
+    _close(got, kernels.attention_reference(q, k, v, d ** -0.5))
 
 
 def test_unet2d_softmax_attention_through_the_kernel(dev):
@@ -331,7 +331,7 @@ def test_flash_attention_more_keys_than_queries(dev):
     q = torch.randn((16, 100, 64), generator=g, device=dev).to(torch.bfloat16)
     k, v = (torch.randn((16, 1728, 64), generator=g, device=dev).to(torch.bfloat16)
             for _ in range(2))
-    _close(kernels.flash_attention(q, k, v, 0.125), kernels.attention_plain(q, k, v, 0.125))
+    _close(kernels.flash_attention(q, k, v, 0.125), kernels.attention_reference(q, k, v, 0.125))
 
 
 @pytest.mark.parametrize("d", [32, 64, 128])
@@ -347,7 +347,7 @@ def test_flash_attention_with_other_key_counts(dev, nq, nk, d):
     kernels.reset_launch_counts()
     got = kernels.flash_attention(q, k, v, d ** -0.5)
     assert kernels.launch_counts()["flash_attention"] == 1 and got.shape == q.shape
-    _close(got, kernels.attention_plain(q, k, v, d ** -0.5))
+    _close(got, kernels.attention_reference(q, k, v, d ** -0.5))
 
 
 def test_softmax_attention_with_text_context_through_the_kernel(dev):

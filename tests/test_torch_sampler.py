@@ -277,6 +277,9 @@ class _TToy:
     def __init__(self, self_cond=False):
         self.self_cond = self_cond
 
+    def cast_model_parameters(self, **_):
+        return self
+
     def __call__(self, x, t, noise_cond, *, lowres_cond_img=None, cond_images=None,
                  self_cond=None, cond_drop_prob=0.0):
         keep = 1.0 - cond_drop_prob

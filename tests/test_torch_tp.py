@@ -288,6 +288,9 @@ class _NoColumnSplit(torch.nn.Module):
         super().__init__()
         self.conv = torch.nn.Conv2d(64, 64, 3)
 
+    def cast_model_parameters(self, **_):
+        return self
+
 
 def test_sharding_refusals():
     """A TP mesh on a module with a weight of two axes whose layer has no

@@ -297,6 +297,9 @@ def test_forward_draws_one_time_per_batch_sample_group():
     class Spy(torch.nn.Module):
         lowres_cond = True
 
+        def cast_model_parameters(self, **_):
+            return self
+
         def forward(self, x, t, cond, **kw):
             seen.append(t)
             return unet(x, t, cond, **kw)

@@ -53,7 +53,7 @@ def _pair(kw, inputs, seed=0):
 ])
 def test_unet2d_matches_jax(att_type, layer_attns, middle, self_cond, cond_ch, lowres):
     """The forward at fp32 within 1e-4 of the JAX output's largest entry;
-    softmax attention runs ``attention_plain`` on the CPU, the JAX module
+    softmax attention runs ``attention_reference`` on the CPU, the JAX module
     its ``attention_reference`` (``use_flash=False``)."""
     kw = dict(SMALL, att_type=att_type, layer_attns=layer_attns, attend_at_middle=middle,
               self_cond=self_cond, cond_images_channels=cond_ch, lowres_cond=lowres)

@@ -249,6 +249,6 @@ def test_kernel_wrappers_report_their_work():
     assert counter.by_source == {"conv3d": plain["conv"]}
     q = torch.zeros(3, 7, 4)
     k = torch.zeros(3, 9, 4)
-    assert flops.flop_counts(kernels.attention_plain, q, k, k, 0.5)["dot"] \
+    assert flops.flop_counts(kernels.attention_reference, q, k, k, 0.5)["dot"] \
         == flops.attention_flops(3, 7, 9, 4)
     flops.record("conv", 1, "conv3d")  # no counter running
