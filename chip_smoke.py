@@ -29,13 +29,20 @@ Phases, each of which raises (and exits non-zero) on failure:
                 launched twice (identical bits required) and printed with
                 its plan; then the brick route's headline row against the
                 spread PERF.md records for it (fails outside it, widened by
-                BRICK_ROUTE_MARGIN, on a card at the recorded power limit);
+                BRICK_ROUTE_MARGIN, on a card at the recorded power limit),
+                and there once the whole-tap commit groups of the other
+                64-wide Blocks' plan (a reading, not the route);
                 flash attention at the attention config's (64, 1728, 64) and
                 at serve-2d's (128, 3600, 32), and at attn-context's
                 (64, Nq 1728, Nk 1744, 64); the fused Block at the column
                 shards of tensor parallelism (TP_FUSED_SHAPES: Cout / M 32
                 and 16 at 32^3, and the shard shapes tp-train launches) and
-                the small-edge route at (216, 4^3, 256->128)
+                the small-edge route at (216, 4^3, 256->128). The fused
+                Block's brick-route rows (FUSED_SHAPES: every shape serve,
+                serve-attn, serve-efficient and preset-srunet256 launch,
+                each printed with its plan from ``brick_plan``) at their
+                own batch: 216 sub-volumes at factor 3, SRUnet256's 27 at
+                factor 1
   forward       the full-width ``config/eval_config.yaml`` UNet3D (seeded
                 random weights, bf16) on one 27 x 32^3 group, through the
                 kernels and through the plain versions; launches per forward
@@ -233,7 +240,11 @@ Phases, each of which raises (and exits non-zero) on failure:
                 flagship's
   serve-efficient  the serve phase's ``infer_volume`` call (8 windows, 20
                 ancestral steps) with that config; seconds and ms per
-                forward beside the serve phase's
+                forward beside the serve phase's. serve, serve-attn,
+                serve-efficient and preset-srunet256's sampler call first
+                record, from one untimed forward at their batch, the (B, s,
+                Cin, Cout) of every brick-route Block they launch, and fail
+                on one that FUSED_SHAPES does not hold
   edm-merged    edm-step's call with ``merged_boundary=True`` (the same
                 weights and noise) against the split model: bit for bit,
                 as merged mode runs on the split kernels
@@ -365,8 +376,10 @@ attention's ``shapes`` list holds its serve-attn, serve-2d and
 attn-context rows, each with its launches; every kernel's
 ``launches_by_path`` has the video phases' zeros, tp-train's, tp-serve's,
 tp-2d's and tp-video's launches (rank 0), edm-probe's and the round trip's
-train and evaluate processes'; the fused Block's ``tp_shapes`` rows hold
-the column shards' times with tp-train's launches at each shape); the last
+train and evaluate processes'; the fused Block's ``shapes`` rows hold
+every brick-route shape of FUSED_SHAPES with its plan, times, bound, cuDNN's
+conv alone and its launches in each serve path that recorded it, and its
+``tp_shapes`` rows the column shards' with tp-train's launches); the last
 line is ``{"ok": true, "device": {...}}``. Imports
 nothing of JAX or of ``diffusioniqt_tpu``. Exits non-zero without CUDA.
 """
@@ -439,8 +452,19 @@ HALO_SHAPES = [(32, 2), (32, 64), (32, 128), (16, 64), (16, 128), (16, 192), (8,
 # (s, Cin, Cout): the init conv (small-Cin route) and one wide shape that
 # holds the implicit-GEMM route, which no conv3d call of the path takes
 CONV_SHAPES = [(32, 2, 64), (16, 64, 64)]
-FUSED_SHAPES = [(32, 64, 64), (32, 128, 64), (16, 64, 64), (16, 192, 128),
-                (16, 128, 128), (8, 128, 128), (8, 256, 256)]
+# (B, s, Cin, Cout) of every brick-route Block that serve, serve-attn,
+# serve-efficient and preset-srunet256 launch (each of those phases records
+# its shapes and fails on one not listed here): the flagship's at the serve
+# batch (the first row is the route's headline), the attention config's 8^3
+# 256->256, the efficient flagship's 16^3 128->64 and 8^3 256->128, and
+# SRUnet256's at one window: the first 16 rows of
+# ops/kernels/fused_block.py::BRICK_SHAPES
+FUSED_SHAPES = [(BATCH, 32, 64, 64), (BATCH, 32, 128, 64), (BATCH, 16, 64, 64),
+                (BATCH, 16, 192, 128), (BATCH, 16, 128, 128), (BATCH, 8, 128, 128),
+                (BATCH, 8, 256, 256), (BATCH, 16, 128, 64), (BATCH, 8, 256, 128),
+                (GROUP, 32, 32, 32), (GROUP, 32, 32, 128), (GROUP, 32, 128, 128),
+                (GROUP, 16, 128, 128), (GROUP, 16, 256, 128), (GROUP, 8, 256, 256),
+                (GROUP, 8, 512, 256)]
 # the 2D slice family's serve cell (serve-2d): UNet2D at the JAX defaults'
 # full width (dim 64, mults (1, 2, 4), 2 ResnetBlocks a level, SE) with
 # softmax attention at the last level and the middle, 16 axial slices of
@@ -1556,23 +1580,32 @@ def main() -> int:
 
     # the path's shapes, then the column shards' (TP_FUSED_SHAPES), recorded
     # apart as fused_block_tp
-    for i, (s, cin, cout) in enumerate(FUSED_SHAPES + TP_FUSED_SHAPES):
-        row_name = "fused_block" if i < len(FUSED_SHAPES) else "fused_block_tp"
-        x = torch.randn((BATCH, s, s, s, cin), generator=gen, device=dev).to(torch.bfloat16)
+    fused_rows = ([(n, s, cin, cout, "fused_block") for n, s, cin, cout in FUSED_SHAPES]
+                  + [(BATCH, s, cin, cout, "fused_block_tp") for s, cin, cout in TP_FUSED_SHAPES])
+    for n, s, cin, cout, row_name in fused_rows:
+        factor = 3 if n == BATCH else 1
+        x = torch.randn((n, s, s, s, cin), generator=gen, device=dev).to(torch.bfloat16)
         ns = 1.0 + 0.1 * torch.randn(cin, generator=gen, device=dev)
         nb = 0.1 * torch.randn(cin, generator=gen, device=dev)
-        ss = tuple(0.2 * torch.randn((BATCH, 1, 1, 1, cin), generator=gen, device=dev)
+        ss = tuple(0.2 * torch.randn((n, 1, 1, 1, cin), generator=gen, device=dev)
                    for _ in range(2))
         w = torch.randn((cout, cin, 3, 3, 3), generator=gen, device=dev) * (cin * 27) ** -0.5
         a, b = groupnorm_affine(x, ns, nb, 8, scale_shift=ss)
-        a_tab, b_tab = neighbor_tables(a, b, 3)
-        xh = kernels.halo_exchange(x, 3)
+        a_tab, b_tab = neighbor_tables(a, b, factor)
+        xh = kernels.halo_exchange(x, factor)
         cache = PackedWeight()
         got = kernels.fused_conv(xh, a_tab, b_tab, w, cache)
         want = kernels.fused_conv_plain(xh, a_tab, b_tab, w)
         torch.cuda.synchronize()
-        stats = compare("fused_block", (BATCH, s, cin, cout), got, want, BF16_TOL)
-        flops = 2.0 * BATCH * s ** 3 * 27 * cin * cout
+        stats = compare("fused_block", (n, s, cin, cout), got, want, BF16_TOL)
+        brick = fused_module.brick_plan(n, s, cin, cout, sms)
+        plan = brick._asdict()
+        left = (f", the last {brick.units - brick.tail0} in ranges of chunks" if brick.split
+                else "")
+        print(f"    plan: BN {brick.bn}, {'whole' if brick.tap else 'half'}-tap groups, "
+              f"{brick.units} units of {brick.chunks} chunks on {brick.ctas} CTAs: "
+              f"{brick.rounds} rounds of whole units{left}; factor {factor}", flush=True)
+        flops = 2.0 * n * s ** 3 * 27 * cin * cout
         # the GEMM's floor: cuDNN's conv alone on mish(A_r * xh + B_r),
         # materialised in bf16 outside the timed loop
         reg = fused_module._region_index(s + 2, dev)
@@ -1580,11 +1613,24 @@ def main() -> int:
         act_cf = act.to(torch.bfloat16).permute(0, 4, 1, 2, 3)
         w_bf = w.to(torch.bfloat16)
         del act
-        record(row_name, (BATCH, s, cin, cout), stats,
+        record(row_name, (n, s, cin, cout), stats,
                timed(lambda: kernels.fused_conv(xh, a_tab, b_tab, w, cache)),
                cuda_time_ms(lambda: kernels.fused_conv_plain(xh, a_tab, b_tab, w), iters=3),
                None, bound_ms(flops, nbytes(xh, a_tab, b_tab, w_bf, got)),
                conv_only_library_ms=timed(lambda: torch.nn.functional.conv3d(act_cf, w_bf)))
+        results[row_name][-1]["plan"] = plan
+        if (n, s, cin, cout) == (BATCH,) + HEADLINE["fused_block"]:
+            # whole-tap groups at the headline, which keeps the half-tap unit: a
+            # reading for the headline's later redesign, not a route
+            tap = fused_module.make_brick_plan(n, s, cin, cout, sms, 64, tap=True)
+            got_tap = fused_module.launch_brick(xh, a_tab, b_tab, cache.get(w), tap)
+            torch.cuda.synchronize()
+            compare("fused_block tap groups", (n, s, cin, cout), got_tap, want, BF16_TOL)
+            t_tap = timed(lambda: fused_module.launch_brick(xh, a_tab, b_tab, cache.get(w), tap))
+            results[row_name][-1].update(tap_unit_ms=t_tap[0], tap_unit_ms_min=t_tap[1],
+                                         tap_unit_ms_max=t_tap[2])
+            print(f"    whole-tap groups (not this shape's plan): {fmt(t_tap)}", flush=True)
+            del got_tap
         del act_cf, xh, got, want
 
     # factor 1, the SAME convs of config/config.yaml, at its microbatch of
@@ -1799,10 +1845,35 @@ def main() -> int:
                                  "the plain path")
         return {"ms": fwd_ms, "gflop": sum(flops) / 1e9, "model": model}
 
-    def serve(cfg, per_forward):
+    brick_shapes = {}  # path -> Counter of the brick-route shapes it launches
+
+    def record_brick_shapes(label, unet, rows, forwards):
+        """One untimed forward of ``unet`` at ``rows`` sub-volumes through
+        :func:`shape_recording_ops`: keep its brick-route (B, s, Cin, Cout)
+        launches, times the ``forwards`` of path ``label``; fail unless
+        FUSED_SHAPES holds each."""
+        seen = collections.Counter()
+        g = torch.Generator(device=dev).manual_seed(0)
+        x, lowres = (torch.randn((rows, SUB, SUB, SUB, 1), generator=g, device=dev)
+                     for _ in range(2))
+        with torch.no_grad():
+            unet.use_ops(shape_recording_ops(seen))(
+                x, torch.full((rows,), 0.5, device=dev), torch.full((rows,), -1.0, device=dev),
+                lowres_cond_img=lowres)
+            unet.use_ops(kernels.KERNELS)
+        brick = collections.Counter({k: v * forwards for k, v in seen.items() if k[1] % 8 == 0})
+        brick_shapes[label] = brick
+        print(f"{label} brick-route Blocks (B, s, Cin, Cout): {dict(brick)}", flush=True)
+        if not set(brick) <= set(FUSED_SHAPES):
+            raise AssertionError(f"{label}: brick-route shapes {sorted(set(brick) - set(FUSED_SHAPES))}"
+                                 " not in FUSED_SHAPES")
+
+    def serve(cfg, per_forward, label=None):
         """infer_volume on the seeded fake 128^3 volume; the launches must be
         ``per_forward`` times the forwards the sampler ran (one per step for
         the ancestral sampler, two per Heun step but the last one for EDM).
+        With ``label``, the run's brick-route shapes are recorded under it
+        first, from one untimed forward (:func:`record_brick_shapes`).
         Returns the launches, the prediction, the fake highres volume and
         the seconds of the run."""
         edge, windows_per_batch = 128, WINDOWS
@@ -1812,6 +1883,11 @@ def main() -> int:
         else:
             steps = nfe = cfg.train.timesteps
         imagen = build_sampler(cfg, device=dev, seed=0)
+        n_windows = ((edge - cfg.train.patch_size) // cfg.eval.overlap + 1) ** 3
+        n_calls = -(-n_windows // windows_per_batch)
+        if label:
+            record_brick_shapes(label, imagen.unets[1],
+                                min(n_windows, windows_per_batch) * GROUP, nfe * n_calls)
         lowres_vol, highres_vol = fake_volumes(cfg, edge, seed=0)
         noise = gaussian_noise(torch.Generator(device=dev).manual_seed(0))
         call_s, sample = [], imagen.sample
@@ -1833,8 +1909,6 @@ def main() -> int:
         torch.cuda.synchronize()
         serve_s = time.perf_counter() - t_serve
         served = kernels.launch_counts()
-        n_windows = ((edge - cfg.train.patch_size) // cfg.eval.overlap + 1) ** 3
-        n_calls = -(-n_windows // windows_per_batch)
         print(f"sampler {type(imagen).__name__} windows {n_windows} steps {steps} "
               f"forwards per call {nfe} width dim={cfg.train.dim} "
               f"mults={cfg.train.dim_mults} nothing cut")
@@ -2161,6 +2235,7 @@ def main() -> int:
         imagen = imagen_from_config(cfg, (NullUnet().to(dev), model))
         lowres = torch.randn((GROUP, SUB, SUB, SUB, 1), generator=gen, device=dev)
         steps = cfg.train.timesteps
+        record_brick_shapes("preset-srunet256 sampler call", imagen.unets[1], GROUP, steps)
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
@@ -3894,11 +3969,11 @@ def main() -> int:
     phase("preset-srunet256")
     served_srunet = preset_srunet256(cfg)
     phase("serve")
-    served, pred_serve, _, serve_s = serve(cfg, FLAGSHIP_COUNTS)
+    served, pred_serve, _, serve_s = serve(cfg, FLAGSHIP_COUNTS, label="serve")
     phase("serve-attn")
-    served_attn, _, _, _ = serve(cfg_attn, ATTN_COUNTS)
+    served_attn, _, _, _ = serve(cfg_attn, ATTN_COUNTS, label="serve-attn")
     phase("serve-efficient")
-    served_eff, _, _, serve_eff_s = serve(cfg_eff, EFFICIENT_COUNTS)
+    served_eff, _, _, serve_eff_s = serve(cfg_eff, EFFICIENT_COUNTS, label="serve-efficient")
     print(f"serve-efficient {serve_eff_s:.3f} s against the serve phase's {serve_s:.3f} s "
           f"(8 windows, {cfg.train.timesteps} steps)", flush=True)
     phase("serve-2d")
@@ -4039,12 +4114,21 @@ def main() -> int:
     # tp-train (rank 0, both steps); tp-serve launches the same shapes
     fused = next(r for r in line if r["name"] == "fused_block")
     fused["tp_shapes"] = [
-        {**{k: r[k] for k in ("shape", "max_abs_err", "ms", "ms_min", "ms_max", "plain_ms",
-                              "bound_ms", "bound_by", "conv_only_library_ms",
+        {**{k: r[k] for k in ("shape", "plan", "max_abs_err", "ms", "ms_min", "ms_max",
+                              "plain_ms", "bound_ms", "bound_by", "conv_only_library_ms",
                               "conv_only_library_ms_min", "conv_only_library_ms_max")},
          "launches_tp_train": sum(n for (_, s, cin, cout), n in tp_trained["shapes"].items()
                                   if [s, cin, cout] == r["shape"][1:])}
         for r in results["fused_block_tp"]]
+    # every brick-route row: its plan, times, bound and cuDNN's conv alone,
+    # with its launches in each serve path that recorded its shapes
+    fused["shapes"] = [
+        {**{k: r[k] for k in ("shape", "plan", "max_abs_err", "ms", "ms_min", "ms_max",
+                              "plain_ms", "bound_ms", "bound_by", "conv_only_library_ms",
+                              "conv_only_library_ms_min", "conv_only_library_ms_max",
+                              "tap_unit_ms", "tap_unit_ms_min", "tap_unit_ms_max") if k in r},
+         "launches_by_path": {path: seen[tuple(r["shape"])] for path, seen in brick_shapes.items()}}
+        for r in results["fused_block"]]
     line[0]["small_edge"] = [{k: r[k] for k in ("shape", "factor", "max_abs_err", "ms", "ms_min",
                                               "ms_max", "plain_ms", "bound_ms", "bound_by",
                                               "library_ms", "library_ms_min", "library_ms_max")}

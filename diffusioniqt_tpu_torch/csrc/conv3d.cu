@@ -273,11 +273,12 @@ int launch(const Params& p, cudaStream_t stream) {
 }  // namespace small
 
 // The implicit-GEMM route (Cin > 8): weight (27, Cin, Cout), bn = 64 or
-// 128. Returns a cudaError_t.
+// 128, whole units on ctas CTAs (1 to the units). Returns a cudaError_t.
 extern "C" int conv3d_valid_launch(void* encode, const void* xh, const void* w, void* out,
-                                   int nb, int s, int cin, int cout, int bn, void* stream) {
-  return igemm::launch<false>(encode, xh, nullptr, nullptr, w, out, nb, s, cin, cout, bn,
-                              static_cast<cudaStream_t>(stream));
+                                   int nb, int s, int cin, int cout, int bn, int ctas,
+                                   void* stream) {
+  return igemm::launch<false>(encode, xh, nullptr, nullptr, w, out, nullptr, nb, s, cin, cout, bn,
+                              0, 0, ctas, static_cast<cudaStream_t>(stream));
 }
 
 // The small-Cin route (1 <= Cin <= 8): weight (K_pad, Cout), row

@@ -41,8 +41,9 @@ from diffusioniqt_tpu_torch.utils import flops
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-# the implicit GEMM's launcher also takes the TMA encoder first and BN last
-IGEMM_ARGTYPES = [ctypes.c_void_p, *_ARGTYPES[:-1], ctypes.c_int, ctypes.c_void_p]
+# the implicit GEMM's launcher also takes the TMA encoder first, and BN and
+# the grid last
+IGEMM_ARGTYPES = [ctypes.c_void_p, *_ARGTYPES[:-1], ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 # widest input the small-Cin route takes; wider convs take the implicit GEMM
 SMALL_CIN_MAX = 8
 # the small-Cin kernel keeps all of Cout's weights in shared memory
@@ -78,11 +79,15 @@ class GemmGeometry(NamedTuple):
 
 
 def gemm_geometry(s: int, cin: int, cout: int) -> GemmGeometry:
-    """The tiling the implicit-GEMM kernels run at sub-volume edge ``s``:
-    bricks of 4 x 8 x 8 output voxels (a halo'd 6 x 10 x 10 input brick),
-    Cin in 64-channel chunks, BN = 128 output channels where Cout is a
-    multiple of 128, else 64 (columns past Cout computed and not stored).
-    ``s`` must be a multiple of 8."""
+    """The tiling conv3d's implicit-GEMM route runs at sub-volume edge
+    ``s``: the base unit, bricks of 4 x 8 x 8 output voxels (a halo'd 6 x 10
+    x 10 input brick), Cin in 64-channel chunks, BN = 128 output channels
+    where Cout is a multiple of 128, else 64 (columns past Cout computed and
+    not stored), whole units on one CTA per SM (at most one per unit). The
+    fused Block's brick route shares the kernel and picks its unit per launch
+    (:func:`..fused_block.brick_plan`: also BN 32, whole-tap commit groups,
+    and ranges of chunks summed from fp32 partials). ``s`` must be a
+    multiple of 8."""
     brick, chunk = (4, 8, 8), 64
     bn = 128 if cout % 128 == 0 else 64
     return GemmGeometry(brick=brick, chunk=chunk, cin_pad=-(-cin // chunk) * chunk, bn=bn,
@@ -178,10 +183,11 @@ def _launch(xh: torch.Tensor, w: torch.Tensor, packed: torch.Tensor):
         fn = runtime.c_function(name, "conv3d_small_cin_launch", _ARGTYPES)
         err = fn(xh.data_ptr(), packed.data_ptr(), out.data_ptr(), b, s, cin, cout, stream)
     else:
+        g = gemm_geometry(s, cin, cout)
         fn = runtime.c_function(name, "conv3d_valid_launch", IGEMM_ARGTYPES)
         err = fn(runtime.driver_function("cuTensorMapEncodeTiled"), xh.data_ptr(),
-                 packed.data_ptr(), out.data_ptr(), b, s, cin, cout,
-                 gemm_geometry(s, cin, cout).bn, stream)
+                 packed.data_ptr(), out.data_ptr(), b, s, cin, cout, g.bn,
+                 min(b * g.bricks * g.n_tiles, runtime.sm_count(xh.device)), stream)
     runtime.check_launch(name, err)
     conv3d_valid.launches += 1
     flops.record("conv", flops.conv3d_valid_flops(out.shape, cin), "conv3d")

@@ -23,17 +23,28 @@ at the main path's (216, 32^3, 64->64)). The first kernel (an 8-warp
 every tap, the brick loaded and put through Mish by the same warps between
 products, 3.4-5x halo overhead) reached 15% of it. The kernel now is the
 ``wgmma`` + TMA implicit GEMM of ``csrc/igemm.cuh``: persistent CTAs walk
-4 x 8 x 8-voxel output bricks (:func:`..conv3d.gemm_geometry`); one warp
-streams the tap weight slices through an mbarrier ring; three transform
-warps load each halo'd brick by TMA and apply the affine + Mish in shared
-memory one brick ahead of two consumer warpgroups, which gather their A
-fragments from the brick by ``ldmatrix`` (a tap is a row shift) and read B
-from the ring. The normalised activation never reaches device memory, and
-the Mish runs beside the products rather than between them.
+4 x 8 x 8-voxel output bricks by BN output channels; one warp streams the
+tap weight slices through an mbarrier ring; seven transform warps load
+each halo'd brick by TMA and apply the affine + Mish in shared memory one
+brick ahead of two consumer warpgroups, which gather their A fragments
+from the brick by ``ldmatrix`` (a tap is a row shift) and read B from the
+ring. The normalised activation never reaches device memory, and the Mish
+runs beside the products rather than between them. Each launch's unit
+comes from :func:`brick_plan`: BN 32 (the narrow unit of the column
+shards, ``wgmma`` n32 on 64-byte-swizzled slices), 64 or 128, and for
+units up to 64 wide a whole tap per commit group (the base unit commits half
+a tap, which leaves the tensor cores waiting on the next gathers when the
+products are short); :data:`BASE_SHAPES` and every BN 128 unit keep the base
+unit. Where whole units would leave the last round on the card part full
+(the 8^3 levels: 432 units for 132 SMs), the plan spreads the last round's
+units over all CTAs in contiguous ranges of 64-channel chunks instead, and
+a second kernel sums the units that a range boundary cuts from their fp32
+partials in the order of the CTAs. :mod:`.brick_trace` times every candidate plan with phase stamps
+and ablations.
 
 Two routes, chosen from the sub-volume edge by :func:`route` (a dispatch
 by shape; neither stands in for the other, and an edge that neither takes
-raises): ``"igemm"`` for edges that are multiples of 8, and
+raises): ``"igemm"`` (the brick route) for edges that are multiples of 8, and
 ``"small_edge"`` for edges 4 and 2, where a ``memory_efficient`` U-Net's
 deeper levels run (the flagship at 4^3, SRUnet256 at 4^3 and 2^3 with up
 to 1024 channels). The small-edge route is its own kernel,
@@ -71,13 +82,12 @@ from diffusioniqt_tpu_torch.ops.kernels.conv3d import (
     PackedWeight,
     check_igemm_args,
     conv3d_valid_plain,
-    gemm_geometry,
     pack_weight,
 )
 from diffusioniqt_tpu_torch.ops.volume import halo_exchange
 
-# encoder, xh, a_tab, b_tab, w, out, B, s, Cin, Cout, BN, stream
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+# encoder, xh, a_tab, b_tab, w, out, ws, B, s, Cin, Cout, BN, tap, split, CTAs, stream
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 # encoder, xh, a_tab, b_tab, w, out, ws, B, s, Cin, Cout, BN / 2, CTAs, stream
 _SMALL_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 # sub-volume edges of the small-edge route
@@ -179,9 +189,125 @@ def small_edge_plan(nb: int, s: int, cin: int, cout: int, sms: int) -> SmallEdge
     return SmallEdgePlan(subs, bn, m_blocks, n_blocks, 27 * chunks, ctas, cut)
 
 
-@functools.lru_cache(maxsize=8)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+# the brick route's output brick (x, y, z) and its narrow unit's width
+BRICK = (4, 8, 8)
+NARROW = 32
+# (s, Cin, Cout) of the flagship's Blocks that the brick route's base unit
+# (BN 64, half-tap commit groups) was designed for, levels 0 and 1 at Cout
+# 64: they keep it at every batch, the baseline of the headline's later
+# redesign
+BASE_SHAPES = ((32, 64, 64), (32, 128, 64), (16, 64, 64))
+# (B, s, Cin, Cout) of every brick-route Block the presets launch, as the
+# wrapper sees them: the flagship and the attention config at the serve
+# batch (8 windows; the attention config adds 8^3 256->256 in its middle),
+# the efficient flagship's 16^3 128->64 and 8^3 256->128, SRUnet256 at one
+# window; then the column shards of tensor parallelism at the serve batch
+# (Cout / 2 of the flagship's Blocks, and Cout / 4 of level 0's)
+BRICK_SHAPES = ((216, 32, 64, 64), (216, 32, 128, 64), (216, 16, 64, 64), (216, 16, 192, 128),
+                (216, 16, 128, 128), (216, 8, 128, 128), (216, 8, 256, 256),
+                (216, 16, 128, 64), (216, 8, 256, 128),
+                (27, 32, 32, 32), (27, 32, 32, 128), (27, 32, 128, 128), (27, 16, 128, 128),
+                (27, 16, 256, 128), (27, 8, 256, 256), (27, 8, 512, 256),
+                (216, 32, 64, 32), (216, 32, 64, 16), (216, 32, 128, 32), (216, 16, 64, 32),
+                (216, 8, 128, 64), (216, 16, 192, 64))
+
+
+class BrickPlan(NamedTuple):
+    """How the brick route (``csrc/igemm.cuh``) cuts one shape. A unit of
+    work is one 4 x 8 x 8 output brick of one sub-volume by ``bn`` output
+    channels (n tile); ``units`` = B x bricks per sub-volume x ``n_tiles``,
+    in the kernel's order: n tile by n tile, then sub-volume by sub-volume,
+    bricks in x, y, z order. A unit runs ``chunks`` = ceil(Cin / 64) chunks
+    of 27 weight slices. ``tap``: the consumers commit a whole tap (8
+    wgmmas) per group, not half of one as in the base unit, so that each
+    group's products cover the next group's A gathers. ``ctas``: the
+    persistent grid. CTA ``c`` takes units ``c, c + ctas, ...`` whole; with
+    ``split`` only the :attr:`rounds` that fill the grid, and the units
+    left over (from :attr:`tail0`) are cut into their (unit, chunk) items,
+    spread over all CTAs in contiguous ranges that differ by at most one
+    item (:meth:`range_lo`); a unit that a range boundary cuts goes out as
+    its pieces' fp32 sums, which a second kernel adds in the order of the
+    CTAs."""
+
+    bn: int
+    tap: bool
+    split: bool
+    n_tiles: int
+    units: int
+    chunks: int
+    ctas: int
+
+    @property
+    def rounds(self) -> int:
+        """Rounds of whole units, one unit a CTA each."""
+        return self.units // self.ctas if self.split else -(-self.units // self.ctas)
+
+    @property
+    def tail0(self) -> int:
+        """With ``split``, the first unit left over after :attr:`rounds`."""
+        return self.rounds * self.ctas
+
+    def range_lo(self, cta: int) -> int:
+        """With ``split``, the first of the left-over units' (unit, chunk)
+        items, counted from :attr:`tail0`, in CTA ``cta``'s range (the
+        kernel's ``range_lo``)."""
+        return (self.units - self.tail0) * self.chunks * cta // self.ctas
+
+    def pieces(self, cta: int):
+        """``(unit, first chunk, end chunk)`` of every piece CTA ``cta``
+        computes, in its order; a piece that is not the whole unit goes out
+        as fp32 partials."""
+        n = self.chunks
+        if not self.split:
+            return [(u, 0, n) for u in range(cta, self.units, self.ctas)]
+        whole = [(u, 0, n) for u in range(cta, self.tail0, self.ctas)]
+        lo, hi = self.range_lo(cta), self.range_lo(cta + 1)
+        return whole + [(self.tail0 + u, max(lo - u * n, 0), min(hi - u * n, n))
+                        for u in range(lo // n, -(-hi // n) if hi > lo else 0)]
+
+
+def make_brick_plan(nb: int, s: int, cin: int, cout: int, sms: int, bn: int,
+                    tap: bool = False, split: bool = False) -> BrickPlan:
+    """The brick plan of unit width ``bn`` at one shape on a card of ``sms``
+    SMs: one CTA per SM, at most one per unit (with ``split``, per item)."""
+    units = nb * (s // BRICK[0]) * (s // BRICK[1]) * (s // BRICK[2]) * -(-cout // bn)
+    chunks = -(-cin // CHUNK)
+    ctas = min(units * chunks if split else units, sms)
+    return BrickPlan(bn, tap, split, -(-cout // bn), units, chunks, ctas)
+
+
+@functools.lru_cache(maxsize=64)
+def brick_plan(nb: int, s: int, cin: int, cout: int, sms: int) -> BrickPlan:
+    """The brick route's plan for ``nb`` sub-volumes of edge ``s`` (a
+    multiple of 8), Cin -> Cout, on a card of ``sms`` SMs:
+
+    * Cout <= 32 (the column shards of 64- and 128-channel Blocks under
+      tensor parallelism, SRUnet256's 32-channel level): the narrow unit,
+      BN 32, never more columns than Cout rounded up to 32;
+    * Cout a multiple of 128: BN 128, the base unit (the tap groups' second
+      fragment set does not fit beside 128 accumulators);
+    * otherwise BN 64.
+    Units up to 64 wide commit a whole tap per group where the brick comes
+    by TMA (Cin % 8 == 0), except at :data:`BASE_SHAPES`. The units go whole
+    to one CTA per SM unless they take more than one round and, where the
+    brick comes by TMA, cutting the last round's units into ranges of
+    chunks (``split``) shortens the busiest CTA's chunks by at least an
+    eighth: at 8^3 x 128 channels, 432 units of 2 chunks on 132 SMs, 3
+    rounds and the 36 units left over as 72 chunks on 72 CTAs, 7 chunks and
+    not 8. (With one round there is no last round to fill, and the partials
+    cost more than the idle SMs.) Raises for an edge the route does not
+    take."""
+    if s <= 0 or s % 8:
+        raise ValueError(f"fused_block brick route: sub-volume edge {s} is not a multiple of 8")
+    bn = NARROW if cout <= NARROW else (128 if cout % 128 == 0 else 64)
+    tap = bn <= 64 and cin % 8 == 0 and (s, cin, cout) not in BASE_SHAPES
+    whole = make_brick_plan(nb, s, cin, cout, sms, bn, tap)
+    split = make_brick_plan(nb, s, cin, cout, sms, bn, tap, split=True)
+    busiest_whole = whole.rounds * whole.chunks
+    busiest_split = (split.rounds * split.chunks
+                     + -(-(split.units - split.tail0) * split.chunks // split.ctas))
+    take = whole.units > sms and cin % 8 == 0 and 8 * busiest_split <= 7 * busiest_whole
+    return split if take else whole
 
 
 # ---------------------------------------------------------------------------
@@ -289,16 +415,37 @@ def fused_conv_plain(xh, a_tab, b_tab, w) -> torch.Tensor:
 
 
 def _launch(xh, a_tab, b_tab, w, packed):
-    name = "fused_block"
     b, s, cin, cout = xh.shape[0], xh.shape[1] - 2, xh.shape[4], w.shape[0]
+    sms = runtime.sm_count(xh.device)
     if route(s) == "small_edge":
-        return launch_small_edge(xh, a_tab, b_tab, packed,
-                                 small_edge_plan(b, s, cin, cout, _sm_count(xh.device)))
+        return launch_small_edge(xh, a_tab, b_tab, packed, small_edge_plan(b, s, cin, cout, sms))
+    return launch_brick(xh, a_tab, b_tab, packed, brick_plan(b, s, cin, cout, sms))
+
+
+def split_workspace(plan: BrickPlan, device: torch.device) -> Optional[torch.Tensor]:
+    """With ``plan.split``, the kernel's ``(ctas, 2, 256, bn)`` fp32 slots
+    (each CTA's pieces of the units its range starts and ends in); else
+    None."""
+    if not plan.split:
+        return None
+    rows = BRICK[0] * BRICK[1] * BRICK[2]
+    return torch.empty((plan.ctas, 2, rows, plan.bn), dtype=torch.float32, device=device)
+
+
+def launch_brick(xh, a_tab, b_tab, packed, plan: BrickPlan):
+    """The brick route's kernel (and, where ``plan.split``, its reduction)
+    on checked arguments under ``plan``, as :func:`fused_conv` calls it; one
+    launch counted."""
+    name = "fused_block"
+    b, s, cin = xh.shape[0], xh.shape[1] - 2, xh.shape[4]
+    cout = packed.shape[1]
     out = torch.empty((b, s, s, s, cout), dtype=xh.dtype, device=xh.device)
+    ws = split_workspace(plan, xh.device)
     fn = runtime.c_function(name, "fused_block_launch", _ARGTYPES)
     err = fn(runtime.driver_function("cuTensorMapEncodeTiled"), xh.data_ptr(),
-             a_tab.data_ptr(), b_tab.data_ptr(), packed.data_ptr(), out.data_ptr(), b, s,
-             cin, cout, gemm_geometry(s, cin, cout).bn, runtime.stream_handle(xh.device))
+             a_tab.data_ptr(), b_tab.data_ptr(), packed.data_ptr(), out.data_ptr(),
+             ws.data_ptr() if ws is not None else None, b, s, cin, cout, plan.bn,
+             int(plan.tap), int(plan.split), plan.ctas, runtime.stream_handle(xh.device))
     runtime.check_launch(name, err)
     fused_conv.launches += 1
     flops.record("conv", flops.conv3d_valid_flops(out.shape, cin), "fused_block")

@@ -13,6 +13,7 @@ import time: the CPU tests import every module on a machine without
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -130,6 +131,12 @@ def check_launch(name: str, err: int) -> None:
 
 def stream_handle(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+@functools.lru_cache(maxsize=8)
+def sm_count(device: torch.device) -> int:
+    """The card's SMs: the persistent kernels' grid is at most one CTA each."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def require(cond: bool, name: str, what: str) -> None:

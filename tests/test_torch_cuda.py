@@ -110,11 +110,12 @@ def _fused_case(dev, s, cin, cout, seed, n=27):
                                       (256, 256), (64, 32), (64, 16), (128, 32)])
 @pytest.mark.parametrize("s", [8, 16, 32])
 def test_fused_kernel_matches_plain(dev, s, cin, cout):
-    """The wgmma GEMM at both BN (64, 128; Cout 16 and 32 as padded
-    columns: the column shards of 64-channel Blocks under tensor
-    parallelism), one to four 64-channel chunks (Cin 2 and 16 with
-    zero-filled channels), the plain-load brick (Cin = 2) and the TMA
-    brick, at every sub-volume edge of the path."""
+    """The wgmma GEMM under each shape's plan (``brick_plan``): BN 64 and
+    128, the narrow BN 32 at Cout 16 and 32 (the column shards of 64- and
+    128-channel Blocks under tensor parallelism, Cout 16 a ragged n tile),
+    whole- and half-tap commit groups, one to four 64-channel chunks (Cin
+    2 and 16 with zero-filled channels), the plain-load brick (Cin = 2)
+    and the TMA brick, at every sub-volume edge of the path."""
     xh, ta, tb, w = _fused_case(dev, s, cin, cout, seed=s * 1000 + cin + cout)
     kernels.reset_launch_counts()
     got = kernels.fused_conv(xh, ta, tb, w)
@@ -152,6 +153,54 @@ def test_small_edge_route_matches_plain(dev, n, s, factor, cin, cout):
     assert (counts["fused_block_small"], counts["fused_block"]) == (1, 0)
     _close(got, kernels.fused_conv_plain(xh, ta, tb, w))
     assert torch.equal(kernels.fused_conv(xh, ta, tb, w), got)
+
+
+@pytest.mark.parametrize("s,cin,cout,bn,tap,split", [
+    (8, 64, 32, 32, True, False), (16, 64, 16, 32, True, False), (8, 64, 32, 32, False, False),
+    (8, 2, 32, 32, False, False), (16, 128, 64, 64, True, False), (32, 64, 64, 64, True, False),
+    (8, 136, 96, 64, True, False), (16, 64, 64, 32, True, False), (8, 256, 256, 128, False, False),
+    (8, 128, 128, 128, False, True), (16, 192, 128, 128, False, True),
+    (8, 136, 96, 64, True, True), (8, 72, 32, 32, True, True), (8, 64, 32, 32, False, True)])
+def test_brick_plans_match_plain(dev, s, cin, cout, bn, tap, split):
+    """Each unit width and commit group of the brick route under an
+    explicit plan, launched through ``launch_brick`` (one launch counted):
+    the narrow unit in both groupings and with the plain-load brick, BN 64
+    in whole-tap groups at a 64-channel Block that keeps the base unit, a
+    ragged second n tile (Cout 96), Cout 64 in two narrow n tiles, BN 128;
+    and ranges of chunks (54 units of 2 chunks on one CTA per item, so every
+    unit cut; 432 units of 3 chunks; a ragged n tile in whole-tap groups;
+    the narrow unit in both groupings, with one chunk, where nothing is
+    cut). Two launches give the same bits."""
+    xh, ta, tb, w = _fused_case(dev, s, cin, cout, seed=7 * s + cin + cout + bn)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = tfb.make_brick_plan(xh.shape[0], s, cin, cout, sms, bn, tap, split)
+    kernels.reset_launch_counts()
+    got = tfb.launch_brick(xh, ta, tb, pack_weight(w), plan)
+    assert kernels.launch_counts()["fused_block"] == 1
+    _close(got, kernels.fused_conv_plain(xh, ta, tb, w))
+    assert torch.equal(tfb.launch_brick(xh, ta, tb, pack_weight(w), plan), got)
+
+
+def test_brick_plans_the_build_refuses(dev):
+    """Plans the port's build has no kernel for raise rather than run:
+    whole-tap groups or ranges of chunks beside the plain-load brick,
+    whole-tap groups at BN 128, and a grid larger than the units (whole
+    units) or the items (ranges of chunks)."""
+    xh, ta, tb, w = _fused_case(dev, 8, 2, 32, seed=3)
+    plan = tfb.make_brick_plan(27, 8, 2, 32, 132, 32)
+    for bad in (plan._replace(tap=True), plan._replace(split=True),
+                plan._replace(ctas=plan.units + 1)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            tfb.launch_brick(xh, ta, tb, pack_weight(w), bad)
+    xh, ta, tb, w = _fused_case(dev, 8, 64, 32, seed=5)
+    plan = tfb.make_brick_plan(27, 8, 64, 32, 132, 32, tap=True, split=True)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tfb.launch_brick(xh, ta, tb, pack_weight(w),
+                         plan._replace(ctas=plan.units * plan.chunks + 1))
+    xh, ta, tb, w = _fused_case(dev, 8, 128, 128, seed=4)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tfb.launch_brick(xh, ta, tb, pack_weight(w),
+                         tfb.make_brick_plan(27, 8, 128, 128, 132, 128, tap=True))
 
 
 def test_fused_kernel_refuses_edges_without_a_route(dev):

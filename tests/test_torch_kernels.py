@@ -262,42 +262,117 @@ def _region_per_axis(p: torch.Tensor, e: int) -> torch.Tensor:
     return torch.where(p == 0, 0, torch.where(p == e - 1, 2, 1))
 
 
-def _emulate_igemm(xh, a_tab, b_tab, w, fused=True):
-    """What ``csrc/igemm.cuh`` computes, unit by unit, in fp32: for each
-    4 x 8 x 8 output brick (:func:`gemm_geometry`) and BN output channels,
-    the halo'd 6 x 10 x 10 brick in 64-channel chunks (zeros past Cin),
-    put through mish(A_r x + B_r) with r the region of each brick voxel,
-    stored with the 128-byte swizzle (16-byte group pc of row r holds the
-    chunk's channels 8 (pc ^ (r & 7))), and 27 taps, each a row shift of the
-    brick read back through the same swizzle, times the packed weight."""
+# brick_plan at every shape of fused_block.BRICK_SHAPES (the presets' Blocks
+# and the column shards) and a few more on a card of 132 SMs: (bn, tap,
+# split, n_tiles, units, chunks, ctas)
+BRICK_PLANS = {
+    # the flagship's levels 0 and 1 at Cout 64: the base unit, at any batch
+    (216, 32, 64, 64): (64, False, False, 1, 27648, 1, 132),
+    (216, 32, 128, 64): (64, False, False, 1, 27648, 2, 132),
+    (216, 16, 64, 64): (64, False, False, 1, 3456, 1, 132),
+    (27, 32, 64, 64): (64, False, False, 1, 3456, 1, 132),
+    # Cout a multiple of 128 (the deeper levels): BN 128, the base unit;
+    # ranges of chunks where whole units leave the last round part full
+    # (432 units of 2 or 4 chunks: 7 or 14 chunks a CTA, not 8 or 16), whole
+    # units where ranges save less than an eighth (3456 units of 2: 53
+    # chunks, not 54) or where the units take one round (108 of 8 chunks)
+    (216, 16, 192, 128): (128, False, False, 1, 3456, 3, 132),
+    (216, 16, 128, 128): (128, False, False, 1, 3456, 2, 132),
+    (216, 8, 128, 128): (128, False, True, 1, 432, 2, 132),
+    (216, 8, 256, 256): (128, False, False, 2, 864, 4, 132),
+    (216, 8, 256, 128): (128, False, True, 1, 432, 4, 132),
+    (27, 32, 32, 128): (128, False, False, 1, 3456, 1, 132),
+    (27, 32, 128, 128): (128, False, False, 1, 3456, 2, 132),
+    (27, 16, 128, 128): (128, False, True, 1, 432, 2, 132),
+    (27, 16, 256, 128): (128, False, True, 1, 432, 4, 132),
+    (27, 8, 256, 256): (128, False, False, 2, 108, 4, 108),
+    (27, 8, 512, 256): (128, False, False, 2, 108, 8, 108),
+    # the other 64-wide Blocks: BN 64 in whole-tap groups
+    (216, 16, 128, 64): (64, True, False, 1, 3456, 2, 132),
+    (216, 8, 128, 64): (64, True, True, 1, 432, 2, 132),
+    (216, 16, 192, 64): (64, True, False, 1, 3456, 3, 132),
+    # Cout 32 and 16: the narrow unit, whole-tap groups where the brick
+    # comes by TMA (Cin % 8 == 0), else half-tap ones
+    (27, 32, 32, 32): (32, True, False, 1, 3456, 1, 132),
+    (216, 32, 64, 32): (32, True, False, 1, 27648, 1, 132),
+    (216, 32, 64, 16): (32, True, False, 1, 27648, 1, 132),
+    (216, 32, 128, 32): (32, True, False, 1, 27648, 2, 132),
+    (216, 16, 64, 32): (32, True, False, 1, 3456, 1, 132),
+    (27, 8, 2, 32): (32, False, False, 1, 54, 1, 54),
+}
+
+
+def _conv_plan(nb, s, cin, cout, sms=132):
+    """The plan of conv3d's implicit-GEMM route: the base unit
+    (:func:`gemm_geometry`'s BN), whole units, one CTA per SM."""
+    return tfb.make_brick_plan(nb, s, cin, cout, sms, tconv.gemm_geometry(s, cin, cout).bn)
+
+
+def _emulate_igemm(xh, a_tab, b_tab, w, fused=True, plan=None):
+    """What ``csrc/igemm.cuh`` computes under ``plan`` (default: the fused
+    route's :func:`brick_plan`, or conv3d's :func:`_conv_plan`, for a card
+    of 132 SMs), in fp32. Each unit (n tile, sub-volume, 4 x 8 x 8 output
+    brick, in the kernel's ``Unit`` order) by chunk: the halo'd 6 x 10 x 10
+    brick's 64 channels (zeros past Cin), put through mish(A_r x + B_r)
+    with r the region of each brick voxel, stored with the 128-byte swizzle
+    (16-byte group pc of row r holds the chunk's channels 8 (pc ^ (r & 7))),
+    and 27 taps, each a row shift of the brick read back through the same
+    swizzle, times the tap's weight slice: 64 K rows by the unit's ``bn``
+    columns (zeros past Cout). Then CTA by CTA (:meth:`BrickPlan.pieces`),
+    every (unit, chunk) once: a piece sums its chunks in order; a whole unit
+    is stored, a cut one's pieces summed in the order of the CTAs (the
+    reduction's order). Only columns below Cout are stored."""
     nb, e, cin = xh.shape[0], xh.shape[1], xh.shape[4]
     s, cout = e - 2, w.shape[0]
-    geo = tconv.gemm_geometry(s, cin, cout)
-    assert geo.bricks == (s // 4) * (s // 8) * (s // 8)
-    tx, ty, tz = geo.brick
+    if plan is None:
+        plan = (tfb.brick_plan(nb, s, cin, cout, 132) if fused
+                else _conv_plan(nb, s, cin, cout))
+    tx, ty, tz = tfb.BRICK
     hx, hy, hz = tx + 2, ty + 2, tz + 2
-    rows = hx * hy * hz
-    ncol = geo.n_tiles * geo.bn
-    wpad = torch.zeros((27, geo.cin_pad, ncol))
+    rows, chunk = hx * hy * hz, 64
+    cin_pad = -(-cin // chunk) * chunk
+    by, bz = s // ty, s // tz
+    per_sub = (s // tx) * by * bz
+    assert plan.units == nb * per_sub * plan.n_tiles and plan.n_tiles == -(-cout // plan.bn)
+    assert plan.chunks * chunk == cin_pad
+    # the kernel's Unit: u -> n tile, sub-volume, brick origin
+    u = torch.arange(plan.units)
+    nt, r = u // (nb * per_sub), u % (nb * per_sub)
+    ub, r = r // per_sub, r % per_sub
+    ux, uy, uz = (r // (by * bz)) * tx, ((r // bz) % by) * ty, (r % bz) * tz
+    ncol = plan.n_tiles * plan.bn
+    wpad = torch.zeros((27, cin_pad, ncol))
     wpad[:, :cin, :cout] = tconv.pack_weight(w).float().reshape(27, cin, cout)
-    # every unit's brick origin (sub-volume, x0, y0, z0)
-    ub, ux, uy, uz = (g.reshape(-1) for g in torch.meshgrid(
-        torch.arange(nb), torch.arange(0, s, tx), torch.arange(0, s, ty),
-        torch.arange(0, s, tz), indexing="ij"))
     # brick row r = (hx*HY + hy)*HZ + hz; output row m = (mx*TY + my)*TZ + mz
-    bx, by, bz = (g.reshape(-1) for g in torch.meshgrid(
+    bx, bby, bbz = (g.reshape(-1) for g in torch.meshgrid(
         torch.arange(hx), torch.arange(hy), torch.arange(hz), indexing="ij"))
-    px, py, pz = ux[:, None] + bx, uy[:, None] + by, uz[:, None] + bz   # (U, rows)
+    px, py, pz = ux[:, None] + bx, uy[:, None] + bby, uz[:, None] + bbz   # (U, rows)
     region = (_region_per_axis(px, e) * 3 + _region_per_axis(py, e)) * 3 + \
         _region_per_axis(pz, e)
     mx, my, mz = (g.reshape(-1) for g in torch.meshgrid(
         torch.arange(tx), torch.arange(ty), torch.arange(tz), indexing="ij"))
     row0 = (mx * hy + my) * hz + mz
     r8 = torch.arange(rows) % 8
-    acc = torch.zeros((ux.shape[0], tx * ty * tz, ncol))
-    for c0 in range(0, geo.cin_pad, geo.chunk):
-        n_c = min(geo.chunk, cin - c0)
-        brick = torch.zeros((ux.shape[0], rows, geo.chunk))
+    # the CTAs' pieces: each (unit, chunk) exactly once, a unit's pieces in
+    # the order of the CTAs; new[k, u]: chunk k starts a later piece of unit u
+    pieces = [[] for _ in range(plan.units)]
+    for c in range(plan.ctas):
+        for unit, k0, k1 in plan.pieces(c):
+            pieces[unit].append((k0, k1))
+    new = torch.zeros((plan.chunks, plan.units), dtype=torch.bool)
+    for unit, parts in enumerate(pieces):
+        assert [k for k0, k1 in parts for k in range(k0, k1)] == list(range(plan.chunks))
+        for k0, _ in parts[1:]:
+            new[k0, unit] = True
+    # acc: the piece in flight, summed over its chunks' taps in order; done:
+    # the unit's finished pieces, summed in the order of the CTAs
+    acc = torch.zeros((plan.units, tx * ty * tz, plan.bn))
+    done = torch.zeros_like(acc)
+    for k, c0 in enumerate(range(0, cin_pad, chunk)):
+        done[new[k]] += acc[new[k]]
+        acc[new[k]] = 0.0
+        n_c = min(chunk, cin - c0)
+        brick = torch.zeros((plan.units, rows, chunk))
         raw = xh[ub[:, None], px, py, pz, c0:c0 + n_c]
         if fused:
             ub_r = ub[:, None].expand_as(region)
@@ -306,13 +381,19 @@ def _emulate_igemm(xh, a_tab, b_tab, w, fused=True):
         brick[..., :n_c] = raw
         groups = brick.reshape(-1, rows, 8, 8)
         phys = groups[:, torch.arange(rows)[:, None], torch.arange(8)[None, :] ^ r8[:, None]]
+        stage = wpad[:, c0:c0 + chunk].reshape(27, chunk, plan.n_tiles, plan.bn)
         for tap in range(27):
             kx, ky, kz = tap // 9, (tap // 3) % 3, tap % 3
-            r = row0 + (kx * hy + ky) * hz + kz
-            a = phys[:, r[:, None], torch.arange(8)[None, :] ^ (r % 8)[:, None]]
-            acc += a.reshape(a.shape[0], -1, geo.chunk) @ wpad[tap, c0:c0 + geo.chunk]
-    out = acc[..., :cout].reshape(nb, s // tx, s // ty, s // tz, tx, ty, tz, cout)
-    return out.permute(0, 1, 4, 2, 5, 3, 6, 7).reshape(nb, s, s, s, cout)
+            rr = row0 + (kx * hy + ky) * hz + kz
+            a = phys[:, rr[:, None], torch.arange(8)[None, :] ^ (rr % 8)[:, None]]
+            acc += torch.bmm(a.reshape(a.shape[0], -1, chunk), stage[tap].permute(1, 0, 2)[nt])
+    cut = new.any(dim=0)
+    acc[cut] += done[cut]
+    out = torch.zeros((nb, s, s, s, ncol))
+    ox, oy, oz = ux[:, None] + mx, uy[:, None] + my, uz[:, None] + mz          # (U, 256)
+    cols = nt[:, None] * plan.bn + torch.arange(plan.bn)                       # (U, bn)
+    out[ub[:, None, None], ox[..., None], oy[..., None], oz[..., None], cols[:, None, :]] = acc
+    return out[..., :cout]
 
 
 def test_gemm_geometry():
@@ -323,6 +404,8 @@ def test_gemm_geometry():
     g = tconv.gemm_geometry(16, 2, 16)
     assert (g.bn, g.n_tiles, g.cin_pad, g.tma_brick) == (64, 1, 64, False)
     assert tconv.gemm_geometry(8, 72, 32).cin_pad == 128
+    for (nb, s, cin, cout), want in BRICK_PLANS.items():
+        assert tuple(tfb.brick_plan(nb, s, cin, cout, 132)) == want, (nb, s, cin, cout)
 
 
 @pytest.mark.parametrize("cout", [16, 64, 128])
@@ -358,6 +441,90 @@ def test_fused_kernel_tiles_match_plain_and_pallas(_interpret, s, cin, cout):
         np.testing.assert_allclose(conv.numpy(),
                                    tconv.conv3d_valid_plain(xh, _torch_w(w)).numpy(),
                                    rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("s,cin,cout,bn,tap,split,sms", [
+    # the narrow unit at Cout 32 and 16 (a ragged n tile), and at 48 (two
+    # n tiles, the second ragged) on a card smaller than the units; the
+    # plain-load brick (Cin 2) in half-tap groups
+    (8, 64, 32, 32, True, False, 132), (8, 16, 16, 32, True, False, 132),
+    (16, 72, 48, 32, True, False, 6), (8, 2, 32, 32, False, False, 132),
+    # BN 64 and 128, several n tiles, a card smaller than the units
+    (8, 64, 128, 64, True, False, 10), (8, 136, 256, 128, False, False, 132),
+    # ranges of chunks: 16 units of 3 chunks on 5 CTAs (3 rounds, the last
+    # unit cut across three CTAs); 16 units of 5 chunks on 40 CTAs (no whole
+    # round, each unit cut across three); whole-tap BN 64; two narrow n
+    # tiles, the second ragged
+    (8, 136, 128, 128, False, True, 5), (8, 264, 128, 128, False, True, 40),
+    (8, 72, 64, 64, True, True, 7), (8, 72, 48, 32, True, True, 13)])
+def test_brick_plans_match_plain_and_pallas(_interpret, s, cin, cout, bn, tap, split, sms):
+    """Each unit width of the brick route under an explicit plan
+    (:func:`make_brick_plan`): the emulation, CTA by CTA (with ranges of
+    chunks, the cut units summed from their pieces in the order of the
+    CTAs), equals ``fused_conv_plain`` at fp32, and the JAX
+    fused_boundary_block in interpret mode at the tolerance of the
+    fused-block cases above. Whole- and half-tap commit groups compute the
+    same sums, unit by unit: they differ in when a group ends."""
+    factor, groups = 2, (1 if cin < 8 else 8)
+    nb = factor ** 3
+    x = _bf16_values(_rand((nb, s, s, s, cin), seed=51))
+    ns = 1.0 + _rand((cin,), seed=52, scale=0.1)
+    nbias = _rand((cin,), seed=53, scale=0.1)
+    ss = (_rand((nb, 1, 1, 1, cin), seed=54, scale=0.2),
+          _rand((nb, 1, 1, 1, cin), seed=55, scale=0.2))
+    w = _bf16_values(_rand((3, 3, 3, cin, cout), seed=56, scale=(27 * cin) ** -0.5))
+    a, b = tfb.groupnorm_affine(_t(x), _t(ns), _t(nbias), groups,
+                                scale_shift=tuple(map(_t, ss)))
+    ta, tb = tfb.neighbor_tables(a, b, factor)
+    xh = kernels.halo_exchange_plain(_t(x), factor)
+    plan = tfb.make_brick_plan(nb, s, cin, cout, sms, bn, tap, split)
+    assert plan.ctas <= sms and plan.split == split
+    if split:  # some unit is cut
+        assert any(k1 - k0 < plan.chunks for c in range(plan.ctas) for _, k0, k1 in plan.pieces(c))
+    got = _emulate_igemm(xh, ta, tb, _torch_w(w), plan=plan)
+    np.testing.assert_allclose(got.numpy(), tfb.fused_conv_plain(xh, ta, tb, _torch_w(w)).numpy(),
+                               rtol=1e-5, atol=1e-5)
+    want = np.asarray(jfb.fused_boundary_block(
+        jnp.asarray(x), jnp.asarray(ns), jnp.asarray(nbias), tuple(map(jnp.asarray, ss)),
+        jnp.asarray(w), groups, factor, jnp.float32))
+    np.testing.assert_allclose(got.numpy(), want, rtol=3e-3, atol=3e-4)
+
+
+@pytest.mark.parametrize("sms", [132, 14])
+@pytest.mark.parametrize("nb,s,cin,cout", tfb.BRICK_SHAPES)
+def test_brick_plan_covers_every_product_once(nb, s, cin, cout, sms):
+    """Every (output brick, column, chunk of 27 K slices) of the shape is in
+    exactly one CTA's pieces; whole units go to the CTAs round robin; with
+    ranges of chunks, the units left over after the rounds that fill the
+    grid are cut into contiguous ranges of their chunks, in the order of
+    the CTAs, each cutting at most its first and last units; the CTAs'
+    chunk counts differ by at most one; the grid fits the card; and the
+    plan computes no more columns than Cout rounded up to its unit width,
+    the narrow unit's 32 at Cout 32 and below."""
+    plan = tfb.brick_plan(nb, s, cin, cout, sms)
+    per_sub = (s // 4) * (s // 8) * (s // 8)
+    assert plan.units == nb * per_sub * plan.n_tiles and plan.chunks == -(-cin // 64)
+    assert plan.n_tiles * plan.bn >= cout > (plan.n_tiles - 1) * plan.bn
+    assert plan.bn == (tfb.NARROW if cout <= tfb.NARROW else plan.bn)
+    assert plan.ctas <= sms
+    seen = np.zeros((plan.units, plan.chunks), np.int64)
+    counts, order = [], []
+    for c in range(plan.ctas):
+        pieces = plan.pieces(c)
+        whole = [u for u, k0, k1 in pieces if u < plan.tail0 or not plan.split]
+        assert whole == list(range(c, plan.tail0 if plan.split else plan.units, plan.ctas))
+        tail = pieces[len(whole):]
+        for i, (u, k0, k1) in enumerate(pieces):
+            seen[u, k0:k1] += 1
+            assert 0 <= k0 < k1 <= plan.chunks
+        for i, (u, k0, k1) in enumerate(tail):
+            order += [u * plan.chunks + k for k in range(k0, k1)]
+            if 0 < i < len(tail) - 1:
+                assert (k0, k1) == (0, plan.chunks)
+        counts.append(sum(k1 - k0 for _, k0, k1 in pieces))
+    assert (seen == 1).all()
+    assert max(counts) - min(counts) <= (1 if plan.split else plan.chunks)
+    assert order == list(range(plan.tail0 * plan.chunks, plan.units * plan.chunks))
 
 
 # ------------------------------------------- the small-edge route, tile by tile
