@@ -40,7 +40,8 @@ Phases, each of which raises (and exits non-zero) on failure:
                 the small-edge route at (216, 4^3, 256->128). The fused
                 Block's brick-route rows (FUSED_SHAPES: every shape serve,
                 serve-attn, serve-efficient and preset-srunet256 launch,
-                each printed with its plan from ``brick_plan``) at their
+                each printed with its plan from ``brick_plan``: unit
+                width, channels a chunk (kc), commit groups) at their
                 own batch: 216 sub-volumes at factor 3, SRUnet256's 27 at
                 factor 1
   forward       the full-width ``config/eval_config.yaml`` UNet3D (seeded
@@ -1602,7 +1603,8 @@ def main() -> int:
         plan = brick._asdict()
         left = (f", the last {brick.units - brick.tail0} in ranges of chunks" if brick.split
                 else "")
-        print(f"    plan: BN {brick.bn}, {'whole' if brick.tap else 'half'}-tap groups, "
+        print(f"    plan: BN {brick.bn}, kc {brick.kc} (channels a chunk), "
+              f"{'whole' if brick.tap else 'half'}-tap groups, "
               f"{brick.units} units of {brick.chunks} chunks on {brick.ctas} CTAs: "
               f"{brick.rounds} rounds of whole units{left}; factor {factor}", flush=True)
         flops = 2.0 * n * s ** 3 * 27 * cin * cout

@@ -278,7 +278,7 @@ extern "C" int conv3d_valid_launch(void* encode, const void* xh, const void* w, 
                                    int nb, int s, int cin, int cout, int bn, int ctas,
                                    void* stream) {
   return igemm::launch<false>(encode, xh, nullptr, nullptr, w, out, nullptr, nb, s, cin, cout, bn,
-                              0, 0, ctas, static_cast<cudaStream_t>(stream));
+                              igemm::KC, 0, 0, ctas, static_cast<cudaStream_t>(stream));
 }
 
 // The small-Cin route (1 <= Cin <= 8): weight (K_pad, Cout), row

@@ -86,7 +86,8 @@ def gemm_geometry(s: int, cin: int, cout: int) -> GemmGeometry:
     not stored), whole units on one CTA per SM (at most one per unit). The
     fused Block's brick route shares the kernel and picks its unit per launch
     (:func:`..fused_block.brick_plan`: also BN 32, whole-tap commit groups,
-    and ranges of chunks summed from fp32 partials). ``s`` must be a
+    32-channel chunks where Cin <= 32, and ranges of chunks summed from fp32
+    partials); this route always takes 64-channel chunks. ``s`` must be a
     multiple of 8."""
     brick, chunk = (4, 8, 8), 64
     bn = 128 if cout % 128 == 0 else 64

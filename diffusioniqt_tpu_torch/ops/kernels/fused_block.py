@@ -31,11 +31,17 @@ from the brick by ``ldmatrix`` (a tap is a row shift) and read B from the
 ring. The normalised activation never reaches device memory, and the Mish
 runs beside the products rather than between them. Each launch's unit
 comes from :func:`brick_plan`: BN 32 (the narrow unit of the column
-shards, ``wgmma`` n32 on 64-byte-swizzled slices), 64 or 128, and for
-units up to 64 wide a whole tap per commit group (the base unit commits half
-a tap, which leaves the tensor cores waiting on the next gathers when the
-products are short); :data:`BASE_SHAPES` and every BN 128 unit keep the base
-unit. Where whole units would leave the last round on the card part full
+shards, ``wgmma`` n32 on 64-byte-swizzled slices), 64 or 128; 64 input
+channels a chunk, or 32 where Cin <= 32 (SRUnet256's first level, where a
+64-channel chunk spent half of every product, brick byte and Mish on zero
+channels; its unit's output goes out through a staging tile by TMA
+stores); and for units up to 64 wide, or with 32-channel chunks, a whole
+tap per commit group (the base unit commits half a tap, which leaves the
+tensor cores waiting on the next gathers when the products are short);
+:data:`BASE_SHAPES` keep the base unit, and BN 128 in whole taps reads A
+from the brick through a matrix descriptor (both ``wgmma`` operands in
+shared memory), so that its registers go to the transform.
+Where whole units would leave the last round on the card part full
 (the 8^3 levels: 432 units for 132 SMs), the plan spreads the last round's
 units over all CTAs in contiguous ranges of 64-channel chunks instead, and
 a second kernel sums the units that a range boundary cuts from their fp32
@@ -86,8 +92,8 @@ from diffusioniqt_tpu_torch.ops.kernels.conv3d import (
 )
 from diffusioniqt_tpu_torch.ops.volume import halo_exchange
 
-# encoder, xh, a_tab, b_tab, w, out, ws, B, s, Cin, Cout, BN, tap, split, CTAs, stream
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+# encoder, xh, a_tab, b_tab, w, out, ws, B, s, Cin, Cout, BN, kc, tap, split, CTAs, stream
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 # encoder, xh, a_tab, b_tab, w, out, ws, B, s, Cin, Cout, BN / 2, CTAs, stream
 _SMALL_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 # sub-volume edges of the small-edge route
@@ -189,9 +195,11 @@ def small_edge_plan(nb: int, s: int, cin: int, cout: int, sms: int) -> SmallEdge
     return SmallEdgePlan(subs, bn, m_blocks, n_blocks, 27 * chunks, ctas, cut)
 
 
-# the brick route's output brick (x, y, z) and its narrow unit's width
+# the brick route's output brick (x, y, z), its narrow unit's width, and
+# its narrow chunk: input channels per chunk where Cin <= 32 (64 elsewhere)
 BRICK = (4, 8, 8)
 NARROW = 32
+NARROW_CHUNK = 32
 # (s, Cin, Cout) of the flagship's Blocks that the brick route's base unit
 # (BN 64, half-tap commit groups) was designed for, levels 0 and 1 at Cout
 # 64: they keep it at every batch, the baseline of the headline's later
@@ -217,19 +225,29 @@ class BrickPlan(NamedTuple):
     work is one 4 x 8 x 8 output brick of one sub-volume by ``bn`` output
     channels (n tile); ``units`` = B x bricks per sub-volume x ``n_tiles``,
     in the kernel's order: n tile by n tile, then sub-volume by sub-volume,
-    bricks in x, y, z order. A unit runs ``chunks`` = ceil(Cin / 64) chunks
-    of 27 weight slices. ``tap``: the consumers commit a whole tap (8
-    wgmmas) per group, not half of one as in the base unit, so that each
-    group's products cover the next group's A gathers. ``ctas``: the
+    bricks in x, y, z order. A unit runs ``chunks`` = ceil(Cin / ``kc``)
+    chunks of 27 weight slices: ``kc`` 64 input channels a chunk (128-byte
+    brick rows, 128-byte swizzle) or 32 (64-byte rows, 64-byte swizzle: at
+    Cin 32 no product, brick byte or Mish is spent on zero channels).
+    ``tap``: the consumers commit a whole tap (8 wgmmas at ``kc`` 64, 4 at
+    32) per group, not half of one as in the base unit, so that each group's
+    products cover the next group's A gathers; ``kc`` 32 always does. At
+    ``bn`` 128 whole taps read A from the brick through a matrix descriptor
+    (wgmma with both operands in shared memory), not by gathers into
+    registers, and run a unit's chunks back to back. Where the brick comes
+    by TMA (Cin % 8 == 0) the build runs half taps only in the base unit
+    (``bn`` 64, ``kc`` 64, whole units); ``split`` needs whole taps; the
+    launcher refuses every other plan. ``ctas``: the
     persistent grid. CTA ``c`` takes units ``c, c + ctas, ...`` whole; with
-    ``split`` only the :attr:`rounds` that fill the grid, and the units
-    left over (from :attr:`tail0`) are cut into their (unit, chunk) items,
-    spread over all CTAs in contiguous ranges that differ by at most one
-    item (:meth:`range_lo`); a unit that a range boundary cuts goes out as
-    its pieces' fp32 sums, which a second kernel adds in the order of the
+    ``split`` only the :attr:`rounds` that fill the grid, and the units left
+    over (from :attr:`tail0`) are cut into their (unit, chunk) items, spread
+    over all CTAs in contiguous ranges that differ by at most one item
+    (:meth:`range_lo`); a unit that a range boundary cuts goes out as its
+    pieces' fp32 sums, which a second kernel adds in the order of the
     CTAs."""
 
     bn: int
+    kc: int
     tap: bool
     split: bool
     n_tiles: int
@@ -267,13 +285,14 @@ class BrickPlan(NamedTuple):
 
 
 def make_brick_plan(nb: int, s: int, cin: int, cout: int, sms: int, bn: int,
-                    tap: bool = False, split: bool = False) -> BrickPlan:
-    """The brick plan of unit width ``bn`` at one shape on a card of ``sms``
-    SMs: one CTA per SM, at most one per unit (with ``split``, per item)."""
+                    tap: bool = False, split: bool = False, kc: int = CHUNK) -> BrickPlan:
+    """The brick plan of unit width ``bn`` and chunk width ``kc`` at one
+    shape on a card of ``sms`` SMs: one CTA per SM, at most one per unit
+    (with ``split``, per item). ``kc`` 32 commits whole taps."""
     units = nb * (s // BRICK[0]) * (s // BRICK[1]) * (s // BRICK[2]) * -(-cout // bn)
-    chunks = -(-cin // CHUNK)
+    chunks = -(-cin // kc)
     ctas = min(units * chunks if split else units, sms)
-    return BrickPlan(bn, tap, split, -(-cout // bn), units, chunks, ctas)
+    return BrickPlan(bn, kc, tap or kc == NARROW_CHUNK, split, -(-cout // bn), units, chunks, ctas)
 
 
 @functools.lru_cache(maxsize=64)
@@ -284,29 +303,35 @@ def brick_plan(nb: int, s: int, cin: int, cout: int, sms: int) -> BrickPlan:
     * Cout <= 32 (the column shards of 64- and 128-channel Blocks under
       tensor parallelism, SRUnet256's 32-channel level): the narrow unit,
       BN 32, never more columns than Cout rounded up to 32;
-    * Cout a multiple of 128: BN 128, the base unit (the tap groups' second
-      fragment set does not fit beside 128 accumulators);
+    * Cout a multiple of 128: BN 128;
     * otherwise BN 64.
-    Units up to 64 wide commit a whole tap per group where the brick comes
-    by TMA (Cin % 8 == 0), except at :data:`BASE_SHAPES`. The units go whole
-    to one CTA per SM unless they take more than one round and, where the
-    brick comes by TMA, cutting the last round's units into ranges of
-    chunks (``split``) shortens the busiest CTA's chunks by at least an
-    eighth: at 8^3 x 128 channels, 432 units of 2 chunks on 132 SMs, 3
-    rounds and the 36 units left over as 72 chunks on 72 CTAs, 7 chunks and
-    not 8. (With one round there is no last round to fill, and the partials
-    cost more than the idle SMs.) Raises for an edge the route does not
-    take."""
+    Cin <= 32 with Cin % 8 == 0 (SRUnet256's first level) takes 32-channel
+    chunks (:data:`NARROW_CHUNK`), every other shape 64-channel ones. Where
+    the brick comes by TMA (Cin % 8 == 0) the units commit a whole tap per
+    group, except at :data:`BASE_SHAPES`; at BN 128 that is the unit that
+    reads A from the brick through a matrix descriptor (no A fragments in
+    registers, which go to the transform instead). The plain-load brick
+    (Cin % 8 != 0) commits half a tap.
+    The units go whole to one CTA per SM unless they take more than one
+    round and, where they commit whole taps, cutting the last round's units
+    into ranges of chunks (``split``) shortens the busiest CTA's chunks by
+    at least an eighth: at 8^3 x 128 channels, 432 units of 2 chunks on 132
+    SMs, 3 rounds and the 36 units left over as 72 chunks on 72 CTAs, 7
+    chunks and not 8. (With one round there is no last round to fill, and
+    the partials cost more than the idle SMs; with one chunk a unit, as
+    with 32-channel chunks, a cut never shortens the busiest CTA.) Raises
+    for an edge the route does not take."""
     if s <= 0 or s % 8:
         raise ValueError(f"fused_block brick route: sub-volume edge {s} is not a multiple of 8")
     bn = NARROW if cout <= NARROW else (128 if cout % 128 == 0 else 64)
-    tap = bn <= 64 and cin % 8 == 0 and (s, cin, cout) not in BASE_SHAPES
-    whole = make_brick_plan(nb, s, cin, cout, sms, bn, tap)
-    split = make_brick_plan(nb, s, cin, cout, sms, bn, tap, split=True)
+    kc = NARROW_CHUNK if cin <= NARROW_CHUNK and cin % 8 == 0 else CHUNK
+    tap = cin % 8 == 0 and (s, cin, cout) not in BASE_SHAPES
+    whole = make_brick_plan(nb, s, cin, cout, sms, bn, tap, kc=kc)
+    split = make_brick_plan(nb, s, cin, cout, sms, bn, tap, split=True, kc=kc)
     busiest_whole = whole.rounds * whole.chunks
     busiest_split = (split.rounds * split.chunks
                      + -(-(split.units - split.tail0) * split.chunks // split.ctas))
-    take = whole.units > sms and cin % 8 == 0 and 8 * busiest_split <= 7 * busiest_whole
+    take = whole.units > sms and tap and 8 * busiest_split <= 7 * busiest_whole
     return split if take else whole
 
 
@@ -444,7 +469,7 @@ def launch_brick(xh, a_tab, b_tab, packed, plan: BrickPlan):
     fn = runtime.c_function(name, "fused_block_launch", _ARGTYPES)
     err = fn(runtime.driver_function("cuTensorMapEncodeTiled"), xh.data_ptr(),
              a_tab.data_ptr(), b_tab.data_ptr(), packed.data_ptr(), out.data_ptr(),
-             ws.data_ptr() if ws is not None else None, b, s, cin, cout, plan.bn,
+             ws.data_ptr() if ws is not None else None, b, s, cin, cout, plan.bn, plan.kc,
              int(plan.tap), int(plan.split), plan.ctas, runtime.stream_handle(xh.device))
     runtime.check_launch(name, err)
     fused_conv.launches += 1

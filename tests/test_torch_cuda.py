@@ -155,25 +155,40 @@ def test_small_edge_route_matches_plain(dev, n, s, factor, cin, cout):
     assert torch.equal(kernels.fused_conv(xh, ta, tb, w), got)
 
 
-@pytest.mark.parametrize("s,cin,cout,bn,tap,split", [
-    (8, 64, 32, 32, True, False), (16, 64, 16, 32, True, False), (8, 64, 32, 32, False, False),
-    (8, 2, 32, 32, False, False), (16, 128, 64, 64, True, False), (32, 64, 64, 64, True, False),
-    (8, 136, 96, 64, True, False), (16, 64, 64, 32, True, False), (8, 256, 256, 128, False, False),
-    (8, 128, 128, 128, False, True), (16, 192, 128, 128, False, True),
-    (8, 136, 96, 64, True, True), (8, 72, 32, 32, True, True), (8, 64, 32, 32, False, True)])
-def test_brick_plans_match_plain(dev, s, cin, cout, bn, tap, split):
-    """Each unit width and commit group of the brick route under an
-    explicit plan, launched through ``launch_brick`` (one launch counted):
-    the narrow unit in both groupings and with the plain-load brick, BN 64
-    in whole-tap groups at a 64-channel Block that keeps the base unit, a
-    ragged second n tile (Cout 96), Cout 64 in two narrow n tiles, BN 128;
-    and ranges of chunks (54 units of 2 chunks on one CTA per item, so every
-    unit cut; 432 units of 3 chunks; a ragged n tile in whole-tap groups;
-    the narrow unit in both groupings, with one chunk, where nothing is
-    cut). Two launches give the same bits."""
-    xh, ta, tb, w = _fused_case(dev, s, cin, cout, seed=7 * s + cin + cout + bn)
+@pytest.mark.parametrize("s,cin,cout,bn,tap,split,kc", [
+    (8, 64, 32, 32, True, False, 64), (16, 64, 16, 32, True, False, 64),
+    (8, 2, 32, 32, False, False, 64), (8, 4, 128, 128, False, False, 64),
+    (16, 128, 64, 64, True, False, 64), (32, 64, 64, 64, True, False, 64),
+    (32, 64, 64, 64, False, False, 64),
+    (8, 136, 96, 64, True, False, 64), (16, 64, 64, 32, True, False, 64),
+    (8, 128, 128, 128, True, True, 64), (8, 136, 96, 64, True, True, 64),
+    (8, 72, 32, 32, True, True, 64),
+    # 32-channel chunks: Cin 32 at each width, Cin 16 and 40 (zeros past
+    # Cin in a chunk), several chunks at BN 128, and two n tiles (the second
+    # ragged)
+    (32, 32, 128, 128, True, False, 32), (32, 32, 32, 32, True, False, 32),
+    (16, 32, 64, 64, True, False, 32), (8, 16, 32, 32, True, False, 32),
+    (8, 40, 64, 64, True, False, 32), (16, 128, 128, 128, True, False, 32),
+    (8, 256, 256, 128, True, False, 32), (8, 64, 48, 32, True, False, 32),
+    # BN 128 in whole-tap groups, A read from the brick by descriptor: two
+    # n tiles, a ragged last chunk and Cout short of the unit, ranges
+    (8, 256, 256, 128, True, False, 64), (8, 136, 96, 128, True, False, 64),
+    (16, 192, 128, 128, True, True, 64), (32, 128, 128, 128, True, False, 64)])
+def test_brick_plans_match_plain(dev, s, cin, cout, bn, tap, split, kc):
+    """Each unit width, commit group and chunk width of the brick route
+    under an explicit plan, launched through ``launch_brick`` (one launch
+    counted): the narrow unit in whole-tap groups and, with the plain-load
+    brick, half-tap ones (as BN 128 there), BN 64 in whole-tap groups and
+    as the base unit (half taps) at a 64-channel Block, a ragged second n
+    tile (Cout 96), Cout 64 in two narrow n tiles; ranges of chunks (54
+    units of 2 chunks on one CTA per item, so every unit cut; 432 units of
+    3 chunks; a ragged n tile; the narrow unit with one chunk, where
+    nothing is cut); 32-channel chunks at every width; and BN 128 in
+    whole-tap groups (A from shared memory). Two launches give the same
+    bits."""
+    xh, ta, tb, w = _fused_case(dev, s, cin, cout, seed=7 * s + cin + cout + bn + kc)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    plan = tfb.make_brick_plan(xh.shape[0], s, cin, cout, sms, bn, tap, split)
+    plan = tfb.make_brick_plan(xh.shape[0], s, cin, cout, sms, bn, tap, split, kc=kc)
     kernels.reset_launch_counts()
     got = tfb.launch_brick(xh, ta, tb, pack_weight(w), plan)
     assert kernels.launch_counts()["fused_block"] == 1
@@ -183,13 +198,15 @@ def test_brick_plans_match_plain(dev, s, cin, cout, bn, tap, split):
 
 def test_brick_plans_the_build_refuses(dev):
     """Plans the port's build has no kernel for raise rather than run:
-    whole-tap groups or ranges of chunks beside the plain-load brick,
-    whole-tap groups at BN 128, and a grid larger than the units (whole
-    units) or the items (ranges of chunks)."""
+    whole-tap groups, ranges of chunks or 32-channel chunks beside the
+    plain-load brick; where the brick comes by TMA, half-tap groups outside
+    the base unit (BN 32 or 128, or ranges of chunks) and 32-channel chunks
+    in half-tap groups or in ranges; and a grid larger than the units
+    (whole units) or the items (ranges of chunks)."""
     xh, ta, tb, w = _fused_case(dev, 8, 2, 32, seed=3)
     plan = tfb.make_brick_plan(27, 8, 2, 32, 132, 32)
     for bad in (plan._replace(tap=True), plan._replace(split=True),
-                plan._replace(ctas=plan.units + 1)):
+                plan._replace(kc=32, tap=True), plan._replace(ctas=plan.units + 1)):
         with pytest.raises(RuntimeError, match="launch failed"):
             tfb.launch_brick(xh, ta, tb, pack_weight(w), bad)
     xh, ta, tb, w = _fused_case(dev, 8, 64, 32, seed=5)
@@ -200,7 +217,20 @@ def test_brick_plans_the_build_refuses(dev):
     xh, ta, tb, w = _fused_case(dev, 8, 128, 128, seed=4)
     with pytest.raises(RuntimeError, match="launch failed"):
         tfb.launch_brick(xh, ta, tb, pack_weight(w),
-                         tfb.make_brick_plan(27, 8, 128, 128, 132, 128, tap=True))
+                         tfb.make_brick_plan(27, 8, 128, 128, 132, 128, kc=32)._replace(tap=False))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tfb.launch_brick(xh, ta, tb, pack_weight(w),
+                         tfb.make_brick_plan(27, 8, 128, 128, 132, 128, split=True, kc=32))
+    # half taps where the brick comes by TMA, outside the base unit
+    for s, cin, cout, bn, split in ((8, 256, 256, 128, False), (8, 128, 128, 128, True),
+                                    (16, 192, 128, 128, True), (8, 64, 32, 32, False),
+                                    (8, 64, 32, 32, True), (8, 128, 64, 64, True)):
+        xh, ta, tb, w = _fused_case(dev, s, cin, cout, seed=s + cin + cout)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        plan = tfb.make_brick_plan(xh.shape[0], s, cin, cout, sms, bn, split=split)
+        assert not plan.tap
+        with pytest.raises(RuntimeError, match="launch failed"):
+            tfb.launch_brick(xh, ta, tb, pack_weight(w), plan)
 
 
 def test_fused_kernel_refuses_edges_without_a_route(dev):

@@ -263,42 +263,49 @@ def _region_per_axis(p: torch.Tensor, e: int) -> torch.Tensor:
 
 
 # brick_plan at every shape of fused_block.BRICK_SHAPES (the presets' Blocks
-# and the column shards) and a few more on a card of 132 SMs: (bn, tap,
+# and the column shards) and a few more on a card of 132 SMs: (bn, kc, tap,
 # split, n_tiles, units, chunks, ctas)
 BRICK_PLANS = {
     # the flagship's levels 0 and 1 at Cout 64: the base unit, at any batch
-    (216, 32, 64, 64): (64, False, False, 1, 27648, 1, 132),
-    (216, 32, 128, 64): (64, False, False, 1, 27648, 2, 132),
-    (216, 16, 64, 64): (64, False, False, 1, 3456, 1, 132),
-    (27, 32, 64, 64): (64, False, False, 1, 3456, 1, 132),
-    # Cout a multiple of 128 (the deeper levels): BN 128, the base unit;
-    # ranges of chunks where whole units leave the last round part full
-    # (432 units of 2 or 4 chunks: 7 or 14 chunks a CTA, not 8 or 16), whole
-    # units where ranges save less than an eighth (3456 units of 2: 53
-    # chunks, not 54) or where the units take one round (108 of 8 chunks)
-    (216, 16, 192, 128): (128, False, False, 1, 3456, 3, 132),
-    (216, 16, 128, 128): (128, False, False, 1, 3456, 2, 132),
-    (216, 8, 128, 128): (128, False, True, 1, 432, 2, 132),
-    (216, 8, 256, 256): (128, False, False, 2, 864, 4, 132),
-    (216, 8, 256, 128): (128, False, True, 1, 432, 4, 132),
-    (27, 32, 32, 128): (128, False, False, 1, 3456, 1, 132),
-    (27, 32, 128, 128): (128, False, False, 1, 3456, 2, 132),
-    (27, 16, 128, 128): (128, False, True, 1, 432, 2, 132),
-    (27, 16, 256, 128): (128, False, True, 1, 432, 4, 132),
-    (27, 8, 256, 256): (128, False, False, 2, 108, 4, 108),
-    (27, 8, 512, 256): (128, False, False, 2, 108, 8, 108),
+    (216, 32, 64, 64): (64, 64, False, False, 1, 27648, 1, 132),
+    (216, 32, 128, 64): (64, 64, False, False, 1, 27648, 2, 132),
+    (216, 16, 64, 64): (64, 64, False, False, 1, 3456, 1, 132),
+    (27, 32, 64, 64): (64, 64, False, False, 1, 3456, 1, 132),
+    # Cout a multiple of 128 (the deeper levels): BN 128, 64-channel chunks
+    # in whole-tap groups (A from shared memory); ranges of chunks where
+    # whole units leave the last round part full (432 units of 2 or 4
+    # chunks: 7 or 14 chunks a CTA, not 8 or 16), whole units where ranges
+    # save less than an eighth (3456 units of 2: 53 chunks, not 54) or where
+    # the units take one round (108 of 8 chunks)
+    (216, 16, 192, 128): (128, 64, True, False, 1, 3456, 3, 132),
+    (216, 16, 128, 128): (128, 64, True, False, 1, 3456, 2, 132),
+    (216, 8, 128, 128): (128, 64, True, True, 1, 432, 2, 132),
+    (216, 8, 256, 256): (128, 64, True, False, 2, 864, 4, 132),
+    (216, 8, 256, 128): (128, 64, True, True, 1, 432, 4, 132),
+    (27, 32, 128, 128): (128, 64, True, False, 1, 3456, 2, 132),
+    (27, 16, 128, 128): (128, 64, True, True, 1, 432, 2, 132),
+    (27, 16, 256, 128): (128, 64, True, True, 1, 432, 4, 132),
+    (27, 8, 256, 256): (128, 64, True, False, 2, 108, 4, 108),
+    (27, 8, 512, 256): (128, 64, True, False, 2, 108, 8, 108),
+    # the plain-load brick (Cin % 8 != 0) commits half a tap at any width
+    (27, 8, 12, 128): (128, 64, False, False, 1, 54, 1, 54),
+    # Cin 32 (SRUnet256's first level): 32-channel chunks, whole taps, at
+    # BN 128 and at the narrow unit
+    (27, 32, 32, 128): (128, 32, True, False, 1, 3456, 1, 132),
+    (27, 32, 32, 32): (32, 32, True, False, 1, 3456, 1, 132),
     # the other 64-wide Blocks: BN 64 in whole-tap groups
-    (216, 16, 128, 64): (64, True, False, 1, 3456, 2, 132),
-    (216, 8, 128, 64): (64, True, True, 1, 432, 2, 132),
-    (216, 16, 192, 64): (64, True, False, 1, 3456, 3, 132),
+    (216, 16, 128, 64): (64, 64, True, False, 1, 3456, 2, 132),
+    (216, 8, 128, 64): (64, 64, True, True, 1, 432, 2, 132),
+    (216, 16, 192, 64): (64, 64, True, False, 1, 3456, 3, 132),
     # Cout 32 and 16: the narrow unit, whole-tap groups where the brick
     # comes by TMA (Cin % 8 == 0), else half-tap ones
-    (27, 32, 32, 32): (32, True, False, 1, 3456, 1, 132),
-    (216, 32, 64, 32): (32, True, False, 1, 27648, 1, 132),
-    (216, 32, 64, 16): (32, True, False, 1, 27648, 1, 132),
-    (216, 32, 128, 32): (32, True, False, 1, 27648, 2, 132),
-    (216, 16, 64, 32): (32, True, False, 1, 3456, 1, 132),
-    (27, 8, 2, 32): (32, False, False, 1, 54, 1, 54),
+    (216, 32, 64, 32): (32, 64, True, False, 1, 27648, 1, 132),
+    (216, 32, 64, 16): (32, 64, True, False, 1, 27648, 1, 132),
+    (216, 32, 128, 32): (32, 64, True, False, 1, 27648, 2, 132),
+    (216, 16, 64, 32): (32, 64, True, False, 1, 3456, 1, 132),
+    (27, 8, 2, 32): (32, 64, False, False, 1, 54, 1, 54),
+    (27, 8, 16, 32): (32, 32, True, False, 1, 54, 1, 54),
+    (27, 8, 40, 64): (64, 64, True, False, 1, 54, 1, 54),
 }
 
 
@@ -308,20 +315,31 @@ def _conv_plan(nb, s, cin, cout, sms=132):
     return tfb.make_brick_plan(nb, s, cin, cout, sms, tconv.gemm_geometry(s, cin, cout).bn)
 
 
+def _swizzle_phase(r: torch.Tensor, chunk: int) -> torch.Tensor:
+    """The brick's swizzle at ``chunk`` channels a row: 16-byte group pc of
+    row r holds the chunk's channels 8 (pc ^ phase(r)); 128-byte rows (64
+    channels) take the 128-byte swizzle (offset bits 7-9 into 4-6), 64-byte
+    rows (32 channels) the 64-byte one (bits 7-8 into 4-5)."""
+    return r % 8 if chunk == 64 else (r // 2) % 4
+
+
 def _emulate_igemm(xh, a_tab, b_tab, w, fused=True, plan=None):
     """What ``csrc/igemm.cuh`` computes under ``plan`` (default: the fused
     route's :func:`brick_plan`, or conv3d's :func:`_conv_plan`, for a card
     of 132 SMs), in fp32. Each unit (n tile, sub-volume, 4 x 8 x 8 output
     brick, in the kernel's ``Unit`` order) by chunk: the halo'd 6 x 10 x 10
-    brick's 64 channels (zeros past Cin), put through mish(A_r x + B_r)
-    with r the region of each brick voxel, stored with the 128-byte swizzle
-    (16-byte group pc of row r holds the chunk's channels 8 (pc ^ (r & 7))),
-    and 27 taps, each a row shift of the brick read back through the same
-    swizzle, times the tap's weight slice: 64 K rows by the unit's ``bn``
-    columns (zeros past Cout). Then CTA by CTA (:meth:`BrickPlan.pieces`),
-    every (unit, chunk) once: a piece sums its chunks in order; a whole unit
-    is stored, a cut one's pieces summed in the order of the CTAs (the
-    reduction's order). Only columns below Cout are stored."""
+    brick's ``plan.kc`` channels (zeros past Cin), put through mish(A_r x +
+    B_r) with r the region of each brick voxel, stored with the swizzle of
+    its row width (:func:`_swizzle_phase`), and 27 taps, each a row shift
+    of the brick read back through the same swizzle, times the tap's weight
+    slice: ``kc`` K rows by the unit's ``bn`` columns (zeros past Cout).
+    (At BN 128 in whole taps the card reads the same A tiles through a
+    matrix descriptor, not by gathers; that layout is held on the card
+    only, by ``brick_trace``'s ``desc_check`` and the card tests.)
+    Then CTA by CTA (:meth:`BrickPlan.pieces`), every (unit, chunk) once: a
+    piece sums its chunks in order; a whole unit is stored, a cut one's
+    pieces summed in the order of the CTAs (the reduction's order). Only
+    columns below Cout are stored."""
     nb, e, cin = xh.shape[0], xh.shape[1], xh.shape[4]
     s, cout = e - 2, w.shape[0]
     if plan is None:
@@ -329,7 +347,8 @@ def _emulate_igemm(xh, a_tab, b_tab, w, fused=True, plan=None):
                 else _conv_plan(nb, s, cin, cout))
     tx, ty, tz = tfb.BRICK
     hx, hy, hz = tx + 2, ty + 2, tz + 2
-    rows, chunk = hx * hy * hz, 64
+    rows, chunk = hx * hy * hz, plan.kc
+    groups_per_row = chunk // 8
     cin_pad = -(-cin // chunk) * chunk
     by, bz = s // ty, s // tz
     per_sub = (s // tx) * by * bz
@@ -352,7 +371,8 @@ def _emulate_igemm(xh, a_tab, b_tab, w, fused=True, plan=None):
     mx, my, mz = (g.reshape(-1) for g in torch.meshgrid(
         torch.arange(tx), torch.arange(ty), torch.arange(tz), indexing="ij"))
     row0 = (mx * hy + my) * hz + mz
-    r8 = torch.arange(rows) % 8
+    phase = _swizzle_phase(torch.arange(rows), chunk)
+    gidx = torch.arange(groups_per_row)
     # the CTAs' pieces: each (unit, chunk) exactly once, a unit's pieces in
     # the order of the CTAs; new[k, u]: chunk k starts a later piece of unit u
     pieces = [[] for _ in range(plan.units)]
@@ -379,13 +399,13 @@ def _emulate_igemm(xh, a_tab, b_tab, w, fused=True, plan=None):
             raw = tfb.mish_one_exp(a_tab[ub_r, region, c0:c0 + n_c] * raw
                                    + b_tab[ub_r, region, c0:c0 + n_c])
         brick[..., :n_c] = raw
-        groups = brick.reshape(-1, rows, 8, 8)
-        phys = groups[:, torch.arange(rows)[:, None], torch.arange(8)[None, :] ^ r8[:, None]]
+        groups = brick.reshape(-1, rows, groups_per_row, 8)
+        phys = groups[:, torch.arange(rows)[:, None], gidx[None, :] ^ phase[:, None]]
         stage = wpad[:, c0:c0 + chunk].reshape(27, chunk, plan.n_tiles, plan.bn)
         for tap in range(27):
             kx, ky, kz = tap // 9, (tap // 3) % 3, tap % 3
             rr = row0 + (kx * hy + ky) * hz + kz
-            a = phys[:, rr[:, None], torch.arange(8)[None, :] ^ (rr % 8)[:, None]]
+            a = phys[:, rr[:, None], gidx[None, :] ^ phase[rr][:, None]]
             acc += torch.bmm(a.reshape(a.shape[0], -1, chunk), stage[tap].permute(1, 0, 2)[nt])
     cut = new.any(dim=0)
     acc[cut] += done[cut]
@@ -397,6 +417,7 @@ def _emulate_igemm(xh, a_tab, b_tab, w, fused=True, plan=None):
 
 
 def test_gemm_geometry():
+    assert _conv_plan(27, 8, 64, 64).kc == 64
     assert tconv.gemm_geometry(32, 64, 64) == tconv.GemmGeometry(
         brick=(4, 8, 8), chunk=64, cin_pad=64, bn=64, n_tiles=1, bricks=128, tma_brick=True)
     g = tconv.gemm_geometry(8, 256, 256)
@@ -404,6 +425,7 @@ def test_gemm_geometry():
     g = tconv.gemm_geometry(16, 2, 16)
     assert (g.bn, g.n_tiles, g.cin_pad, g.tma_brick) == (64, 1, 64, False)
     assert tconv.gemm_geometry(8, 72, 32).cin_pad == 128
+    assert set(tfb.BRICK_SHAPES) <= set(BRICK_PLANS)
     for (nb, s, cin, cout), want in BRICK_PLANS.items():
         assert tuple(tfb.brick_plan(nb, s, cin, cout, 132)) == want, (nb, s, cin, cout)
 
@@ -450,13 +472,19 @@ def test_fused_kernel_tiles_match_plain_and_pallas(_interpret, s, cin, cout):
     (8, 64, 32, 32, True, False, 132), (8, 16, 16, 32, True, False, 132),
     (16, 72, 48, 32, True, False, 6), (8, 2, 32, 32, False, False, 132),
     # BN 64 and 128, several n tiles, a card smaller than the units
-    (8, 64, 128, 64, True, False, 10), (8, 136, 256, 128, False, False, 132),
+    (8, 64, 128, 64, True, False, 10), (8, 136, 256, 128, True, False, 132),
     # ranges of chunks: 16 units of 3 chunks on 5 CTAs (3 rounds, the last
     # unit cut across three CTAs); 16 units of 5 chunks on 40 CTAs (no whole
     # round, each unit cut across three); whole-tap BN 64; two narrow n
     # tiles, the second ragged
-    (8, 136, 128, 128, False, True, 5), (8, 264, 128, 128, False, True, 40),
-    (8, 72, 64, 64, True, True, 7), (8, 72, 48, 32, True, True, 13)])
+    (8, 136, 128, 128, True, True, 5), (8, 264, 128, 128, True, True, 40),
+    (8, 72, 64, 64, True, True, 7), (8, 72, 48, 32, True, True, 13),
+    # BN 128 in whole taps (the card reads A by descriptor): one and two
+    # chunks, a ragged last chunk with Cout short of the unit, two n tiles;
+    # and half taps beside the plain-load brick
+    (8, 64, 128, 128, True, False, 132), (16, 128, 128, 128, True, False, 132),
+    (8, 136, 96, 128, True, False, 132), (8, 128, 256, 128, True, False, 132),
+    (8, 4, 128, 128, False, False, 132)])
 def test_brick_plans_match_plain_and_pallas(_interpret, s, cin, cout, bn, tap, split, sms):
     """Each unit width of the brick route under an explicit plan
     (:func:`make_brick_plan`): the emulation, CTA by CTA (with ranges of
@@ -464,7 +492,16 @@ def test_brick_plans_match_plain_and_pallas(_interpret, s, cin, cout, bn, tap, s
     CTAs), equals ``fused_conv_plain`` at fp32, and the JAX
     fused_boundary_block in interpret mode at the tolerance of the
     fused-block cases above. Whole- and half-tap commit groups compute the
-    same sums, unit by unit: they differ in when a group ends."""
+    same sums, unit by unit: they differ in when a group ends. Every plan
+    here is one the build runs (half taps only beside the plain-load brick
+    and in the BN 64 base unit; ranges of chunks in whole taps)."""
+    _check_brick_plan(s, cin, cout, bn, tap, split, sms, kc=64)
+
+
+def _check_brick_plan(s, cin, cout, bn, tap, split, sms, kc):
+    """The emulation under :func:`make_brick_plan`'s plan against
+    ``fused_conv_plain`` (fp32, 1e-5) and the JAX fused_boundary_block in
+    interpret mode (3e-3 / 3e-4, the fused-block cases' tolerance)."""
     factor, groups = 2, (1 if cin < 8 else 8)
     nb = factor ** 3
     x = _bf16_values(_rand((nb, s, s, s, cin), seed=51))
@@ -477,8 +514,9 @@ def test_brick_plans_match_plain_and_pallas(_interpret, s, cin, cout, bn, tap, s
                                 scale_shift=tuple(map(_t, ss)))
     ta, tb = tfb.neighbor_tables(a, b, factor)
     xh = kernels.halo_exchange_plain(_t(x), factor)
-    plan = tfb.make_brick_plan(nb, s, cin, cout, sms, bn, tap, split)
-    assert plan.ctas <= sms and plan.split == split
+    plan = tfb.make_brick_plan(nb, s, cin, cout, sms, bn, tap, split, kc=kc)
+    assert plan.ctas <= sms and plan.split == split and plan.kc == kc
+    assert plan.chunks == -(-cin // kc) and (plan.tap or kc == 64)
     if split:  # some unit is cut
         assert any(k1 - k0 < plan.chunks for c in range(plan.ctas) for _, k0, k1 in plan.pieces(c))
     got = _emulate_igemm(xh, ta, tb, _torch_w(w), plan=plan)
@@ -488,6 +526,22 @@ def test_brick_plans_match_plain_and_pallas(_interpret, s, cin, cout, bn, tap, s
         jnp.asarray(x), jnp.asarray(ns), jnp.asarray(nbias), tuple(map(jnp.asarray, ss)),
         jnp.asarray(w), groups, factor, jnp.float32))
     np.testing.assert_allclose(got.numpy(), want, rtol=3e-3, atol=3e-4)
+
+
+@pytest.mark.parametrize("s,cin,cout,bn,sms", [
+    # Cin 32 at BN 32, 64 and 128 (one chunk, the whole 64-byte row);
+    # Cin 16 (zeros past Cin in the chunk) and 40 (a second chunk of 8
+    # channels) on a card smaller than the units; Cin 128 in four chunks at
+    # BN 128; two narrow n tiles, the second ragged
+    (8, 32, 32, 32, 132), (8, 32, 64, 64, 132), (16, 32, 128, 128, 132),
+    (8, 16, 32, 32, 132), (8, 40, 64, 64, 7), (8, 128, 128, 128, 132), (8, 64, 48, 32, 13)])
+def test_narrow_chunk_plans_match_plain_and_pallas(_interpret, s, cin, cout, bn, sms):
+    """32-channel chunks (``kc`` 32: 64-byte brick rows and weight-slice K
+    rows, the 64-byte swizzle, whole-tap groups, whole units; at BN 128 A
+    read through the descriptor) at each unit width: the emulation, CTA by
+    CTA, equals ``fused_conv_plain`` at fp32 and the JAX
+    fused_boundary_block in interpret mode."""
+    _check_brick_plan(s, cin, cout, bn, True, False, sms, kc=32)
 
 
 @pytest.mark.parametrize("sms", [132, 14])
@@ -501,9 +555,27 @@ def test_brick_plan_covers_every_product_once(nb, s, cin, cout, sms):
     chunk counts differ by at most one; the grid fits the card; and the
     plan computes no more columns than Cout rounded up to its unit width,
     the narrow unit's 32 at Cout 32 and below."""
+    _check_covers_once(tfb.brick_plan(nb, s, cin, cout, sms), nb, s, cin, cout, sms)
+    assert tfb.brick_plan(nb, s, cin, cout, sms).kc == (32 if cin <= 32 and cin % 8 == 0 else 64)
+
+
+@pytest.mark.parametrize("sms", [132, 14])
+@pytest.mark.parametrize("nb,s,cin,cout", [
+    sh for sh in tfb.BRICK_SHAPES if sh[2] <= 32] + [
+    (27, 8, 16, 32), (8, 16, 8, 48), (216, 32, 32, 64), (1, 8, 24, 256)])
+def test_narrow_chunk_plan_covers_every_product_once(nb, s, cin, cout, sms):
+    """The same coverage for 32-channel chunks (whole taps, whole units)
+    where :func:`brick_plan` takes them (Cin <= 32, Cin % 8 == 0): the
+    brick-route shapes at Cin 32 and a few more widths, batches and
+    unit widths."""
     plan = tfb.brick_plan(nb, s, cin, cout, sms)
+    assert plan.tap and plan.kc == 32 and not plan.split
+    _check_covers_once(plan, nb, s, cin, cout, sms)
+
+
+def _check_covers_once(plan, nb, s, cin, cout, sms):
     per_sub = (s // 4) * (s // 8) * (s // 8)
-    assert plan.units == nb * per_sub * plan.n_tiles and plan.chunks == -(-cin // 64)
+    assert plan.units == nb * per_sub * plan.n_tiles and plan.chunks == -(-cin // plan.kc)
     assert plan.n_tiles * plan.bn >= cout > (plan.n_tiles - 1) * plan.bn
     assert plan.bn == (tfb.NARROW if cout <= tfb.NARROW else plan.bn)
     assert plan.ctas <= sms

@@ -650,7 +650,7 @@ def test_url_checkpoint_folder_rolling(small_trainer):
     """The rolling folder at a ``memory://`` URL keeps the newest
     ``max_checkpoints_keep`` bundles and resumes from the newest."""
     tr = small_trainer
-    tr.checkpoint_path, tr.checkpoint_every = "memory://roll", 1000
+    tr.checkpoint_path, tr.checkpoint_every = "memory://torch_roll", 1000
     tr.max_checkpoints_keep = 2
     for _ in range(3):
         _train_one(tr)
@@ -662,5 +662,5 @@ def test_url_checkpoint_folder_rolling(small_trainer):
     _train_one(tr)
     tr.load_from_checkpoint_folder()
     assert tr.steps == steps_before
-    fresh = _trainer(_state(TP_UNET), checkpoint_path="memory://roll", checkpoint_every=1000)
+    fresh = _trainer(_state(TP_UNET), checkpoint_path="memory://torch_roll", checkpoint_every=1000)
     assert fresh.steps == steps_before  # a trainer on the folder resumes from its newest
