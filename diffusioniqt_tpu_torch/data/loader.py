@@ -12,7 +12,9 @@ normalisation) with device compute via a background thread and a bounded
 queue. :func:`device_transfer_map` is the trainer's worker map (the JAX
 trainer's ``_transfer_map``, trainer.py:255-272): it casts to
 ``Train.transfer_dtype`` when one is set, pins the batch and copies it to
-the card ``non_blocking``.
+the card ``non_blocking``. One batch's items, collate and worker map are
+the recorder's span ``loader.batch`` (``utils/profiling.py``), on the
+prefetch thread when there is one.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from diffusioniqt_tpu_torch.utils import profiling
 
 
 def device_transfer_map(device, transfer_dtype: Optional[str] = None):
@@ -182,9 +186,10 @@ class DataLoader:
             idx = order[start:start + self.batch_size]
             if self.drop_last and len(idx) < self.batch_size:
                 return
-            batch = self.collate_fn([self.dataset[int(i)] for i in idx])
+            with profiling.span("loader.batch"):
+                batch = self.collate_fn([self.dataset[int(i)] for i in idx])
+                if batch is not None and self.worker_map is not None:
+                    batch = self.worker_map(batch)
             if batch is None:
                 continue
-            if self.worker_map is not None:
-                batch = self.worker_map(batch)
             yield batch

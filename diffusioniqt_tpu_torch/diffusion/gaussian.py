@@ -44,6 +44,7 @@ from diffusioniqt_tpu_torch.metrics.medicalnet import (
     MedicalNetPerceptual,
     medicalnet_perceptual_from_checkpoint,
 )
+from diffusioniqt_tpu_torch.utils import profiling
 from diffusioniqt_tpu_torch.utils.misc import cast_tuple, pad_tuple_to_length
 
 NoiseFn = Callable[[Tuple[int, ...]], torch.Tensor]
@@ -239,22 +240,30 @@ class Imagen:
         null_logits = unet(x, t, noise_cond, cond_drop_prob=1.0, **kwargs)
         return null_logits + (logits - null_logits) * cond_scale
 
+    def denoise(self, unet, x, t, *, noise_scheduler, lowres_cond_img=None, cond_images=None,
+                self_cond=None, cond_scale: float = 1.0):
+        """The U-Net's output at ``(x, t)`` (guided where ``cond_scale`` is
+        not 1, which needs a wrapper trained with ``cond_drop_prob > 0``).
+        ``self_cond`` is the previous step's x0 for a self-conditioned
+        U-Net (None: the U-Net's zeros)."""
+        if cond_scale != 1.0 and not self.can_classifier_guidance:
+            raise ValueError("cond_scale != 1 needs classifier-free guidance: build the "
+                             "wrapper with cond_drop_prob > 0")
+        return self.forward_with_cond_scale(
+            unet, x, t, noise_scheduler.get_condition(t), cond_scale=cond_scale,
+            **self._unet_kwargs(lowres_cond_img, cond_images, self_cond))
+
     def p_mean_variance(self, unet, x, t, *, noise_scheduler, t_next=None,
                         lowres_cond_img=None, cond_images=None, self_cond=None,
                         cond_scale: float = 1.0, model_output=None,
                         pred_objective: str = "noise", dynamic_threshold: bool = True):
         """Posterior mean / variance and the predicted x0 (reference
-        :1976-2030). ``self_cond`` is the previous step's x0 for a
-        self-conditioned U-Net (None: the U-Net's zeros). A ``cond_scale``
-        other than 1 needs a wrapper trained with ``cond_drop_prob > 0``."""
-        if cond_scale != 1.0 and not self.can_classifier_guidance:
-            raise ValueError("cond_scale != 1 needs classifier-free guidance: build the "
-                             "wrapper with cond_drop_prob > 0")
+        :1976-2030) from ``model_output``, else from :meth:`denoise`."""
         pred = model_output
         if pred is None:
-            pred = self.forward_with_cond_scale(
-                unet, x, t, noise_scheduler.get_condition(t), cond_scale=cond_scale,
-                **self._unet_kwargs(lowres_cond_img, cond_images, self_cond))
+            pred = self.denoise(unet, x, t, noise_scheduler=noise_scheduler,
+                                lowres_cond_img=lowres_cond_img, cond_images=cond_images,
+                                self_cond=self_cond, cond_scale=cond_scale)
         if pred_objective == "noise":
             x_start = noise_scheduler.predict_start_from_noise(x, t, pred)
         elif pred_objective == "x_start":
@@ -270,16 +279,23 @@ class Imagen:
             x_start=x_start, x_t=x, t=t, t_next=t_next)
         return mean_and_variance, x_start
 
-    def p_sample(self, unet, x, t, *, noise: NoiseFn, noise_scheduler,
-                 t_next=None, **kwargs):
+    def p_sample(self, unet, x, t, *, noise: NoiseFn, noise_scheduler, t_next=None,
+                 lowres_cond_img=None, cond_images=None, self_cond=None,
+                 cond_scale: float = 1.0, **kwargs):
         """One ancestral step (reference :2032-2056). The noise is drawn on
-        every step, the last included, as the JAX loop does."""
+        every step, the last included, as the JAX loop does. Everything
+        after the denoiser is the span ``sampler.update``."""
         b = x.shape[0]
-        (model_mean, _, model_log_variance), x_start = self.p_mean_variance(
-            unet, x, t, noise_scheduler=noise_scheduler, t_next=t_next, **kwargs)
-        eps = noise(tuple(x.shape))
-        nonzero_mask = (1.0 - (t_next == 0).float()).reshape(b, *((1,) * (x.dim() - 1)))
-        pred = model_mean + nonzero_mask * torch.exp(0.5 * model_log_variance) * eps
+        pred = self.denoise(unet, x, t, noise_scheduler=noise_scheduler,
+                            lowres_cond_img=lowres_cond_img, cond_images=cond_images,
+                            self_cond=self_cond, cond_scale=cond_scale)
+        with profiling.span("sampler.update", device=True):
+            (model_mean, _, model_log_variance), x_start = self.p_mean_variance(
+                unet, x, t, noise_scheduler=noise_scheduler, t_next=t_next,
+                model_output=pred, **kwargs)
+            eps = noise(tuple(x.shape))
+            nonzero_mask = (1.0 - (t_next == 0).float()).reshape(b, *((1,) * (x.dim() - 1)))
+            pred = model_mean + nonzero_mask * torch.exp(0.5 * model_log_variance) * eps
         return pred, x_start
 
     @torch.no_grad()

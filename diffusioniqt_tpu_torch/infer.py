@@ -67,6 +67,7 @@ from diffusioniqt_tpu_torch.ops.volume import subvolumes_to_volume, volume_to_su
 from diffusioniqt_tpu_torch.parallel.mesh import create_mesh
 from diffusioniqt_tpu_torch.parallel.multihost import is_main_process, process_count, run_ranks
 from diffusioniqt_tpu_torch.parallel.sharding import data_rank, sharded_sample
+from diffusioniqt_tpu_torch.utils import profiling
 from diffusioniqt_tpu_torch.utils.misc import resolve_device
 
 Sampler = Union[Imagen, ElucidatedImagen]
@@ -147,33 +148,35 @@ def infer_volume(cfg, imagen: Sampler, lowres_raw: np.ndarray, *,
     spread over the ranks (``parallel/sharding.py::sharded_sample``: the
     last, short batch is padded by whole windows) and gathered in order;
     rank 0 stitches and returns the volume, the other ranks None."""
-    device = next(imagen.unets[-1].parameters()).device
-    main = data_rank(mesh) == 0
-    dataset = SupervisedIQTInference(cfg, lr_file=None, volume=lowres_raw)
-    starts = dataset.valid_indices()
-    patch = cfg.train.patch_size
-    volume = torch.from_numpy(dataset.normalize(lowres_raw.astype(np.float32))).to(device)
-    stitcher = DeviceVolumeStitcher(lowres_raw.shape, patch, cfg.eval.overlap,
-                                    mode=stitch_mode, fill_value=cfg.data.min_bound,
-                                    device=device) if main else None
-    f = cfg.train.batch_sample_factor
-    split = cfg.train.batch_sample and patch != cfg.train.patch_size_sub
-    for start in range(0, len(starts), patch_batch):
-        chunk = starts[start:start + patch_batch]
-        x = gather_windows(volume, chunk, patch)
-        if split:
-            x = volume_to_subvolumes(x, f)
-        kwargs = dict(batch_size=x.shape[0], noise=noise, start_image_or_video=x,
-                      start_at_unet_number=2)
-        out = sharded_sample(imagen.sample, mesh, group=f ** 3 if split else 1, **kwargs)
-        if not main:
-            continue
-        if split:
-            out = subvolumes_to_volume(out, f)
-        stitcher.add_batch(out[..., 0], chunk)
-        if verbose:
-            print(f"patches {start + len(chunk)}/{len(starts)}")
-    return stitcher.result() if main else None
+    with profiling.span("infer.volume"):
+        device = next(imagen.unets[-1].parameters()).device
+        main = data_rank(mesh) == 0
+        with profiling.span("infer.prepare"):
+            dataset = SupervisedIQTInference(cfg, lr_file=None, volume=lowres_raw)
+            starts = dataset.valid_indices()
+            patch = cfg.train.patch_size
+            volume = torch.from_numpy(dataset.normalize(lowres_raw.astype(np.float32))).to(device)
+            stitcher = DeviceVolumeStitcher(lowres_raw.shape, patch, cfg.eval.overlap,
+                                            mode=stitch_mode, fill_value=cfg.data.min_bound,
+                                            device=device) if main else None
+        f = cfg.train.batch_sample_factor
+        split = cfg.train.batch_sample and patch != cfg.train.patch_size_sub
+        for start in range(0, len(starts), patch_batch):
+            chunk = starts[start:start + patch_batch]
+            x = gather_windows(volume, chunk, patch)
+            if split:
+                x = volume_to_subvolumes(x, f)
+            kwargs = dict(batch_size=x.shape[0], noise=noise, start_image_or_video=x,
+                          start_at_unet_number=2)
+            out = sharded_sample(imagen.sample, mesh, group=f ** 3 if split else 1, **kwargs)
+            if not main:
+                continue
+            if split:
+                out = subvolumes_to_volume(out, f)
+            stitcher.add_batch(out[..., 0], chunk)
+            if verbose:
+                print(f"patches {start + len(chunk)}/{len(starts)}")
+        return stitcher.result() if main else None
 
 
 def fake_subjects(cfg, edge: int, count: int, seed: int = 0):

@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels of the main path and their plain versions.
 
 Each kernel module holds the wrapper (CUDA kernel for a CUDA tensor, plain
-PyTorch version for a CPU tensor, with a ``launches`` counter), the plain
+PyTorch version for a CPU tensor; each launch counted by the recorder,
+``utils/profiling.py``, as ``kernels.launches.<kernel>``, and timed on the
+host while it records), the plain
 version, and a note naming the TPU kernel it replaces:
 
 * ``halo``        <- ``diffusioniqt_tpu/ops/pallas/halo.py::halo_exchange_pallas``
@@ -33,6 +35,7 @@ from diffusioniqt_tpu_torch.ops.kernels.conv3d import conv3d_valid, conv3d_valid
 from diffusioniqt_tpu_torch.ops.kernels.flash_attention import flash_attention
 from diffusioniqt_tpu_torch.ops.kernels.fused_block import fused_conv, fused_conv_plain
 from diffusioniqt_tpu_torch.ops.kernels.halo import halo_exchange, halo_exchange_plain
+from diffusioniqt_tpu_torch.utils import profiling
 
 
 @dataclass(frozen=True)
@@ -57,20 +60,17 @@ PLAIN = Ops(
 )
 
 
+KERNEL_NAMES = ("halo", "conv3d", "fused_block", "fused_block_small", "flash_attention")
+
+
 def launch_counts() -> dict:
-    """Launches of each kernel so far in this process."""
-    return {"halo": halo_exchange.launches, "conv3d": conv3d_valid.launches,
-            "fused_block": fused_conv.launches,
-            "fused_block_small": fused_conv.small_edge_launches,
-            "flash_attention": flash_attention.launches}
+    """Launches of each kernel so far in this process (since the last
+    :func:`reset_launch_counts`)."""
+    return {k: profiling.counter(profiling.LAUNCHES + k) for k in KERNEL_NAMES}
 
 
 def reset_launch_counts() -> None:
-    halo_exchange.launches = 0
-    conv3d_valid.launches = 0
-    fused_conv.launches = 0
-    fused_conv.small_edge_launches = 0
-    flash_attention.launches = 0
+    profiling.reset_counters(profiling.LAUNCHES)
 
 
 LAUNCHES_LINE = "Kernel launches: "

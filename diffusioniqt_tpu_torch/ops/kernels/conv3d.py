@@ -37,7 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from diffusioniqt_tpu_torch.ops.kernels import runtime
-from diffusioniqt_tpu_torch.utils import flops
+from diffusioniqt_tpu_torch.utils import flops, profiling
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -190,7 +190,7 @@ def _launch(xh: torch.Tensor, w: torch.Tensor, packed: torch.Tensor):
                  packed.data_ptr(), out.data_ptr(), b, s, cin, cout, g.bn,
                  min(b * g.bricks * g.n_tiles, runtime.sm_count(xh.device)), stream)
     runtime.check_launch(name, err)
-    conv3d_valid.launches += 1
+    profiling.launched("conv3d")
     flops.record("conv", flops.conv3d_valid_flops(out.shape, cin), "conv3d")
     return out
 
@@ -217,6 +217,7 @@ def conv3d_valid(xh: torch.Tensor, w: torch.Tensor,
         return conv3d_valid_plain(xh, w)
     if xh.device.type != "cuda":
         raise ValueError(f"conv3d kernel: unsupported device {xh.device}")
+    start = profiling.launch_clock()
     check_igemm_args("conv3d", xh, w)
     small = route(xh.shape[4]) == "small_cin"
     if small:
@@ -224,7 +225,6 @@ def conv3d_valid(xh: torch.Tensor, w: torch.Tensor,
                         f"Cout = {w.shape[0]} > {SMALL_COUT_MAX} at Cin = {xh.shape[4]}")
     pack = pack_weight_small if small else pack_weight
     packed = cache.get(w, pack) if cache is not None else pack(w)
-    return _Conv3dValid.apply(xh, w, packed)
-
-
-conv3d_valid.launches = 0
+    out = _Conv3dValid.apply(xh, w, packed)
+    profiling.launch_timed("conv3d", start)
+    return out

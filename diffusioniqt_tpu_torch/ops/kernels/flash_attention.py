@@ -32,7 +32,7 @@ import torch
 
 from diffusioniqt_tpu_torch.ops.attention import attention_reference
 from diffusioniqt_tpu_torch.ops.kernels import runtime
-from diffusioniqt_tpu_torch.utils import flops
+from diffusioniqt_tpu_torch.utils import flops, profiling
 
 HEAD_DIMS = (32, 64, 128)
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -68,7 +68,7 @@ def _launch(q, k, v, scale: float) -> torch.Tensor:
              k.data_ptr(), v.data_ptr(), out.data_ptr(), b, nq, k.shape[1], d,
              float(scale), runtime.stream_handle(q.device))
     runtime.check_launch(name, err)
-    flash_attention.launches += 1
+    profiling.launched("flash_attention")
     flops.record("dot", flops.attention_flops(b, nq, k.shape[1], d), "flash_attention")
     return out
 
@@ -95,11 +95,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return attention_reference(q, k, v, scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention kernel: unsupported device {q.device}")
+    start = profiling.launch_clock()
     check_flash_args(q, k, v)
     # the kernel takes the max of the raw scores (every caller's scale is
     # dim_head ** -0.5)
     runtime.require(scale > 0, "flash_attention", f"scale must be positive, got {scale}")
-    return _FlashAttention.apply(q, k, v, scale)
-
-
-flash_attention.launches = 0
+    out = _FlashAttention.apply(q, k, v, scale)
+    profiling.launch_timed("flash_attention", start)
+    return out

@@ -83,7 +83,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from diffusioniqt_tpu_torch.ops.kernels import runtime
-from diffusioniqt_tpu_torch.utils import flops
+from diffusioniqt_tpu_torch.utils import flops, profiling
 from diffusioniqt_tpu_torch.ops.kernels.conv3d import (
     PackedWeight,
     check_igemm_args,
@@ -472,7 +472,7 @@ def launch_brick(xh, a_tab, b_tab, packed, plan: BrickPlan):
              ws.data_ptr() if ws is not None else None, b, s, cin, cout, plan.bn, plan.kc,
              int(plan.tap), int(plan.split), plan.ctas, runtime.stream_handle(xh.device))
     runtime.check_launch(name, err)
-    fused_conv.launches += 1
+    profiling.launched("fused_block")
     flops.record("conv", flops.conv3d_valid_flops(out.shape, cin), "fused_block")
     return out
 
@@ -492,7 +492,7 @@ def launch_small_edge(xh, a_tab, b_tab, packed, plan: SmallEdgePlan):
              None if ws is None else ws.data_ptr(), b, s, cin, cout, plan.bn // 2, plan.ctas,
              runtime.stream_handle(xh.device))
     runtime.check_launch(name, err)
-    fused_conv.small_edge_launches += 1
+    profiling.launched("fused_block_small")
     flops.record("conv", flops.conv3d_valid_flops(out.shape, cin), "fused_block_small")
     return out
 
@@ -502,17 +502,19 @@ def fused_conv(xh, a_tab, b_tab, w, cache: PackedWeight = None) -> torch.Tensor:
     the route by sub-volume edge, :func:`route`), the plain version for a
     CPU tensor. The kernel has no backward of its own: differentiate
     :func:`fused_boundary_block`, whose backward is the plain composition.
-    ``fused_conv.launches`` counts the implicit-GEMM route's launches,
-    ``fused_conv.small_edge_launches`` the small-edge route's."""
+    Launches count as ``fused_block`` on the implicit-GEMM route and
+    ``fused_block_small`` on the small-edge route (``ops.kernels.launch_counts``)."""
     if xh.device.type == "cpu":
         return fused_conv_plain(xh, a_tab, b_tab, w)
     if xh.device.type != "cuda":
         raise ValueError(f"fused_block kernel: unsupported device {xh.device}")
+    start = profiling.launch_clock()
     name = "fused_block"
     runtime.require(not (torch.is_grad_enabled() and any(
         t.requires_grad for t in (xh, a_tab, b_tab, w))), name,
         "no backward of its own; differentiate fused_boundary_block")
-    check_igemm_args(name, xh, w, small_edge=route(xh.shape[1] - 2) == "small_edge")
+    small = route(xh.shape[1] - 2) == "small_edge"
+    check_igemm_args(name, xh, w, small_edge=small)
     want = (xh.shape[0], 27, xh.shape[4])
     for tab in (a_tab, b_tab):
         runtime.require(tab.dtype == torch.float32 and tuple(tab.shape) == want
@@ -521,11 +523,9 @@ def fused_conv(xh, a_tab, b_tab, w, cache: PackedWeight = None) -> torch.Tensor:
                         name, f"tables must be contiguous, 16-byte aligned fp32 {want} "
                         f"on {xh.device}")
     packed = cache.get(w) if cache is not None else pack_weight(w)
-    return _launch(xh, a_tab, b_tab, w, packed)
-
-
-fused_conv.launches = 0
-fused_conv.small_edge_launches = 0
+    out = _launch(xh, a_tab, b_tab, w, packed)
+    profiling.launch_timed("fused_block_small" if small else "fused_block", start)
+    return out
 
 
 def block_activation_plain(x, norm_scale, norm_bias, scale, shift,
@@ -590,8 +590,9 @@ class _Block(torch.autograd.Function):
         ctx.consts = (groups, factor)
         ctx.save_for_backward(x, norm_scale, norm_bias, scale, shift, w)
         scale_shift = None if scale is None else (scale, shift)
-        a, bb = groupnorm_affine(x, norm_scale, norm_bias, groups, scale_shift=scale_shift)
-        a_tab, b_tab = neighbor_tables(a, bb, factor)
+        with profiling.span("block.norm", device=True):
+            a, bb = groupnorm_affine(x, norm_scale, norm_bias, groups, scale_shift=scale_shift)
+            a_tab, b_tab = neighbor_tables(a, bb, factor)
         return ops.fused_conv(ops.halo(x, factor), a_tab, b_tab, w, cache)
 
     @staticmethod

@@ -23,6 +23,7 @@ import torch
 
 from diffusioniqt_tpu_torch.ops.kernels import runtime
 from diffusioniqt_tpu_torch.ops.volume import halo_exchange as halo_exchange_plain
+from diffusioniqt_tpu_torch.utils import profiling
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -63,7 +64,7 @@ def _launch(x: torch.Tensor, factor: int) -> torch.Tensor:
     err = fn(x.data_ptr(), out.data_ptr(), n, s, factor, c * x.element_size(),
              runtime.stream_handle(x.device))
     runtime.check_launch(name, err)
-    halo_exchange.launches += 1
+    profiling.launched("halo")
     return out
 
 
@@ -89,7 +90,7 @@ def halo_exchange(x: torch.Tensor, factor: int = 3) -> torch.Tensor:
         return halo_exchange_plain(x, factor)
     if x.device.type != "cuda":
         raise ValueError(f"halo kernel: unsupported device {x.device}")
-    return _HaloExchange.apply(x, factor)
-
-
-halo_exchange.launches = 0
+    start = profiling.launch_clock()
+    out = _HaloExchange.apply(x, factor)
+    profiling.launch_timed("halo", start)
+    return out

@@ -105,6 +105,7 @@ from diffusioniqt_tpu_torch.metrics.lpips import SliceLPIPS
 from diffusioniqt_tpu_torch.ops.volume import subvolumes_to_volume, volume_to_subvolumes
 from diffusioniqt_tpu_torch.parallel import multihost, sharding
 from diffusioniqt_tpu_torch.train.ema import ema_update
+from diffusioniqt_tpu_torch.utils import profiling
 from diffusioniqt_tpu_torch.utils.checkpoints import restore_parts
 from diffusioniqt_tpu_torch.utils.misc import cast_tuple
 
@@ -416,15 +417,20 @@ class ImagenTrainer:
         the next batch of the training loader. ``draws``: one dict of the
         wrapper's ``forward`` draws per microbatch (of the global microbatch
         with a mesh). Returns the mean microbatch loss (over every rank), a
-        float, or with ``sync=False`` a device scalar (no host sync)."""
-        unet_number = self.validate_unet_number(unet_number)
-        index = unet_number - 1
+        float, or with ``sync=False`` a device scalar (no host sync).
+        Recorded as the span ``trainer.step`` (request: the steps taken)."""
+        index = self.validate_unet_number(unet_number) - 1
+        with profiling.span("trainer.step", request=self.steps[index]):
+            return self._train_step(index, max_batch_size, batch, sync, draws)
+
+    def _train_step(self, index: int, max_batch_size, batch, sync: bool, draws):
         if batch is None:
             if self.train_dl is None:
                 raise RuntimeError("training dataloader has not been registered with the trainer")
             if self._train_iter is None:
                 self._train_iter = _cycle(self.train_dl)
-            batch = next(self._train_iter)
+            with profiling.span("trainer.data_wait"):
+                batch = next(self._train_iter)
         hr, lr_img = self._device_batch(batch)
         self.prepare()
 
@@ -447,10 +453,24 @@ class ImagenTrainer:
                 d = self._my_rows(self._global_draws(
                     index, share * self.data_size, hr, self._stage_lowres(index, lr_img),
                     self.generator, d))
-            loss = self._loss(index, hr[sl], lr_img[sl], d)
-            loss.backward()
+            with profiling.span("trainer.forward"):
+                loss = self._loss(index, hr[sl], lr_img[sl], d)
+            with profiling.span("trainer.backward", device=True):
+                loss.backward()
             loss_sum += loss.detach()
 
+        with profiling.span("trainer.update", device=True):
+            self._update(index, unet, opt, accum, loss_sum)
+
+        if self.checkpoint_path is not None and self.steps[index] % self.checkpoint_every == 0:
+            self.save_to_checkpoint_folder()
+
+        loss = loss_sum / accum
+        return float(loss) if sync else loss
+
+    def _update(self, index: int, unet, opt, accum: int, loss_sum: torch.Tensor) -> None:
+        """The averaged gradients' all-reduce (with a mesh) and clip, the
+        Adam step and the EMA update."""
         # optax updates every leaf: a parameter without a gradient gets a
         # zero one, so its moments decay as in the JAX trainer
         params = list(unet.parameters())
@@ -476,12 +496,6 @@ class ImagenTrainer:
         if self.use_ema and self.steps[index] % self.ema_update_every == 0:
             ema_update(self.ema_unets[index], unet, self.steps[index], **self.ema_kwargs)
             self.ema_steps[index] = self.steps[index]
-
-        if self.checkpoint_path is not None and self.steps[index] % self.checkpoint_every == 0:
-            self.save_to_checkpoint_folder()
-
-        loss = loss_sum / accum
-        return float(loss) if sync else loss
 
     def update(self, unet_number: Optional[int] = None):
         """No-op kept for API parity: the optimizer update happens once,

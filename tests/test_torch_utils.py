@@ -1,13 +1,14 @@
 """The port's debugging, profiling and FLOP utilities
 (``utils/debug.py``, ``utils/profiling.py``, ``utils/flops.py``) against
 the JAX package's: NaNs trapped where they are produced, the finite check's
-message, the phase timer's summary, a profiler trace, and the conv + matmul
+message, a profiler trace holding the recorder's spans, and the conv + matmul
 FLOP count held exactly equal to the JAX walker's
 (``diffusioniqt_tpu/utils/flops.py``) on ``tests/test_flops.py``'s cases,
 a small UNet3D forward and a 3-step ancestral sampler loop."""
 
 import json
 import os
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -20,7 +21,6 @@ from diffusioniqt_tpu.diffusion.gaussian import Imagen as JImagen
 from diffusioniqt_tpu.models.unet3d import NullUnet as JNullUnet
 from diffusioniqt_tpu.models.unet3d import UNet3D as JUNet3D
 from diffusioniqt_tpu.utils import debug as jdebug
-from diffusioniqt_tpu.utils import profiling as jprof
 from diffusioniqt_tpu.utils.flops import matmul_flops as jax_flops
 from diffusioniqt_tpu_torch.diffusion.gaussian import Imagen, gaussian_noise
 from diffusioniqt_tpu_torch.models.unet3d import NullUnet, UNet3D
@@ -103,25 +103,31 @@ def test_assert_tree_finite_names_the_paths_like_jax():
 # profiling
 # ---------------------------------------------------------------------------
 
+def _side_span():
+    with profiling.span("side"):
+        pass
+
+
 def test_phase_timer_summary_format_and_trace(tmp_path):
-    """``PhaseTimer.summary`` prints the JAX lines for the same totals; a
-    phase with ``sync`` waits for its tensors; ``trace`` writes a Chrome
-    trace that holds an ``annotate`` region."""
-    got, want = profiling.PhaseTimer(), jprof.PhaseTimer()
-    for timer in (got, want):
-        timer.totals, timer.counts = {"sample": 2.5, "load": 0.125}, {"sample": 4, "load": 1}
-    assert got.summary() == want.summary()
-    timer = profiling.PhaseTimer()
-    for _ in range(2):
-        with timer.phase("matmul", sync=torch.ones(8) @ torch.ones(8)):
-            pass
-    assert timer.counts == {"matmul": 2} and timer.totals["matmul"] >= 0.0
+    """``trace`` writes a Chrome trace that holds the recorder's spans on
+    the profiler's clock: the span around a matmul encloses the matmul's
+    operator, and a span of another thread keeps its thread."""
     with profiling.trace(str(tmp_path)) as log_dir:
-        with profiling.annotate("my_region"):
+        with profiling.span("my_region", request=4):
             torch.ones(64, 64) @ torch.ones(64, 64)
+        worker = threading.Thread(target=_side_span)
+        worker.start()
+        worker.join(timeout=30)
+    assert not worker.is_alive()
     with open(os.path.join(log_dir, "trace.json")) as fh:
         events = json.load(fh)["traceEvents"]
-    assert any(e.get("name") == "my_region" for e in events)
+    (mine,) = [e for e in events if e.get("name") == "my_region"]
+    (side,) = [e for e in events if e.get("name") == "side"]
+    assert mine["cat"] == side["cat"] == "recorder" and mine["args"]["request"] == 4
+    assert side["tid"] == worker.ident != mine["tid"]
+    mm = [e for e in events if e.get("name") == "aten::mm" and e.get("ph") == "X"]
+    assert mm and all(mine["ts"] <= e["ts"] and e["ts"] + e["dur"] <= mine["ts"] + mine["dur"]
+                      for e in mm)
 
 
 # ---------------------------------------------------------------------------
