@@ -5,7 +5,7 @@
 Phases, each of which raises (and exits non-zero) on failure:
 
   env           torch / CUDA versions, the card's name and power limit
-  build         nvcc builds the five kernel sources from ``diffusioniqt_tpu_torch/csrc``,
+  build         nvcc builds the six kernel sources from ``diffusioniqt_tpu_torch/csrc``,
                 one process per source, all started together
   kernels       each kernel against its plain PyTorch version at every shape
                 the serve phases give it (bf16, batch 8 windows x 27
@@ -43,15 +43,22 @@ Phases, each of which raises (and exits non-zero) on failure:
                 each printed with its plan from ``brick_plan``: unit
                 width, channels a chunk (kc), commit groups) at their
                 own batch: 216 sub-volumes at factor 3, SRUnet256's 27 at
-                factor 1
+                factor 1. First, the Blocks' statistics and tables (the
+                group_norm pair, GROUP_NORM_SHAPES: every (B, s, C, factor)
+                that a recording path launches, which fails on any other)
+                against the plain composition (GROUP_NORM_TOL), launched
+                twice (identical bits required); 32^3 x 64 and x 128 at the
+                serve batch also timed, with torch.var_mean over the group
+                view as the library row and the profiler's split between the
+                statistics and the tables kernel
   forward       the full-width ``config/eval_config.yaml`` UNet3D (seeded
                 random weights, bf16) on one 27 x 32^3 group, through the
                 kernels and through the plain versions; launches per forward
-                must be 38 fused blocks, 39 halos, 1 conv3d
+                must be 38 fused blocks, 38 group_norm, 39 halos, 1 conv3d
   forward-attn  the same for ``diffusioniqt_tpu_torch/configs/eval_attn_softmax.yaml``
                 (softmax attention in the three encoder slots and the
-                middle, plus the mid ResnetBlock): 40 fused blocks, 41
-                halos, 1 conv3d, 4 flash attentions
+                middle, plus the mid ResnetBlock): 40 fused blocks, 40
+                group_norm, 41 halos, 1 conv3d, 4 flash attentions
   forward-vit   that config with ``att_type: vit``: the same counts
   serve         ``diffusioniqt_tpu_torch.infer.infer_volume`` on a seeded fake
                 128^3 volume: 8 windows of 96^3, 20 sampler steps, full width;
@@ -388,6 +395,7 @@ nothing of JAX or of ``diffusioniqt_tpu``. Exits non-zero without CUDA.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import json
 import math
 import os
@@ -450,6 +458,35 @@ WINDOWS = 8              # windows per sampler call in the serve phase
 BATCH = GROUP * WINDOWS  # the kernels' batch on the serve path
 HALO_SHAPES = [(32, 2), (32, 64), (32, 128), (16, 64), (16, 128), (16, 192), (8, 128),
                (8, 256)]
+# (B, s, C, factor) of every Block input that the group_norm kernels see
+# on the paths that record their launches (held forwards, the serve paths'
+# shape forwards, tp-train and tp-serve; each fails on a shape not listed
+# here), each compared with the plain composition (8 groups, a bf16 time
+# scale-shift of one row a group of factor^3 sub-volumes, as the
+# ResnetBlocks give it). The first GROUP_NORM_TIMED rows are also timed:
+# the flagship's heaviest Block inputs at the serve batch, 32^3 x 64 (the
+# headline) and x 128. Then the rest of the flagship's serve forward
+# (16^3 x 64, 128 and 192: 8 and 20 chunks a sub-volume, a 24-vector tile
+# with 10 voxel rows a pass; 8^3 x 128: 2 chunks) and the attention and
+# efficient configs' 8^3 x 256 and 4^3 x 256, all at the serve batch and
+# at one window (held forwards, tp-serve); the flagship's at two and four
+# windows (tp-train's 1-rank trainer at data 2 and 4); the flagship's at
+# factor 1 (config/config.yaml, the train phases, which record nothing);
+# and SRUnet256's at one window (factor 1, C 32 to 1024)
+_FLAGSHIP_NORM = [(32, 64), (32, 128), (16, 64), (16, 128), (16, 192), (8, 128)]
+GROUP_NORM_SHAPES = (
+    [(rows, s, c, 3) for rows in (BATCH, GROUP)
+     for s, c in _FLAGSHIP_NORM + [(8, 256), (4, 256)]]
+    + [(rows * GROUP, s, c, 3) for rows in (2, 4) for s, c in _FLAGSHIP_NORM]
+    + [(GROUP, s, c, 1) for s, c in _FLAGSHIP_NORM]
+    + [(GROUP, s, c, 1) for s, c in [(32, 32), (16, 256), (8, 256), (8, 512), (4, 512),
+                                     (4, 1024), (2, 1024)]])
+GROUP_NORM_TIMED = 2
+# the tables against the plain composition, relative to each table's
+# largest entry: the plain version sums 2^18 fp32 squares a group at
+# (216, 32^3, 64) (about 1e-5 relative where the sums run long), the
+# kernel sums short runs around a per-group shift and adds them in double
+GROUP_NORM_TOL = 1e-4
 # (s, Cin, Cout): the init conv (small-Cin route) and one wide shape that
 # holds the implicit-GEMM route, which no conv3d call of the path takes
 CONV_SHAPES = [(32, 2, 64), (16, 64, 64)]
@@ -477,7 +514,7 @@ SERVE_2D = dict(dim=64, dim_mults=(1, 2, 4), num_resnet_blocks=2, channels=1, lo
 SLICES_2D, EDGE_2D, STEPS_2D = 16, 240, 20
 # launches per UNet2D forward: the two softmax slots at 60^2 tokens
 SERVE_2D_COUNTS = {"halo": 0, "conv3d": 0, "fused_block": 0, "fused_block_small": 0,
-                   "flash_attention": 2}
+                   "flash_attention": 2, "group_norm": 0}
 # train-2d: quality_run_2d's trainer (tools/quality_run_2d.py:88-92: dim 24,
 # linear attention type with no slot on) on 96^2 crops, batch 8, this many steps
 TRAIN_2D_DIM, TRAIN_2D_CROP, TRAIN_2D_BATCH, TRAIN_2D_STEPS = 24, 96, 8, 10
@@ -487,7 +524,7 @@ TRAIN_2D_DIM, TRAIN_2D_CROP, TRAIN_2D_BATCH, TRAIN_2D_STEPS = 24, 96, 8, 10
 # T5-base width), on the serve batch of 8 windows; it launches flash once
 CONTEXT_TOKENS, CONTEXT_DIM = 16, 768
 CONTEXT_COUNTS = {"halo": 0, "conv3d": 0, "fused_block": 0, "fused_block_small": 0,
-                  "flash_attention": 1}
+                  "flash_attention": 1, "group_norm": 0}
 # (batch, heads, query tokens, key tokens, head dim) of every softmax
 # attention the serve phases launch: the attention config's slots (8
 # windows x 8 heads, 12^3 patch tokens, head dim 64), serve-2d's (16 slices
@@ -515,7 +552,7 @@ VIDEO_TEXTS = ["an axial flair slice of an adult brain with periventricular whit
                "cerebellum and fourth ventricle"]
 VIDEO_COND_SCALE = 3.0
 NO_COUNTS = {"halo": 0, "conv3d": 0, "fused_block": 0, "fused_block_small": 0,
-             "flash_attention": 0}
+             "flash_attention": 0, "group_norm": 0}
 # missing-pieces: UpsampleCombiner at the flagship's widths on one window,
 # the input at level 0 (32^3 x 64), the feature maps of levels 1 and 2
 # (16^3 x 128, 8^3 x 256) resized to 32^3, each through a 64-wide Block
@@ -526,6 +563,8 @@ REPLACES = {
     "fused_block": "diffusioniqt_tpu/ops/pallas/fused_block.py:272",
     "fused_block_small": "diffusioniqt_tpu/ops/pallas/fused_block.py:272",
     "flash_attention": "diffusioniqt_tpu/ops/pallas/flash_attention.py:90",
+    "group_norm": "none: diffusioniqt_tpu/ops/pallas/fused_block.py's groupnorm_affine and "
+                  "_neighbor_tables, left to XLA",
 }
 HEADLINE = {"halo": (32, 64), "conv3d": (32, 2, 64), "fused_block": (32, 64, 64),
             "flash_attention": (1728, 1728, 64)}
@@ -537,26 +576,28 @@ TRAIN_CONFIG = os.path.join("config", "config.yaml")
 EDM_CONFIG = os.path.join("config", "eval_edm.yaml")
 ATTN_CONFIG = os.path.join("diffusioniqt_tpu_torch", "configs", "eval_attn_softmax.yaml")
 # launches per forward of one 27-sub-volume group (fused_block_small: the
-# fused Block's small-edge route, sub-volume edges 4 and 2)
+# fused Block's small-edge route, sub-volume edges 4 and 2; group_norm: each
+# Block's statistics and tables, one per fused Block launch)
 FLAGSHIP_COUNTS = {"halo": 39, "conv3d": 1, "fused_block": 38, "fused_block_small": 0,
-                   "flash_attention": 0}
+                   "flash_attention": 0, "group_norm": 38}
 ATTN_COUNTS = {"halo": 41, "conv3d": 1, "fused_block": 40, "fused_block_small": 0,
-               "flash_attention": 4}
+               "flash_attention": 4, "group_norm": 40}
 # launches per microbatch forward + backward with Train.remat: each of the
-# 19 ResnetBlocks is recomputed in the backward, its 2 halos and 2 fused
-# blocks launched again; the init conv and its halo are not in a block
+# 19 ResnetBlocks is recomputed in the backward, its 2 halos, 2 tables and
+# 2 fused blocks launched again; the init conv and its halo are not in a
+# block
 REMAT_COUNTS = {"halo": 1 + 2 * 38, "conv3d": 1, "fused_block": 2 * 38, "fused_block_small": 0,
-                "flash_attention": 0}
+                "flash_attention": 0, "group_norm": 2 * 38}
 # Train.efficient: levels at 16^3, 8^3, 4^3, up levels at 8^3, 16^3, 32^3;
 # the 3 ResnetBlocks at 4^3 take the small-edge route, the 16 others the
 # implicit GEMM
 EFFICIENT_COUNTS = {"halo": 39, "conv3d": 1, "fused_block": 32, "fused_block_small": 6,
-                    "flash_attention": 0}
+                    "flash_attention": 0, "group_norm": 38}
 # SRUnet256 at 27 x 32^3: 54 ResnetBlocks (26 down, the mid one, 26 up, the
 # final one), 28 of them at 4^3 or 2^3; the cross-embed stem is cuDNN (no
 # conv3d); the mid ViT's one attention layer goes through flash
 SRUNET_COUNTS = {"halo": 108, "conv3d": 0, "fused_block": 52, "fused_block_small": 56,
-                 "flash_attention": 1}
+                 "flash_attention": 1, "group_norm": 108}
 # the small-edge route's rows in the kernels phase: every (batch, s, Cin,
 # Cout, factor) that the fused Block's wrapper sees in one forward of the
 # efficient flagship (6 launches at 4^3, factor 3; 27 rows in
@@ -707,7 +748,8 @@ SCATTER_KERNELS = ("indexing_backward", "index_put")
 LAYERS = {"fused_block": ("igemm::conv_sm90<true",),
           "fused_block_small": ("small_edge::conv_kernel", "small_edge::reduce_partials"),
           "conv3d": ("small_cin_kernel", "igemm::conv_sm90<false"),
-          "halo": ("halo_row_kernel",), "flash_attention": ("flash_kernel",)}
+          "halo": ("halo_row_kernel",), "flash_attention": ("flash_kernel",),
+          "group_norm": ("gn_stats::",)}
 # the one PyTorch call timed beside each kernel as its library yardstick
 LIBRARY = {"halo": "index_select gather from a precomputed source table",
            "conv3d": "F.conv3d (cuDNN)",
@@ -716,13 +758,16 @@ LIBRARY = {"halo": "index_select gather from a precomputed source table",
                           "the transformed input materialised beforehand)",
            "fused_block_small": "none, as for fused_block (conv_only_library_ms: "
                                 "F.conv3d, cuDNN, on the transformed input)",
-           "flash_attention": "F.scaled_dot_product_attention"}
+           "flash_attention": "F.scaled_dot_product_attention",
+           "group_norm": "torch.var_mean over the (B, s^3, groups, C / groups) view "
+                         "(the statistics alone)"}
 
 
 def recording_ops(seen):
     """The kernels, counting in ``seen`` the (B, s, Cin, Cout, factor) of
-    every fused Block launch at a small sub-volume edge."""
-    from diffusioniqt_tpu_torch.ops.kernels import KERNELS, Ops
+    every fused Block launch at a small sub-volume edge, and failing on a
+    group_norm shape not in GROUP_NORM_SHAPES (:func:`compared_norm_tables`)."""
+    from diffusioniqt_tpu_torch.ops.kernels import KERNELS
     factor = {}
 
     def halo(x, f):
@@ -735,8 +780,20 @@ def recording_ops(seen):
             seen[(xh.shape[0], s, xh.shape[4], w.shape[0], factor["f"])] += 1
         return KERNELS.fused_conv(xh, a_tab, b_tab, w, cache)
 
-    return Ops(halo=halo, conv3d=KERNELS.conv3d, fused_conv=fused_conv,
-               attention=KERNELS.attention)
+    return dataclasses.replace(KERNELS, halo=halo, fused_conv=fused_conv,
+                               norm_tables=compared_norm_tables)
+
+
+def compared_norm_tables(x, norm_scale, norm_bias, scale, shift, groups, factor, eps=1e-5):
+    """``KERNELS.norm_tables``, failing on a (B, s, C, factor) that the
+    kernels phase did not hold to the plain composition
+    (GROUP_NORM_SHAPES)."""
+    from diffusioniqt_tpu_torch.ops.kernels import KERNELS
+
+    shape = (x.shape[0], x.shape[1], x.shape[4], factor)
+    if shape not in GROUP_NORM_SHAPES:
+        raise AssertionError(f"group_norm: (B, s, C, factor) {shape} not in GROUP_NORM_SHAPES")
+    return KERNELS.norm_tables(x, norm_scale, norm_bias, scale, shift, groups, factor, eps)
 
 
 def torch_default_init_(unet: torch.nn.Module) -> None:
@@ -933,6 +990,23 @@ def profile_forward(label: str, fn) -> None:
         print(f"  {ms:9.3f} ms {100 * ms / busy_ms:5.1f}% x{count:4d}  {key[:100]}")
 
 
+def kernel_ms_by_tag(fn, tags, iters: int = 10) -> dict:
+    """Device ms per ``fn()`` of the kernels whose names hold each tag, from
+    ``torch.profiler`` over ``iters`` calls after one warm call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    return {tag: sum(ms for k, ms in rows if tag in k) / iters for tag in tags}
+
+
 def scatter_ms(fn):
     """Device ms of :data:`SCATTER_KERNELS` kernels in one ``fn()``, and
     the device ms of all its kernels (so that an empty trace shows)."""
@@ -1117,15 +1191,15 @@ class CollectiveLog:
 
 def shape_recording_ops(seen):
     """The kernels, counting in ``seen`` the (B, s, Cin, Cout) of every
-    fused Block launch (both routes)."""
-    from diffusioniqt_tpu_torch.ops.kernels import KERNELS, Ops
+    fused Block launch (both routes), and failing on a group_norm shape not
+    in GROUP_NORM_SHAPES (:func:`compared_norm_tables`)."""
+    from diffusioniqt_tpu_torch.ops.kernels import KERNELS
 
     def fused_conv(xh, a_tab, b_tab, w, cache=None):
         seen[(xh.shape[0], xh.shape[1] - 2, xh.shape[4], w.shape[0])] += 1
         return KERNELS.fused_conv(xh, a_tab, b_tab, w, cache)
 
-    return Ops(halo=KERNELS.halo, conv3d=KERNELS.conv3d, fused_conv=fused_conv,
-               attention=KERNELS.attention)
+    return dataclasses.replace(KERNELS, fused_conv=fused_conv, norm_tables=compared_norm_tables)
 
 
 def tp_train_rank(device, cfg, batches, mesh_shape, bundle, timed_steps):
@@ -1534,6 +1608,53 @@ def main() -> int:
         more = "".join(f" {k}={fmt(v)}" for k, v in extra.items())
         print(f"    kernel_ms={fmt(k_ms)} plain_ms={p_ms:.4f} library_ms={fmt(lib_ms)}"
               f"{more} bound_ms={bnd[0]:.4f} ({bnd[1]})", flush=True)
+
+    # the Blocks' statistics and tables: the group_norm pair against the
+    # plain composition at every shape of GROUP_NORM_SHAPES; the first
+    # GROUP_NORM_TIMED rows also timed (with torch.var_mean for the
+    # statistics alone)
+    for i, (n, s, c, f) in enumerate(GROUP_NORM_SHAPES):
+        x = torch.randn((n, s, s, s, c), generator=gen, device=dev).to(torch.bfloat16)
+        ns = 1.0 + 0.1 * torch.randn(c, generator=gen, device=dev)
+        nb = 0.1 * torch.randn(c, generator=gen, device=dev)
+        # the time MLP's (scale, shift): two halves of one (rows, 1, 1, 1, 2C) bf16 tensor
+        emb = 0.2 * torch.randn((n // f ** 3, 1, 1, 1, 2 * c), generator=gen, device=dev)
+        sc, sh = emb.to(torch.bfloat16).chunk(2, dim=-1)
+        args = (x, ns, nb, sc, sh, 8, f)
+        kernels.reset_launch_counts()
+        got = fused_module.norm_tables(*args)
+        again = fused_module.norm_tables(*args)
+        want = fused_module.norm_tables_plain(*args)
+        torch.cuda.synchronize()
+        shape = (n, s, s, s, c, f)
+        if kernels.launch_counts()["group_norm"] != 2:
+            raise AssertionError("group_norm: two calls did not count two launches")
+        if not all(torch.equal(g, a) for g, a in zip(got, again)):
+            raise AssertionError(f"group_norm {shape}: two launches differ")
+        stats = max((compare(f"group_norm {tab}", shape, g, w_, GROUP_NORM_TOL)
+                     for tab, g, w_ in zip(("a_tab", "b_tab"), got, want)),
+                    key=lambda st: st["max_abs_err"] / st["tol"])
+        chunks = fused_module.norm_chunks(n, s ** 3, c, sms)
+        results.setdefault("group_norm_compared", []).append(
+            {"shape": [n, s, c, f], **stats, "chunks": chunks})
+        if i >= GROUP_NORM_TIMED:
+            del x, got, again, want
+            continue
+        xv = x.view(n, s ** 3, 8, c // 8)
+        split = kernel_ms_by_tag(lambda: fused_module.norm_tables(*args),
+                                 ("gn_stats::stats_kernel", "gn_stats::tables_kernel"))
+        record("group_norm", (n, s, c), stats,
+               timed(lambda: fused_module.norm_tables(*args)),
+               cuda_time_ms(lambda: fused_module.norm_tables_plain(*args), iters=3),
+               timed(lambda: torch.var_mean(xv, dim=(1, 3))),
+               bound_ms(0.0, nbytes(x, *got)))
+        row = results["group_norm"][-1]
+        row["chunks"] = chunks
+        row["stats_ms"], row["tables_ms"] = split.values()
+        print(f"    {row['chunks']} chunks a sub-volume; profiler: statistics "
+              f"{row['stats_ms']:.4f} ms ({100 * nbytes(x) / PEAK_HBM_BYTES / 1e-3 / row['stats_ms']:.1f}% "
+              f"of HBM bandwidth), tables {row['tables_ms']:.4f} ms", flush=True)
+        del x, xv, got, again, want
 
     checked_gather = False
     for s, c in HALO_SHAPES:
@@ -2024,7 +2145,7 @@ def main() -> int:
         plain_ms = cuda_time_ms(lambda: comb(x, fmaps), iters=3)
         for blk in comb.fmap_convs:
             blk.ops = kernels.KERNELS
-        if counts != {**NO_COUNTS, "halo": 2, "fused_block": 2}:
+        if counts != {**NO_COUNTS, "halo": 2, "fused_block": 2, "group_norm": 2}:
             raise AssertionError(f"missing-pieces: the combiner launched {counts}")
         if not torch.equal(got[..., :COMBINER_DIM], x):
             raise AssertionError("missing-pieces: the combiner changed its input")
@@ -4163,6 +4284,29 @@ def main() -> int:
         "conv_only_library_ms_max": head["conv_only_library_ms_max"],
         # every shape the presets launch it at (SMALL_EDGE_SHAPES)
         "shapes": [{k: r[k] for k in keys if k in r} for r in small],
+    })
+    gn = results["group_norm"]
+    line.append({
+        "name": "group_norm", "route": "cuda", "source": "diffusioniqt_tpu_torch/csrc/group_norm.cu",
+        "replaces": REPLACES["group_norm"],
+        "launches": served["group_norm"],
+        "launches_by_path": {"serve": served["group_norm"], "serve-attn": served_attn["group_norm"],
+                             "serve-edm": served_edm["group_norm"],
+                             "serve-efficient": served_eff["group_norm"],
+                             "preset-srunet256 sampler call": served_srunet["group_norm"],
+                             "train": trained["group_norm"],
+                             **{k: c["launches"]["group_norm"] for k, c in cells.items()}},
+        "max_abs_err": max(r["max_abs_err"] for r in results["group_norm_compared"]),
+        "tolerance": gn[0]["tol"],
+        **{k: gn[0][k] for k in ("ms", "ms_min", "ms_max", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms", "library_ms_min", "library_ms_max", "stats_ms",
+                                 "tables_ms", "chunks")},
+        "library": LIBRARY["group_norm"], "shape": "x".join(str(v) for v in gn[0]["shape"]),
+        "shapes": [{k: r[k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                      "library_ms", "stats_ms", "tables_ms", "chunks")}
+                   for r in gn],
+        # every shape the paths launch it at (GROUP_NORM_SHAPES), compared
+        "compared": results["group_norm_compared"],
     })
     print(f"total seconds {time.perf_counter() - t_all:.1f}")
     print(json.dumps({"kernels": line}))

@@ -13,8 +13,13 @@ version, and a note naming the TPU kernel it replaces:
   that are multiples of 8, ``fused_block_small`` the small-edge route's at
   edges 4 and 2)
 * ``flash_attention`` <- ``diffusioniqt_tpu/ops/pallas/flash_attention.py::flash_attention``
+* ``group_norm`` (``fused_block.norm_tables``, ``csrc/group_norm.cu``) <- no
+  TPU kernel: the JAX package leaves the fused Block's GroupNorm statistics
+  and region tables to XLA. Two kernels a call, one pass over the bf16
+  Block input and one that writes the tables, counted as one launch; bound
+  by the bytes of x
 
-:data:`KERNELS` and :data:`PLAIN` bundle the four entry points the model
+:data:`KERNELS` and :data:`PLAIN` bundle the five entry points the model
 calls. Models use :data:`KERNELS`; :data:`PLAIN` runs the plain versions
 on any device, so a whole forward can be held against the kernels on the
 card (``chip_smoke.py``).
@@ -33,7 +38,12 @@ from typing import Callable
 from diffusioniqt_tpu_torch.ops.attention import attention_reference
 from diffusioniqt_tpu_torch.ops.kernels.conv3d import conv3d_valid, conv3d_valid_plain
 from diffusioniqt_tpu_torch.ops.kernels.flash_attention import flash_attention
-from diffusioniqt_tpu_torch.ops.kernels.fused_block import fused_conv, fused_conv_plain
+from diffusioniqt_tpu_torch.ops.kernels.fused_block import (
+    fused_conv,
+    fused_conv_plain,
+    norm_tables,
+    norm_tables_plain,
+)
 from diffusioniqt_tpu_torch.ops.kernels.halo import halo_exchange, halo_exchange_plain
 from diffusioniqt_tpu_torch.utils import profiling
 
@@ -41,26 +51,30 @@ from diffusioniqt_tpu_torch.utils import profiling
 @dataclass(frozen=True)
 class Ops:
     """``halo(x, factor)``, ``conv3d(xh, w, cache)``,
-    ``fused_conv(xh, a_tab, b_tab, w, cache)`` and
-    ``attention(q, k, v, scale)``."""
+    ``fused_conv(xh, a_tab, b_tab, w, cache)``,
+    ``attention(q, k, v, scale)`` and ``norm_tables(x, norm_scale,
+    norm_bias, scale, shift, groups, factor, eps)``."""
 
     halo: Callable
     conv3d: Callable
     fused_conv: Callable
     attention: Callable
+    norm_tables: Callable
 
 
 KERNELS = Ops(halo=halo_exchange, conv3d=conv3d_valid, fused_conv=fused_conv,
-              attention=flash_attention)
+              attention=flash_attention, norm_tables=norm_tables)
 PLAIN = Ops(
     halo=halo_exchange_plain,
     conv3d=lambda xh, w, cache=None: conv3d_valid_plain(xh, w),
     fused_conv=lambda xh, a, b, w, cache=None: fused_conv_plain(xh, a, b, w),
     attention=attention_reference,
+    norm_tables=norm_tables_plain,
 )
 
 
-KERNEL_NAMES = ("halo", "conv3d", "fused_block", "fused_block_small", "flash_attention")
+KERNEL_NAMES = ("halo", "conv3d", "fused_block", "fused_block_small", "flash_attention",
+                "group_norm")
 
 
 def launch_counts() -> dict:

@@ -5,12 +5,15 @@ Replaces ``diffusioniqt_tpu/ops/pallas/fused_block.py::fused_boundary_block``:
 
 As in the JAX package, the work splits in three:
 
-* :func:`groupnorm_affine` and :func:`neighbor_tables` (plain torch, tiny
-  arrays): single-pass fp32 GroupNorm statistics folded with the norm
-  affine and the time scale-shift into per-(sub-volume, channel) A and B,
-  then a 27-region table per sub-volume (itself and its 26 grid
+* :func:`norm_tables`: single-pass GroupNorm statistics folded with the
+  norm affine and the time scale-shift into per-(sub-volume, channel) A
+  and B, then a 27-region table per sub-volume (itself and its 26 grid
   neighbours; A = B = 0 where a neighbour is missing, so mish(0) = 0 is the
-  reference's zero padding);
+  reference's zero padding). For a CUDA tensor two kernels of
+  ``csrc/group_norm.cu``: one pass over the bf16 input into per-chunk fp32
+  sums, then one small kernel that writes both tables (bound by the bytes
+  of that pass; the JAX package leaves this step to XLA). The plain
+  version is :func:`groupnorm_affine` then :func:`neighbor_tables`;
 * the halo exchange (kernel 1) on the raw activation;
 * :func:`fused_conv` (this kernel): ``conv_valid(mish(A_r * xh + B_r), w)``
   with r the region of each halo voxel, bf16 out, fp32 accumulation. Mish
@@ -71,7 +74,7 @@ order of operations, whose halo is the concatenation sweep and whose
 statistics and affine are broadcasts: it recomputes the activation and
 runs the conv's backward products on it, never the conv forward. No gather
 over the activation (and so no accumulating scatter) is on the backward
-path; the tables and the fused kernel are forward only.
+path; the tables, their kernels and the fused kernel are forward only.
 """
 
 from __future__ import annotations
@@ -336,7 +339,7 @@ def brick_plan(nb: int, s: int, cin: int, cout: int, sms: int) -> BrickPlan:
 
 
 # ---------------------------------------------------------------------------
-# coefficient construction (plain torch, tiny arrays)
+# coefficient construction: plain versions, and the group_norm kernels
 # ---------------------------------------------------------------------------
 
 def group_stats(x: torch.Tensor, groups: int, eps: float = 1e-5):
@@ -409,6 +412,109 @@ def neighbor_tables(a: torch.Tensor, bb: torch.Tensor, factor: int):
     valid = valid[..., None]
     return (torch.where(valid, a[index], zero).contiguous(),
             torch.where(valid, bb[index], zero).contiguous())
+
+
+def norm_tables_plain(x, norm_scale, norm_bias, scale, shift, groups: int, factor: int,
+                      eps: float = 1e-5):
+    """Plain version of :func:`norm_tables`: :func:`groupnorm_affine`, then
+    :func:`neighbor_tables`."""
+    scale_shift = None if scale is None else (scale, shift)
+    a, bb = groupnorm_affine(x, norm_scale, norm_bias, groups, scale_shift=scale_shift, eps=eps)
+    return neighbor_tables(a, bb, factor)
+
+
+# the group_norm kernels' launch layout (csrc/group_norm.cu takes it as
+# arguments): threads a CTA, 16-byte vectors (8 channels) of the statistics
+# kernel's channel tile, the CTAs a SM that its grid aims for (several
+# waves, so that the last is a small share), and the fewest loads a thread
+# makes; the tables kernel's channel tile, which holds whole groups
+NORM_THREADS, NORM_TILE_VECS, NORM_CTAS_PER_SM, NORM_MIN_LOADS = 256, 256, 32, 16
+NORM_TILE_CHANNELS = 1024
+# x, ws, gamma, beta, scale, shift, a_tab, b_tab, B, S, C, cg, chunks, time
+# rows, time row stride, time bf16, factor, threads, stats tile (vectors),
+# tables tile (channels), eps, stream
+_NORM_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 12 + [ctypes.c_float, ctypes.c_void_p]
+
+
+@functools.lru_cache(maxsize=64)
+def norm_chunks(nb: int, voxels: int, c: int, sms: int) -> int:
+    """Chunks of voxels a sub-volume that the statistics kernel cuts ``nb``
+    sub-volumes of ``voxels`` voxels by ``c`` channels into on a card of
+    ``sms`` SMs: enough CTAs for :data:`NORM_CTAS_PER_SM` a SM, but no
+    chunk so short that a thread makes fewer than :data:`NORM_MIN_LOADS`
+    loads; at least one. At (216, 32^3, 64) 20 chunks, 4320 CTAs; at the
+    small edges (4^3, 2^3) one CTA a sub-volume."""
+    vecs = c // 8
+    rows = NORM_THREADS // min(vecs, NORM_TILE_VECS)  # voxels a CTA reads at once
+    tiles = -(-vecs // NORM_TILE_VECS)
+    want = -(-sms * NORM_CTAS_PER_SM // (nb * tiles))
+    return max(1, min(want, voxels // (rows * NORM_MIN_LOADS)))
+
+
+def _time_rows(scale, shift, c: int):
+    """The time scale and shift ``(n, 1, 1, 1, C)`` as ``(n, C)`` views the
+    kernel reads (fp32 or bf16, channels at unit stride, one row stride),
+    else fp32 copies; and whether they are bf16."""
+    sc, sh = (t.reshape(t.shape[0], c) for t in (scale, shift))
+    if not (sc.dtype == sh.dtype and sc.dtype in (torch.float32, torch.bfloat16)
+            and sc.stride(1) == sh.stride(1) == 1 and sc.stride(0) == sh.stride(0)):
+        sc, sh = sc.float().contiguous(), sh.float().contiguous()
+    return sc, sh, sc.dtype == torch.bfloat16
+
+
+def norm_tables(x, norm_scale, norm_bias, scale, shift, groups: int, factor: int,
+                eps: float = 1e-5):
+    """The fused Block's coefficient tables ``(a_tab, b_tab)``, each
+    contiguous fp32 ``(B, 27, C)`` (:func:`neighbor_tables`' layout): the
+    GroupNorm statistics of x ``(B, s, s, s, C)``, its affine and the
+    optional time ``(scale + 1, shift)`` (``(n, 1, 1, 1, C)``, n dividing
+    B) folded per sub-volume and channel, for each sub-volume's 27 regions
+    under ``factor``. For a CUDA tensor the two ``group_norm`` kernels
+    (bf16, contiguous, C % 8 == 0; one pass over x), counted as one launch
+    of ``group_norm``; for a CPU tensor :func:`norm_tables_plain`. Forward
+    only: differentiate :func:`fused_boundary_block`."""
+    if x.device.type == "cpu":
+        return norm_tables_plain(x, norm_scale, norm_bias, scale, shift, groups, factor, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"group_norm kernel: unsupported device {x.device}")
+    start = profiling.launch_clock()
+    name = "group_norm"
+    runtime.require(not (torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (x, norm_scale, norm_bias, scale, shift))),
+        name, "no backward of its own; differentiate fused_boundary_block")
+    runtime.require(x.dtype == torch.bfloat16, name, f"input must be bfloat16, got {x.dtype}")
+    runtime.require(x.dim() == 5 and x.shape[1] == x.shape[2] == x.shape[3], name,
+                    f"expected (B, s, s, s, C), got {tuple(x.shape)}")
+    runtime.require(x.is_contiguous(), name, "input must be contiguous")
+    nb, s, c = x.shape[0], x.shape[1], x.shape[4]
+    runtime.require(c % 8 == 0, name, f"C = {c} is not a multiple of 8")
+    runtime.require(c % groups == 0 and c // groups <= NORM_TILE_CHANNELS, name,
+                    f"{groups} groups of C = {c} (at most {NORM_TILE_CHANNELS} channels a group)")
+    runtime.require(nb % factor ** 3 == 0, name,
+                    f"batch {nb} is not a multiple of factor^3 = {factor ** 3}")
+    runtime.require(x.data_ptr() % 16 == 0, name, "input not 16-byte aligned")
+    gamma, beta = (p.float().contiguous() for p in (norm_scale, norm_bias))
+    sc = sh = None
+    rows = stride = bf16 = 0
+    if scale is not None:
+        sc, sh, bf16 = _time_rows(scale, shift, c)
+        rows, stride = sc.shape[0], sc.stride(0)
+        runtime.require(nb % rows == 0, name, f"{rows} time rows do not divide batch {nb}")
+    runtime.require(all(t.device == x.device for t in (gamma, beta, sc, sh) if t is not None),
+                    name, f"every input on {x.device}")
+    chunks = norm_chunks(nb, s ** 3, c, runtime.sm_count(x.device))
+    ws = torch.empty((2, nb, chunks, c), dtype=torch.float32, device=x.device)
+    tables = torch.empty((2, nb, 27, c), dtype=torch.float32, device=x.device)
+    fn = runtime.c_function(name, "group_norm_launch", _NORM_ARGTYPES)
+    err = fn(x.data_ptr(), ws.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+             None if sc is None else sc.data_ptr(), None if sh is None else sh.data_ptr(),
+             tables[0].data_ptr(), tables[1].data_ptr(), nb, s ** 3, c, c // groups, chunks,
+             rows, stride, int(bf16), factor, NORM_THREADS, NORM_TILE_VECS, NORM_TILE_CHANNELS,
+             eps, runtime.stream_handle(x.device))
+    runtime.check_launch(name, err)
+    profiling.launched(name)
+    profiling.launch_timed(name, start)
+    return tables[0], tables[1]
 
 
 # ---------------------------------------------------------------------------
@@ -576,7 +682,9 @@ def conv3d_valid_vjp(xh, w, grad, need_x: bool, need_w: bool):
 
 class _Block(torch.autograd.Function):
     """The whole Block unit: forward through ``ops`` (kernels or plain
-    versions) with autograd off; saves only its inputs. The backward is the
+    versions) with autograd off: ``ops.norm_tables`` (the ``group_norm``
+    kernels' one pass over x, or the plain composition), ``ops.halo`` and
+    ``ops.fused_conv``; saves only its inputs. The backward is the
     gradient of :func:`block_reference_plain`: it recomputes the GroupNorm /
     affine / Mish chain and the halo (:func:`block_activation_plain`, under
     autograd), runs the conv's two backward products on that activation
@@ -589,10 +697,8 @@ class _Block(torch.autograd.Function):
     def forward(ctx, x, norm_scale, norm_bias, scale, shift, w, groups, factor, cache, ops):
         ctx.consts = (groups, factor)
         ctx.save_for_backward(x, norm_scale, norm_bias, scale, shift, w)
-        scale_shift = None if scale is None else (scale, shift)
         with profiling.span("block.norm", device=True):
-            a, bb = groupnorm_affine(x, norm_scale, norm_bias, groups, scale_shift=scale_shift)
-            a_tab, b_tab = neighbor_tables(a, bb, factor)
+            a_tab, b_tab = ops.norm_tables(x, norm_scale, norm_bias, scale, shift, groups, factor)
         return ops.fused_conv(ops.halo(x, factor), a_tab, b_tab, w, cache)
 
     @staticmethod

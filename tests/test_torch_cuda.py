@@ -266,7 +266,7 @@ def test_memory_efficient_unet_runs_through_the_kernels(dev):
     # at 4^3 level 1 down (2 ResnetBlocks); at 8^3 level 0 down (2) and the
     # first up level (2); at 16^3 the last up level (2) and the final block
     assert counts == {"halo": 2 * 9 + 1, "conv3d": 1, "fused_block": 2 * 7,
-                      "fused_block_small": 2 * 2, "flash_attention": 0}
+                      "fused_block_small": 2 * 2, "flash_attention": 0, "group_norm": 2 * 9}
     assert torch.isfinite(got).all()
     assert ((got - want).abs().max() / want.abs().max()).item() <= 5e-2
 
@@ -297,7 +297,7 @@ def test_remat_conv_backward_launches_no_kernel(dev):
     n_res = 2 * 2 + 2 * 2 + 1
     assert counts[0] == counts[1] == {"halo": 2 * n_res + 1, "conv3d": 1,
                                       "fused_block": 2 * n_res, "fused_block_small": 0,
-                                      "flash_attention": 0}
+                                      "flash_attention": 0, "group_norm": 2 * n_res}
     for k in grads[0]:
         assert torch.equal(grads[0][k], grads[1][k]), k
 
@@ -323,6 +323,140 @@ def test_fused_kernel_after_nan(dev, cin):
     got = kernels.fused_conv(xh, ta, tb, w)
     assert torch.isfinite(got).all()
     _close(got, kernels.fused_conv_plain(xh, ta, tb, w))
+
+
+# the group_norm kernels' tables against the plain composition, relative to
+# each table's largest entry: the plain version's fp32 sums run over up to
+# 2^18 values a group, the kernel's over short runs added in double
+NORM_TOL = 1e-4
+# (B, s, C) of every Block input of the iqt-sr-unet serve forward (rows cut
+# to one or two 27-sub-volume windows), SRUnet256's first level (C 32, 4
+# channels a group) and its small edges (C 1024 at 4^3 and 2^3)
+_NORM_SHAPES = [(54, 32, 64), (27, 32, 128), (54, 16, 64), (54, 16, 128), (27, 16, 192),
+                (54, 8, 128), (27, 32, 32), (27, 4, 1024), (27, 2, 1024)]
+
+
+def _norm_case(dev, n, s, c, kind="per_sample", seed=0, mean=0.0):
+    """x, the GroupNorm scale and bias, and the time scale and shift: none,
+    one per sub-volume (the halves of one bf16 (n, 1, 1, 1, 2C) tensor, as
+    the time MLP gives them) or one per 27-sub-volume window in fp32 (n < B)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (mean + torch.randn((n, s, s, s, c), generator=g, device=dev)).to(torch.bfloat16)
+    ns = 1.0 + 0.1 * torch.randn(c, generator=g, device=dev)
+    nb = 0.1 * torch.randn(c, generator=g, device=dev)
+    if kind is None:
+        return x, ns, nb, None, None
+    rows = n if kind == "per_sample" else n // 27
+    emb = 0.2 * torch.randn((rows, 1, 1, 1, 2 * c), generator=g, device=dev)
+    scale, shift = (emb.to(torch.bfloat16) if kind == "per_sample" else emb).chunk(2, dim=-1)
+    return x, ns, nb, scale, shift
+
+
+def _tables_close(got, want, tol_rel=NORM_TOL):
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32 and g.is_contiguous()
+        assert g.data_ptr() % 16 == 0
+        _close(g, w, tol_rel)
+
+
+@pytest.mark.parametrize("n,s,c", _NORM_SHAPES)
+def test_norm_tables_match_plain(dev, n, s, c):
+    """The group_norm pair at every Block width and edge of the serve
+    forward and SRUnet256's, factor 3, one launch counted."""
+    x, ns, nb, scale, shift = _norm_case(dev, n, s, c, seed=n + s + c)
+    kernels.reset_launch_counts()
+    got = kernels.KERNELS.norm_tables(x, ns, nb, scale, shift, 8, 3)
+    assert kernels.launch_counts()["group_norm"] == 1
+    _tables_close(got, kernels.PLAIN.norm_tables(x, ns, nb, scale, shift, 8, 3))
+
+
+@pytest.mark.parametrize("kind", [None, "per_sample", "per_group"])
+@pytest.mark.parametrize("factor", [3, 1])
+def test_norm_tables_factor_and_time_forms(dev, factor, kind):
+    """Factor 3 and 1 (SAME convs: only the sub-volume's own region), with
+    no time scale-shift, a per-sub-volume bf16 one and a per-window fp32 one."""
+    x, ns, nb, scale, shift = _norm_case(dev, 54, 16, 64, kind=kind, seed=factor)
+    got = tfb.norm_tables(x, ns, nb, scale, shift, 8, factor)
+    _tables_close(got, tfb.norm_tables_plain(x, ns, nb, scale, shift, 8, factor))
+
+
+def test_norm_tables_nan_and_identical_bits(dev):
+    """NaN in one sub-volume reaches exactly the table entries the plain
+    version makes NaN; two launches give the same bits; a clean launch after
+    an all-NaN one is clean."""
+    x, ns, nb, scale, shift = _norm_case(dev, 27, 16, 64, seed=5)
+    args = (ns, nb, scale, shift, 8, 3)
+    once = tfb.norm_tables(x, *args)
+    assert all(torch.equal(a, b) for a, b in zip(once, tfb.norm_tables(x, *args)))
+    bad = x.clone()
+    bad[13, 3, 4, 5, 17] = float("nan")
+    got, want = tfb.norm_tables(bad, *args), tfb.norm_tables_plain(bad, *args)
+    for g, w in zip(got, want):
+        assert torch.equal(torch.isnan(g), torch.isnan(w)) and torch.isnan(w).any()
+        keep = ~torch.isnan(w)
+        _close(g[keep], w[keep])
+    tfb.norm_tables(torch.full_like(x, float("nan")), *args)
+    assert all(torch.equal(a, b) for a, b in zip(once, tfb.norm_tables(x, *args)))
+
+
+def _tables_fp64(x, ns, nb, scale, shift, groups, factor, eps=1e-5):
+    """The tables in fp64 throughout, the variance by two passes."""
+    b, c = x.shape[0], x.shape[-1]
+    xv = x.double().reshape(b, -1, groups, c // groups)
+    var, mean = torch.var_mean(xv, dim=(1, 3), unbiased=False)
+    rstd = (var + eps).rsqrt().repeat_interleave(c // groups, dim=1)
+    a = rstd * ns.double()
+    bb = nb.double() - mean.repeat_interleave(c // groups, dim=1) * a
+    sc, sh = (t.double().reshape(t.shape[0], c).repeat_interleave(b // t.shape[0], dim=0)
+              for t in (scale, shift))
+    return tfb.neighbor_tables(a * (sc + 1.0), bb * (sc + 1.0) + sh, factor)
+
+
+def test_norm_tables_large_mean_against_fp64(dev):
+    """|mean| >> std (100 against 1): both versions against the tables
+    computed in fp64 from the same bf16 input; the kernel's error is no
+    worse than twice the plain version's."""
+    x, ns, nb, scale, shift = _norm_case(dev, 27, 32, 64, seed=9, mean=100.0)
+    args = (ns, nb, scale, shift, 8, 3)
+    exact = _tables_fp64(x, *args)
+    for got, plain, want in zip(tfb.norm_tables(x, *args), tfb.norm_tables_plain(x, *args),
+                                exact):
+        err_k = (got.double() - want).abs().max().item()
+        err_p = (plain.double() - want).abs().max().item()
+        assert err_k <= 2.0 * err_p + 1e-6 * want.abs().max().item(), (err_k, err_p)
+
+
+def test_norm_tables_refuse_what_the_kernels_do_not_take(dev):
+    x, ns, nb, _, _ = _norm_case(dev, 27, 8, 64, kind=None)
+    with pytest.raises(ValueError, match="bfloat16"):
+        tfb.norm_tables(x.float(), ns, nb, None, None, 8, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfb.norm_tables(x.transpose(1, 2), ns, nb, None, None, 8, 3)
+    x12 = torch.zeros((27, 8, 8, 8, 12), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tfb.norm_tables(x12, ns[:12], nb[:12], None, None, 4, 3)
+
+
+def test_serve_forward_counts_one_group_norm_per_block(dev):
+    """One forward of the served U-Net (``config/eval_config.yaml``) at one
+    window: ``group_norm`` counts one launch per Block, and the output
+    agrees with the plain path's."""
+    from diffusioniqt_tpu_torch.config import load_config
+    from diffusioniqt_tpu_torch.models.blocks import Block
+    from diffusioniqt_tpu_torch.models.unet3d import iqt_unet_from_config
+
+    torch.manual_seed(0)
+    model = iqt_unet_from_config(load_config("config/eval_config.yaml"), device=dev).eval()
+    blocks = sum(isinstance(m, Block) for m in model.modules())
+    x, lowres = (torch.randn((27, 32, 32, 32, 1), device=dev) for _ in range(2))
+    t = torch.full((27,), 0.5, device=dev)
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        got = model(x, t, t, lowres_cond_img=lowres)
+        counts = kernels.launch_counts()
+        want = model.use_ops(kernels.PLAIN)(x, t, t, lowres_cond_img=lowres)
+    assert blocks == 38 and counts["group_norm"] == counts["fused_block"] == blocks
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 5e-2
 
 
 @pytest.mark.parametrize("s,cin,cout", [(8, 1, 16), (8, 2, 16), (8, 3, 16), (8, 8, 16),
@@ -511,7 +645,7 @@ def test_small_attention_unet_runs_through_the_kernels(dev):
     # 2 levels x (init + 1 block) down and up, the mid block, the final block
     n_res = 2 * 2 + 1 + 2 * 2 + 1
     assert counts == {"halo": 2 * n_res + 1, "conv3d": 1, "fused_block": 2 * n_res, "fused_block_small": 0,
-                      "flash_attention": 3}
+                      "flash_attention": 3, "group_norm": 2 * n_res}
     assert torch.isfinite(got).all()
     assert ((got - want).abs().max() / want.abs().max()).item() <= 5e-2
 
@@ -558,7 +692,7 @@ def test_small_unet_runs_through_the_kernels(dev):
     # 2 levels x (init + 2 blocks) down and up, plus the final block
     n_res = 2 * 3 + 2 * 3 + 1
     assert counts == {"halo": 2 * n_res + 1, "conv3d": 1, "fused_block": 2 * n_res, "fused_block_small": 0,
-                      "flash_attention": 0}
+                      "flash_attention": 0, "group_norm": 2 * n_res}
     assert torch.isfinite(got).all()
     # bf16 rounding differences compound through the network
     assert ((got - want).abs().max() / want.abs().max()).item() <= 5e-2
@@ -590,7 +724,7 @@ def test_edm_heun_step_through_the_kernels(dev):
     want = run()
     n_res = 2 * 3 + 2 * 3 + 1
     assert counts == {"halo": 3 * (2 * n_res + 1), "conv3d": 3, "fused_block": 3 * 2 * n_res, "fused_block_small": 0,
-                      "flash_attention": 0}
+                      "flash_attention": 0, "group_norm": 3 * 2 * n_res}
     assert torch.isfinite(got).all()
     assert ((got - want).abs().max() / want.abs().max()).item() <= 5e-2
 
@@ -752,7 +886,7 @@ def test_small_attention_unet_train_step_through_the_kernels(dev):
     loss_p, grads_p, _ = step(kernels.PLAIN)
     n_res = 2 * 2 + 1 + 2 * 2 + 1
     assert counts == {"halo": 2 * n_res + 1, "conv3d": 1, "fused_block": 2 * n_res, "fused_block_small": 0,
-                      "flash_attention": 3}
+                      "flash_attention": 3, "group_norm": 2 * n_res}
     assert abs(loss_k - loss_p) <= 5e-2 * abs(loss_p)
     cos = {k: float((g.flatten() @ grads_p[k].flatten()) / (g.norm() * grads_p[k].norm()))
            for k, g in grads_k.items()}
@@ -813,7 +947,7 @@ def test_block_backward_matches_plain_composition_without_scatter(dev):
     kernels.reset_launch_counts()
     got, got_scatter = grads(block)
     assert kernels.launch_counts() == {"halo": 1, "conv3d": 0, "fused_block": 1, "fused_block_small": 0,
-                                       "flash_attention": 0}
+                                       "flash_attention": 0, "group_norm": 1}
     want, want_scatter = grads(tables)
     assert got_scatter == 0 and want_scatter > 0, (got_scatter, want_scatter)
     for name, a, b in zip(("x", "norm_scale", "norm_bias", "scale", "shift", "w"), got, want):

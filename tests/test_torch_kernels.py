@@ -221,6 +221,132 @@ def test_groupnorm_affine_and_tables_match_jax():
     np.testing.assert_array_equal(ttb.numpy(), np.asarray(jtb))
 
 
+def _time_scale_shift(kind, b, c):
+    """No time scale-shift, one per sub-volume, or one per group of b // 3
+    sub-volumes (n < B, broadcast as ``_per_sample`` does)."""
+    if kind is None:
+        return None, None
+    n = b if kind == "per_sample" else 3
+    return (_t(_rand((n, 1, 1, 1, c), seed=11, scale=0.2)),
+            _t(_rand((n, 1, 1, 1, c), seed=12, scale=0.2)))
+
+
+@pytest.mark.parametrize("factor", [3, 1])
+@pytest.mark.parametrize("kind", [None, "per_sample", "per_group"])
+def test_norm_tables_plain_equals_affine_and_tables(kind, factor):
+    """``PLAIN.norm_tables`` and ``KERNELS.norm_tables`` on a CPU tensor are
+    :func:`groupnorm_affine` then :func:`neighbor_tables`, exactly."""
+    x, ns, nb, _ = _fused_inputs(b=54, s=3, c=8)
+    scale, shift = _time_scale_shift(kind, 54, 8)
+    a, bb = tfb.groupnorm_affine(_t(x), _t(ns), _t(nb), 4, scale_shift=(
+        None if scale is None else (scale, shift)))
+    want = tfb.neighbor_tables(a, bb, factor)
+    before = kernels.launch_counts()
+    for ops in (kernels.PLAIN, kernels.KERNELS):
+        got = ops.norm_tables(_t(x), _t(ns), _t(nb), scale, shift, 4, factor)
+        for g, w in zip(got, want):
+            assert g.shape == (54, 27, 8) and g.dtype == torch.float32 and g.is_contiguous()
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert kernels.launch_counts() == before  # the CPU path launches nothing
+
+
+@pytest.mark.parametrize("with_scale_shift", [False, True])
+def test_fused_boundary_block_plain_ops_unchanged(with_scale_shift):
+    """The Block through :data:`PLAIN` is the composition it was before the
+    tables had an entry of their own: affine, tables, halo, fused conv."""
+    x, ns, nb, w = _fused_inputs(b=27, s=4, c=8, cout=8)
+    ss = _time_scale_shift("per_sample" if with_scale_shift else None, 27, 8)
+    ss = None if ss[0] is None else ss
+    got = tfb.fused_boundary_block(_t(x), _t(ns), _t(nb), ss, _torch_w(w), 4, 3,
+                                   ops=kernels.PLAIN)
+    a, bb = tfb.groupnorm_affine(_t(x), _t(ns), _t(nb), 4, scale_shift=ss)
+    ta, tb = tfb.neighbor_tables(a, bb, 3)
+    want = tfb.fused_conv_plain(kernels.halo_exchange_plain(_t(x), 3), ta, tb, _torch_w(w))
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+# the forwards of chip_smoke.py whose group_norm launches it checks against
+# GROUP_NORM_SHAPES on the card: config (a chip_smoke.py constant, or
+# SRUnet256), the change chip_smoke.py makes to it, and the rows it runs at
+# (the EDM config's: tp-serve and tp-train's ranks at one window, tp-train's
+# 1-rank trainer at data 1, 2 and 4)
+_SMOKE_NORM_PATHS = {
+    "flagship": ("FLAGSHIP_CONFIG", {}, (27, 216)),
+    "attention": ("ATTN_CONFIG", {}, (27, 216)),
+    "vit": ("ATTN_CONFIG", {"att_type": "vit"}, (27,)),
+    "efficient": ("FLAGSHIP_CONFIG", {"efficient": True}, (27, 216)),
+    "edm": ("EDM_CONFIG", {}, (27, 54, 108)),
+    "train": ("TRAIN_CONFIG", {}, (27,)),
+    "srunet256": (None, {}, (27,)),
+}
+
+
+@pytest.mark.parametrize("path", sorted(_SMOKE_NORM_PATHS))
+def test_chip_smoke_compares_every_group_norm_shape(path):
+    """``chip_smoke.py``'s GROUP_NORM_SHAPES holds the (B, s, C, factor) of
+    every ``norm_tables`` call of each forward whose launches it checks
+    (``compared_norm_tables``), so that the card run fails on none: the
+    model built on the meta device and run at that path's rows."""
+    import dataclasses
+    import os
+    import runpy
+
+    from diffusioniqt_tpu_torch.config import load_config
+    from diffusioniqt_tpu_torch.models.unet3d import SRUnet256, iqt_unet_from_config
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    smoke = runpy.run_path(os.path.join(root, "chip_smoke.py"), run_name="chip_smoke_constants")
+    config, changes, row_counts = _SMOKE_NORM_PATHS[path]
+    meta = torch.device("meta")
+    if config is None:
+        with meta:
+            model = SRUnet256(channels=1, lowres_cond=True, dtype=torch.bfloat16)
+    else:
+        cfg = load_config(os.path.join(root, smoke[config]))
+        for key, value in changes.items():
+            setattr(cfg.train, key, value)
+        model = iqt_unet_from_config(cfg, device=meta)
+    seen = set()
+
+    def norm_tables(x, norm_scale, norm_bias, scale, shift, groups, factor, eps=1e-5):
+        seen.add((x.shape[0], x.shape[1], x.shape[4], factor))
+        tab = x.new_empty((x.shape[0], 27, x.shape[4]), dtype=torch.float32)
+        return tab, tab
+
+    def conv(xh, w, *rest):  # the shape of a VALID 3^3 conv, on the meta device
+        s = xh.shape[1] - 2
+        return xh.new_empty((xh.shape[0], s, s, s, w.shape[0]))
+
+    ops = dataclasses.replace(kernels.PLAIN, norm_tables=norm_tables,
+                              conv3d=conv, fused_conv=lambda xh, a, b, w, cache=None: conv(xh, w))
+    model.use_ops(ops)
+    with torch.no_grad():
+        for rows in row_counts:
+            x, lowres = (torch.empty((rows, 32, 32, 32, 1), device=meta) for _ in range(2))
+            model(x, torch.full((rows,), 0.5, device=meta), torch.full((rows,), -1.0, device=meta),
+                  lowres_cond_img=lowres)
+    assert seen
+    assert seen <= set(smoke["GROUP_NORM_SHAPES"]), sorted(seen - set(smoke["GROUP_NORM_SHAPES"]))
+
+
+def test_norm_chunks_fill_the_card():
+    """The statistics kernel's chunks (``fused_block.norm_chunks``, 132 SMs):
+    several waves of CTAs at the serve and train shapes, at least
+    NORM_MIN_LOADS loads a thread, one CTA a sub-volume at the small edges."""
+    sms = 132
+    want = {(216, 32, 64): 20, (216, 32, 128): 20, (216, 16, 64): 8, (216, 16, 192): 20,
+            (216, 8, 128): 2, (27, 32, 64): 64, (216, 4, 256): 1, (27, 4, 512): 1,
+            (27, 2, 1024): 1, (27, 32, 32): 32}
+    for (nb, s, c), chunks in want.items():
+        got = tfb.norm_chunks(nb, s ** 3, c, sms)
+        assert got == chunks, ((nb, s, c), got)
+        rows = tfb.NORM_THREADS // min(c // 8, tfb.NORM_TILE_VECS)
+        if got > 1:
+            assert s ** 3 // got >= rows * tfb.NORM_MIN_LOADS
+            assert nb * got >= sms * tfb.NORM_CTAS_PER_SM or (
+                s ** 3 // (got + 1) < rows * tfb.NORM_MIN_LOADS)
+
+
 def test_mish_one_exp_matches_mish():
     from diffusioniqt_tpu_torch.utils.misc import mish
 
@@ -253,6 +379,9 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         kernels.conv3d_valid(torch.empty((1, 6, 6, 6, 8), device="meta"),
                              torch.empty((8, 8, 3, 3, 3), device="meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        tfb.norm_tables(x, torch.empty(8, device="meta"), torch.empty(8, device="meta"),
+                        None, None, 4, 3)
 
 
 # ------------------------------------------- the implicit GEMM, tile by tile

@@ -178,13 +178,14 @@ def test_launch_counters_keep_their_lines():
     launch's host time is counted only while recording."""
     kernels.reset_launch_counts()
     zero = dict.fromkeys(("halo", "conv3d", "fused_block", "fused_block_small",
-                          "flash_attention"), 0)
+                          "flash_attention", "group_norm"), 0)
     assert kernels.launch_counts() == zero
     profiling.count("kernels.launches.fused_block", 3)
     profiling.count("kernels.launches.halo")
+    profiling.launched("group_norm")
     assert kernels.launches_line() == (
         'Kernel launches: {"halo": 1, "conv3d": 0, "fused_block": 3, '
-        '"fused_block_small": 0, "flash_attention": 0}')
+        '"fused_block_small": 0, "flash_attention": 0, "group_norm": 1}')
     with _profiled():
         profiling.launch_timed("halo", profiling.launch_clock())
     profiling.launch_timed("halo", profiling.launch_clock())
